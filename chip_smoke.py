@@ -1,37 +1,55 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's publish→restore main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's publish→restore paths on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 
 1. card    — ``nvidia-smi`` name and power limit; no CUDA card is an error.
-2. build   — compiles every CUDA kernel of the path from ``src/repro_torch``
+2. build   — compiles every CUDA kernel of the port from ``src/repro_torch``
              (one nvcc per source, all at once) into ``build/repro_torch_kernels``.
 3. image   — a 1.5 GiB guest image (393,216 pages of 4 KiB, the paper's
              default instance) made on the card from ``--seed``: ~60% zero
              pages, ~5.5% hot pages in runs of mean ~5, the rest cold.
-4. kernels — each kernel against its plain torch version on the card,
-             bit for bit (small, ragged, all-zero, all-hot, all-ones cases,
-             the full image for publish, a 256-page chunk and a forced
-             checksum mismatch for restore), then CUDA-event timings of
-             kernel and plain version beside the least time the card could
-             take for the same work.  The restore kernel's time is its
-             device time per launch (the C entry point on device-resident
-             indices, replayed from a CUDA graph); the wrapper's whole round
-             trip is kept beside it as a separate number.
-5. main    — ``HierarchicalPool`` → ``build_snapshot(publish_fn=fused)`` →
-             ``SnapshotReader`` → ``Instance`` → ``RestoreEngine(FusedScatter)``
-             → ``pre_install_hot`` → ``install_all_sync``; the restored image
+4. kernels — each of the six kernels against its plain torch version on the
+             card, bit for bit (small, ragged, all-zero, none-zero, all-0xFF
+             cases; the full image for publish, zero_detect and
+             page_checksum; the image's hot and cold sets for page_gather; a
+             256-page chunk and a forced checksum mismatch for restore; rows
+             past 2^31 bytes of a 3 GiB arena for page_gather and
+             page_scatter), then CUDA-event timings of each kernel, its
+             plain version and its library yardstick at the paths' shapes,
+             beside the least time the card could take for the same work.
+             The two per-chunk kernels (fused restore, page_scatter) are timed
+             by their device time per launch (the C entry point on
+             device-resident indices, replayed from a CUDA graph); the
+             wrappers' round trips are kept beside them as separate numbers.
+5. main    — the private layout: ``HierarchicalPool`` →
+             ``build_snapshot(publish_fn=fused)`` → ``SnapshotReader`` →
+             ``Instance`` → ``RestoreEngine(FusedScatter)`` →
+             ``pre_install_hot`` → ``install_all_sync``; the restored image
              must equal the source, every installed page must be verified,
              and both kernels' launch counts (reset just before) must match
              the path's shape.
-6. profile — publish and restore once more under ``torch.profiler``:
-             device busy time by kernel and copy, and the idle share.
+6. profile — the private path once more under ``torch.profiler``: device
+             busy time by kernel and copy, and the idle share.
+7. dedup   — a fleet of four variants of the image (shared base hot pages,
+             a per-variant hot delta of round(n_hot*12/256) pages, a
+             per-variant cold arena, shared zero pages) published into one
+             content-addressed pool: variants 0 and 1 through the default
+             kernels (zero_detect, page_gather, page_checksum as the store
+             hash, page_scatter for store writes and restores), 2 and 3
+             through the fused publish and the verified fused restore.  Store
+             counts, refcounts (I6), the CXL estimate, every restore, the
+             reconstruction of variant 3 and the launch counts of all six
+             kernels (reset just before) must match the fleet's shape;
+             freeing the fleet must empty both stores.  One more variant is
+             published and restored under ``torch.profiler``.
 
-Prints a ``{"kernels": [...]}`` line, the card line, and as the last line
-``{"ok": true, "device": {...}}``.  Details go to ``--out``.  Modeled ledger
-seconds are the paper's CXL/RDMA cost model, not device times.
+Prints each phase's wall time, a ``{"kernels": [...]}`` line, the card line,
+and as the last line ``{"ok": true, "device": {...}}``.  Details go to
+``--out``.  Modeled ledger seconds are the paper's CXL/RDMA cost model, not
+device times.
 """
 from __future__ import annotations
 
@@ -53,6 +71,14 @@ INT32_OPS_PER_S = 67e12                        # 32-bit rate outside the tensor 
 PUBLISH_TPU = "src/repro/kernels/snapshot_fuse/kernel.py:94"
 RESTORE_TPU = "src/repro/kernels/snapshot_fuse/kernel.py:146"
 CSRC = "src/repro_torch/kernels/snapshot_fuse/csrc"
+ROW_KERNELS = {   # name -> the TPU kernel it replaces
+    "zero_detect": "src/repro/kernels/zero_detect/kernel.py:26",
+    "page_checksum": "src/repro/kernels/page_checksum/kernel.py:22",
+    "page_gather": "src/repro/kernels/page_gather/kernel.py:26",
+    "page_scatter": "src/repro/kernels/page_scatter/kernel.py:25",
+}
+ARENA_BYTES = 3 << 30          # the dedup pool's RDMA arena: rows pass 2^31 bytes
+N_VARIANTS = 4
 
 
 def log(msg: str) -> None:
@@ -256,6 +282,436 @@ def profile_main_path(torch, pool, image, working_set, ops, out_dir: Path) -> di
     return out
 
 
+def _require_equal(name: str, got, want) -> None:
+    import torch
+
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel differs from its plain version")
+
+
+def check_row_kernels(torch, np, pm, fused_csum, hot_idx, cold_idx, device) -> dict:
+    """The four piecemeal kernels against their plain versions on the card,
+    bit for bit; returns each kernel's largest absolute difference (0)."""
+    from repro_torch.kernels import page_checksum, page_gather, page_scatter, zero_detect
+    from repro_torch.kernels.page_checksum.ref import page_checksum_ref
+    from repro_torch.kernels.page_gather.ref import page_gather_ref
+    from repro_torch.kernels.page_scatter.ref import page_scatter_ref
+    from repro_torch.kernels.zero_detect.ref import zero_detect_ref
+
+    rng = np.random.default_rng(5)
+    err = dict.fromkeys(ROW_KERNELS, 0)
+
+    def pages(rows, fill):
+        if fill is not None:
+            return torch.full((rows, PAGE), fill, dtype=torch.uint8, device=device)
+        p = torch.from_numpy(rng.integers(0, 256, (rows, PAGE), dtype=np.uint8)).to(device)
+        p[::3] = 0
+        p[1::7] = 0xFF
+        return p
+
+    cases = [(name, pages(rows, fill)) for name, rows, fill in (
+        ("N=0", 0, None), ("ragged N=37", 37, None), ("N=1000", 1000, None),
+        ("all-zero", 64, 0), ("none-zero", 64, 7), ("all-0xFF", 64, 0xFF))]
+    cases.append(("1.5 GiB image", pm))
+    for name, p in cases:
+        z, c = zero_detect(p), page_checksum(p)
+        zr, cr = zero_detect_ref(p), page_checksum_ref(p)
+        torch.cuda.synchronize()
+        _require_equal(f"zero_detect ({name})", z, zr)
+        _require_equal(f"page_checksum ({name})", c, cr)
+        err["zero_detect"] = max(err["zero_detect"], max_abs_err([(z, zr)]))
+        err["page_checksum"] = max(err["page_checksum"], max_abs_err([(c, cr)]))
+        log(f"  zero_detect + page_checksum {name}: n={p.shape[0]} bit-equal")
+    f = torch.zeros((5, 1024), dtype=torch.float32, device=device)
+    f[1, 3] = -0.0
+    f[2, :] = -0.0
+    f[3, 5] = float("nan")
+    f[4, 1023] = 1.0
+    zf = zero_detect(f)
+    _require_equal("zero_detect (float32 +-0, NaN)", zf, zero_detect_ref(f))
+    if zf.tolist() != [1, 1, 1, 0, 0]:
+        raise AssertionError(f"zero_detect float32 value semantics: {zf.tolist()}")
+    _require_equal("page_checksum vs fused_publish's column (1.5 GiB image)",
+                   page_checksum(pm), fused_csum)
+    log("  zero_detect float32 +-0/NaN by value; page_checksum equals fused_publish's column")
+    for name, idx in (("hot set", hot_idx), ("cold set", cold_idx),
+                      ("N=0", np.zeros(0, np.int64)),
+                      ("ragged N=37, permuted, repeated", rng.integers(0, pm.shape[0], 37))):
+        got = page_gather(pm, idx)
+        want = page_gather_ref(pm, torch.from_numpy(np.asarray(idx, np.int64)).to(device))
+        torch.cuda.synchronize()
+        _require_equal(f"page_gather ({name})", got, want)
+        log(f"  page_gather {name}: m={len(idx)} bit-equal")
+    chunk = page_gather(pm, hot_idx[:256])
+    for name, m, with_src in (("256-page chunk", 256, False),
+                              ("256-page chunk, src perm", 256, True),
+                              ("N=0", 0, False), ("ragged N=37", 37, True)):
+        dst = np.sort(rng.choice(pm.shape[0], m, replace=False))
+        src = rng.permutation(256)[:m] if with_src else None
+        compact = chunk if with_src else chunk[:m]
+        dest_k = torch.zeros((pm.shape[0], PAGE), dtype=torch.uint8, device=device)
+        dest_p = torch.zeros_like(dest_k)
+        page_scatter(dest_k, compact, dst, src_indices=src)
+        page_scatter_ref(dest_p, compact, torch.from_numpy(dst).to(device),
+                         None if src is None else torch.from_numpy(src).to(device))
+        torch.cuda.synchronize()
+        _require_equal(f"page_scatter ({name})", dest_k, dest_p)
+        del dest_k, dest_p
+        log(f"  page_scatter {name}: m={m} bit-equal")
+    check_far_rows(torch, np, chunk, device)
+    return err
+
+
+def check_far_rows(torch, np, chunk, device) -> None:
+    """page_gather and page_scatter on rows whose byte offsets pass 2^31 in a
+    3 GiB arena (64-bit offsets), against the plain versions."""
+    from repro_torch.kernels import page_gather, page_scatter
+    from repro_torch.kernels.page_gather.ref import page_gather_ref
+    from repro_torch.kernels.zero_detect.ref import zero_detect_ref
+
+    arena = torch.zeros((ARENA_BYTES // PAGE, PAGE), dtype=torch.uint8, device=device)
+    far = np.array([arena.shape[0] - 1, 600_000, 1 << 19, (1 << 19) - 1], np.int64)
+    page_scatter(arena, chunk, far, src_indices=np.array([3, 2, 1, 0]))
+    far_t = torch.from_numpy(far).to(device)
+    got = page_gather(arena, far)
+    torch.cuda.synchronize()
+    _require_equal("page_gather (rows past 2^31 bytes)", got, page_gather_ref(arena, far_t))
+    _require_equal("page_scatter (rows past 2^31 bytes)", got, chunk[[3, 2, 1, 0]])
+    if int(zero_detect_ref(arena).sum()) != arena.shape[0] - 4:
+        raise AssertionError("page_scatter past 2^31 bytes wrote rows it was not given")
+    log(f"  page_gather + page_scatter rows {far.tolist()} of a 3 GiB arena "
+        f"(byte offsets up to {int(far.max()) * PAGE}): bit-equal, other rows untouched")
+
+
+def scatter_kernel_ms(torch, dest, chunk, dst_t, reps: int = 100):
+    """Device time per launch of the page_scatter C entry point on
+    device-resident indices, ``reps`` launches replayed from one CUDA graph,
+    and the time per launch when the host issues them one by one."""
+    from repro_torch.kernels.page_scatter import kernel
+
+    def launch():
+        kernel.page_scatter(dest, chunk, dst_t, None)
+
+    issued_ms = cuda_ms(launch, iters=200, warmup=10)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            launch()
+    return cuda_ms(graph.replay, iters=20, warmup=2) / reps, issued_ms
+
+
+def time_row_kernels(torch, pm, hot_idx, cold_idx, device) -> dict:
+    """CUDA-event times of the four kernels, their plain versions and their
+    library yardsticks at the dedup path's shapes, beside their bounds."""
+    from repro_torch.kernels import page_checksum, page_gather, page_scatter, zero_detect
+    from repro_torch.kernels.page_checksum.ref import page_checksum_ref
+    from repro_torch.kernels.page_gather.ref import page_gather_ref
+    from repro_torch.kernels.page_scatter.ref import page_scatter_ref
+    from repro_torch.kernels.zero_detect.ref import zero_detect_ref
+
+    n = pm.shape[0]
+    out = {}
+    lanes = PAGE // 4
+    b, by = bound_ms(n * PAGE + 4 * n, 2 * n * lanes)
+    out["zero_detect"] = {
+        "shape": f"full image, {n} pages", "ms": cuda_ms(lambda: zero_detect(pm), iters=20),
+        "plain_ms": cuda_ms(lambda: zero_detect_ref(pm), iters=5, warmup=1),
+        "library_ms": cuda_ms(lambda: pm.any(dim=1), iters=10), "library": "Tensor.any(dim=1)",
+        "bound_ms": b, "bound_by": by}
+    hot_t = torch.from_numpy(hot_idx).to(device)
+    cold_t = torch.from_numpy(cold_idx).to(device)
+    sizes = {}
+    for name, idx_t in (("cold", cold_t), ("hot", hot_t)):
+        m = idx_t.shape[0]
+        rows = page_gather(pm, idx_t)
+        bc, byc = bound_ms(m * PAGE + 4 * m, 2 * m * lanes)
+        bg, byg = bound_ms(2 * m * PAGE + 8 * m, 0)
+        sizes[name] = {
+            "page_checksum": {
+                "shape": f"{name} store batch, {m} pages",
+                "ms": cuda_ms(lambda: page_checksum(rows), iters=20),
+                "plain_ms": cuda_ms(lambda: page_checksum_ref(rows), iters=3, warmup=1),
+                "library_ms": None, "library": None, "bound_ms": bc, "bound_by": byc},
+            "page_gather": {
+                "shape": f"{name} set of the image, {m} pages",
+                "ms": cuda_ms(lambda: page_gather(pm, idx_t), iters=20),
+                "plain_ms": cuda_ms(lambda: page_gather_ref(pm, idx_t), iters=5, warmup=1),
+                "library_ms": cuda_ms(lambda: torch.index_select(pm, 0, idx_t), iters=10),
+                "library": "torch.index_select", "bound_ms": bg, "bound_by": byg}}
+        del rows
+    out["page_checksum"] = sizes["cold"]["page_checksum"]
+    out["page_gather"] = sizes["cold"]["page_gather"]
+    out["hot_shapes"] = {k: sizes["hot"][k] for k in ("page_checksum", "page_gather")}
+    b_img, by_img = bound_ms(n * PAGE + 4 * n, 2 * n * lanes)
+    out["page_checksum_full_image"] = {"ms": cuda_ms(lambda: page_checksum(pm), iters=10),
+                                       "bound_ms": b_img, "bound_by": by_img}
+    m = 256
+    dest = torch.zeros_like(pm)
+    chunk = page_gather(pm, hot_idx[:m])
+    dst = hot_idx[:m]
+    dst_t = hot_t[:m]
+    graph_ms, issued_ms = scatter_kernel_ms(torch, dest, chunk, dst_t)
+    bs, bys = bound_ms(2 * m * PAGE + 8 * m, 0)
+    out["page_scatter"] = {
+        "shape": f"{m}-page restore chunk", "ms": graph_ms, "kernel_host_issued_ms": issued_ms,
+        "wrapper_ms": cuda_ms(lambda: page_scatter(dest, chunk, dst), iters=200, warmup=10),
+        "plain_ms": cuda_ms(lambda: page_scatter_ref(dest, chunk, dst_t), iters=50, warmup=5),
+        "library_ms": cuda_ms(lambda: dest.index_copy_(0, dst_t, chunk), iters=50, warmup=5),
+        "library": "Tensor.index_copy_", "bound_ms": bs, "bound_by": bys}
+    if not torch.equal(page_gather(dest, dst_t), chunk):
+        raise AssertionError("timed page_scatter launches left the wrong rows")
+    del dest
+    rows = page_gather(pm, cold_t)
+    arena = torch.zeros((ARENA_BYTES // PAGE, PAGE), dtype=torch.uint8, device=device)
+    at = torch.arange(rows.shape[0], device=device) * 5 % arena.shape[0]
+    bw, byw = bound_ms(2 * rows.shape[0] * PAGE + 8 * rows.shape[0], 0)
+    out["page_scatter_store_write"] = {
+        "shape": f"cold store write, {rows.shape[0]} pages into a 3 GiB arena",
+        "ms": cuda_ms(lambda: page_scatter(arena, rows, at), iters=10),
+        "bound_ms": bw, "bound_by": byw}
+    del arena, rows
+    torch.cuda.empty_cache()
+    for name in ROW_KERNELS:
+        r = out[name]
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms ({r['library']})"
+        log(f"  {name:13s} {r['ms']:.5f} ms at {r['shape']} (plain {r['plain_ms']:.5f} ms, "
+            f"library {lib}, bound {r['bound_ms']:.6f} ms by {r['bound_by']})")
+    for name, r in out["hot_shapes"].items():
+        log(f"  {name:13s} {r['ms']:.5f} ms at {r['shape']} (plain {r['plain_ms']:.5f} ms, "
+            f"bound {r['bound_ms']:.6f} ms)")
+    r = out["page_checksum_full_image"]
+    log(f"  page_checksum {r['ms']:.5f} ms at the full image (bound {r['bound_ms']:.5f} ms)")
+    r = out["page_scatter"]
+    log(f"  page_scatter  host-issued {r['kernel_host_issued_ms']:.5f} ms per launch, wrapper "
+        f"round trip {r['wrapper_ms']:.5f} ms per {m}-page chunk")
+    r = out["page_scatter_store_write"]
+    log(f"  page_scatter  {r['ms']:.5f} ms at {r['shape']} (bound {r['bound_ms']:.5f} ms)")
+    return out
+
+
+def make_variant(torch, base: "torch.Tensor", hot_t, cold_t, d: int, v: int, seed: int):
+    """Variant ``v`` of the fleet: the base image with its hot pages at ranks
+    [v*d, (v+1)*d) and all its cold pages drawn anew from ``(seed, v)``."""
+    g = torch.Generator(device=base.device)
+    g.manual_seed(seed * 1_000_003 + 7919 * (v + 1))
+    buf = base.clone()
+    rows = torch.cat([hot_t[v * d : (v + 1) * d], cold_t])
+    buf.view(-1, PAGE)[rows] = torch.randint(0, 256, (rows.numel(), PAGE), dtype=torch.uint8,
+                                             generator=g, device=base.device)
+    return buf
+
+
+def restore_variant(torch, core, pool, regions, src_buf, manifest, scatter) -> dict:
+    """Restore one published variant through ``RestoreEngine`` (pre-install,
+    then install everything) and compare it with its source."""
+    ledger = core.TimeLedger()
+    reader = core.SnapshotReader(regions, pool.host_view(f"host-{regions.name}", ledger),
+                                 pool.rdma)
+    reader.invalidate_cxl()
+    n_hot_ext = sum(1 for _ in reader.iter_hot_extents(core.RestoreEngine.HOT_CHUNK_PAGES))
+    n_cold_ext = sum(1 for _ in reader.iter_cold_extents(max_extent_pages=1 << 30))
+    inst = core.Instance(core.StateImage.empty_like(manifest, device=src_buf.device), ledger)
+    eng = core.RestoreEngine(reader, inst, scatter_fn=scatter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.pre_install_hot()
+    eng.install_all_sync()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not torch.equal(inst.image.buf, src_buf):
+        raise AssertionError(f"restore of {regions.name} differs from its source")
+    verified = None if scatter is None else inst.scatter_fn.stats["pages_verified"]
+    if scatter is not None and verified != regions.n_hot + regions.n_cold:
+        raise AssertionError(f"{regions.name}: {verified} pages verified")
+    return {"restore_s": wall, "hot_extents": n_hot_ext, "cold_extents": n_cold_ext,
+            "pages_verified": verified, "modeled_ledger_s": dict(ledger.seconds),
+            "modeled_total_s": ledger.total()}
+
+
+def i6_holds(np, core, pool, all_regions) -> bool:
+    """Store refcounts == live offset-array slots pointing at them, per tier."""
+    for store, tag in ((pool.dedup_cxl, core.TIER_CXL), (pool.dedup_rdma, core.TIER_RDMA)):
+        want = {}
+        for r in all_regions:
+            uniq, counts = np.unique(core.decode_dedup_offsets(pool, r, tag), return_counts=True)
+            for off, k in zip(uniq.tolist(), counts.tolist()):
+                want[off] = want.get(off, 0) + k
+        if want != store.refcounts():
+            return False
+    return True
+
+
+def dedup_phase(torch, np, base_buf, working_set, cold_idx, manifest, seed, out_dir) -> dict:
+    """Publish, restore, check and free the four-variant fleet (see the
+    module docstring); returns the phase's numbers."""
+    from repro_torch import core
+    from repro_torch.kernels import (FusedScatter, fused_publish, fused_restore,
+                                     make_fused_publish_fn, page_checksum, page_gather,
+                                     page_scatter, zero_detect)
+
+    device = base_buf.device
+    n_hot, n_cold = int(working_set.size), int(cold_idx.size)
+    d = round(n_hot * 12 / 256)
+    hot_t = torch.from_numpy(working_set).to(device)
+    cold_t = torch.from_numpy(cold_idx).to(device)
+    t0 = time.perf_counter()
+    variants = [make_variant(torch, base_buf, hot_t, cold_t, d, v, seed)
+                for v in range(N_VARIANTS)]
+    torch.cuda.synchronize()
+    rep = {"n_variants": N_VARIANTS, "n_hot": n_hot, "n_cold": n_cold, "delta_pages": d,
+           "make_s": time.perf_counter() - t0, "publishes": [], "restores": []}
+    counted = {"zero_detect": zero_detect, "page_checksum": page_checksum,
+               "page_gather": page_gather, "page_scatter": page_scatter,
+               "fused_publish": fused_publish, "fused_restore": fused_restore}
+    for k in counted.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pool = core.HierarchicalPool(device=device, rdma_capacity=ARENA_BYTES,
+                                 dedup_hash_fn=core.poly32_hash_fn)
+    stores = (pool.dedup_cxl, pool.dedup_rdma)
+    regions = []
+    for v, buf in enumerate(variants):
+        image = core.StateImage(manifest, buf)
+        kw = {} if v < 2 else {"publish_fn": make_fused_publish_fn()}
+        est = (core.estimate_snapshot_cxl_size(image, working_set, dedup=True, pool=pool)
+               if v == 3 else None)
+        before = [(s.stats["unique"], s.stats["dedup_hits"], s.decide_s) for s in stores]
+        cxl_before = pool.cxl.bytes_in_use
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        regions.append(core.build_snapshot(pool, image, working_set, f"v{v}", version=v,
+                                           dedup=True, **kw))
+        torch.cuda.synchronize()
+        row = {"variant": v, "route": "kernels" if v < 2 else "fused",
+               "publish_s": time.perf_counter() - t0,
+               "cxl_bytes_added": pool.cxl.bytes_in_use - cxl_before, "cxl_estimate": est}
+        for (u0, h0, s0), s, tier in zip(before, stores, ("cxl", "rdma")):
+            row[f"{tier}_new"] = s.stats["unique"] - u0
+            row[f"{tier}_hits"] = s.stats["dedup_hits"] - h0
+            row[f"{tier}_decide_s"] = s.decide_s - s0
+        rep["publishes"].append(row)
+        if est is not None and est != row["cxl_bytes_added"]:
+            raise AssertionError(f"estimate {est} != CXL bytes the publish added "
+                                 f"{row['cxl_bytes_added']}")
+        if v >= 2 and row["cxl_hits"] != n_hot - d:
+            raise AssertionError(f"variant {v}: {row['cxl_hits']} hot hits on stored base "
+                                 f"pages, want {n_hot - d}")
+        log(f"  publish v{v} ({row['route']}): {row['publish_s'] * 1e3:.2f} ms wall; new "
+            f"cxl {row['cxl_new']} rdma {row['rdma_new']}, hits cxl {row['cxl_hits']} "
+            f"rdma {row['rdma_hits']}; host decision {row['cxl_decide_s'] * 1e3:.2f} + "
+            f"{row['rdma_decide_s'] * 1e3:.2f} ms")
+    want_scatter = 2 * N_VARIANTS      # one store write per put_pages with new rows
+    want_restore = 0
+    for v, (reg, buf) in enumerate(zip(regions, variants)):
+        scatter = None if v < 2 else FusedScatter()
+        row = restore_variant(torch, core, pool, reg, buf, manifest, scatter)
+        row["variant"] = v
+        rep["restores"].append(row)
+        n_ext = row["hot_extents"] + row["cold_extents"]
+        if v < 2:
+            want_scatter += n_ext
+        else:
+            want_restore += n_ext
+        log(f"  restore v{v} ({'page_scatter' if v < 2 else 'fused, verified'}): "
+            f"{row['restore_s'] * 1e3:.2f} ms wall, {n_ext} extents, bit-identical; "
+            f"modeled {row['modeled_total_s'] * 1e3:.4f} ms")
+    t0 = time.perf_counter()
+    back = core.reconstruct_image(pool, regions[3])
+    torch.cuda.synchronize()
+    rep["reconstruct_s"] = time.perf_counter() - t0
+    if not torch.equal(back.buf, variants[3]):
+        raise AssertionError("reconstruct_image of v3 differs from its source")
+    del back
+    want_scatter += 2
+    launches = {name: k.launches for name, k in counted.items()}
+    rep["launches"] = launches
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    want = {"zero_detect": 3, "page_checksum": 5, "page_gather": 7, "page_scatter": want_scatter,
+            "fused_publish": 2, "fused_restore": want_restore}
+    rep["expected_launches"] = want
+    if launches != want:
+        raise AssertionError(f"dedup launch counts {launches}, want {want}")
+    cxl, rdma = pool.dedup_cxl, pool.dedup_rdma
+    rep["stores"] = {"cxl": cxl.report(), "rdma": rdma.report()}
+    checks = {"cxl unique": (cxl.stats["unique"], n_hot + N_VARIANTS * d),
+              "rdma unique": (rdma.stats["unique"], N_VARIANTS * n_cold),
+              "cxl hits": (cxl.stats["dedup_hits"], N_VARIANTS * n_hot - cxl.stats["unique"]),
+              "rdma hits": (rdma.stats["dedup_hits"], N_VARIANTS * n_cold - rdma.stats["unique"]),
+              "cxl logical": (cxl.logical_pages(), N_VARIANTS * n_hot),
+              "rdma logical": (rdma.logical_pages(), N_VARIANTS * n_cold)}
+    for name, (got, exp) in checks.items():
+        if got != exp:
+            raise AssertionError(f"dedup {name}: {got}, want {exp}")
+    if not i6_holds(np, core, pool, regions):
+        raise AssertionError("I6: store refcounts differ from the live offset arrays")
+    rep["collisions"] = {"cxl": cxl.stats["collisions"], "rdma": rdma.stats["collisions"]}
+    log(f"  stores: cxl unique {cxl.stats['unique']} (= n_hot + 4d) hits "
+        f"{cxl.stats['dedup_hits']}; rdma unique {rdma.stats['unique']} (= 4 n_cold) hits "
+        f"{rdma.stats['dedup_hits']}; collisions cxl {cxl.stats['collisions']} rdma "
+        f"{rdma.stats['collisions']}; I6 holds; reconstruct v3 "
+        f"{rep['reconstruct_s'] * 1e3:.2f} ms, bit-identical")
+    log(f"  launches {launches} as the fleet's shape implies; peak device memory "
+        f"{rep['peak_mem_bytes'] / 2**30:.3f} GiB")
+    rep["profile"] = profile_dedup(torch, core, pool, base_buf, hot_t, cold_t, d, seed,
+                                   working_set, manifest, out_dir)
+    t0 = time.perf_counter()
+    for reg in regions:
+        core.free_snapshot(pool, reg)
+    rep["free_s"] = time.perf_counter() - t0
+    if (cxl.unique_pages() or rdma.unique_pages() or pool.cxl.bytes_in_use
+            or pool.rdma.bytes_in_use):
+        raise AssertionError("freeing the fleet left pages in the stores")
+    log(f"  freed the fleet in {rep['free_s'] * 1e3:.2f} ms: both stores empty, "
+        "both tiers' bytes_in_use 0")
+    return rep
+
+
+def profile_dedup(torch, core, pool, base_buf, hot_t, cold_t, d, seed, working_set, manifest,
+                  out_dir) -> dict:
+    """One more variant published (kernel route) and restored under
+    torch.profiler while the fleet is stored; freed afterwards."""
+    from torch.profiler import ProfilerActivity, profile
+
+    buf = make_variant(torch, base_buf, hot_t, cold_t, d, N_VARIANTS, seed)
+    image = core.StateImage(manifest, buf)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        reg = core.build_snapshot(pool, image, working_set, "profiled", dedup=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["publish"] = _device_summary(torch, prof, wall)
+    (out_dir / "profile_dedup_publish.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+    ledger = core.TimeLedger()
+    reader = core.SnapshotReader(reg, pool.host_view("host-profiled", ledger), pool.rdma)
+    reader.invalidate_cxl()
+    inst = core.Instance(core.StateImage.empty_like(manifest, device=buf.device), ledger)
+    eng = core.RestoreEngine(reader, inst)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.pre_install_hot()
+        eng.install_all_sync()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["restore"] = _device_summary(torch, prof, wall)
+    (out_dir / "profile_dedup_restore.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+    if not torch.equal(inst.image.buf, buf):
+        raise AssertionError("profiled dedup restore differs from its source")
+    core.free_snapshot(pool, reg)
+    for phase, row in out.items():
+        log(f"  profile dedup {phase}: wall {row['wall_ms']:.2f} ms under the profiler, "
+            f"device busy {row['device_busy_ms']:.3f} ms, idle share "
+            f"{row['device_idle_share']:.4f}")
+        for r in row["top"][:4]:
+            log(f"    {r['device_ms']:.3f} ms x{r['count']} {r['name'][:70]}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -277,13 +733,21 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     n = PAPER_INSTANCE_PAGES
-    report = {"seed": args.seed, "pages": n}
+    report = {"seed": args.seed, "pages": n, "phase_s": {}}
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        report["phase_s"][name] = now - t_phase[0]
+        t_phase[0] = now
+        log(f"phase {name}: {report['phase_s'][name]:.2f} s")
 
     # 1. card
     card = card_line()
     report["card"] = card
     report["torch"] = f"{torch.__version__} cuda {torch.version.cuda}"
     log(f"card: {card}  ({report['torch']})")
+    phase_done("card")
 
     # 2. build
     t0 = time.perf_counter()
@@ -295,6 +759,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    phase_done("build")
 
     # 3. image
     t0 = time.perf_counter()
@@ -323,6 +788,10 @@ def main() -> int:
         f"zero_runs={comp['zero_runs']}")
     if not (0.469 <= comp["zero"] <= 0.907 and 0.04 <= comp["hot"] <= 0.07):
         raise AssertionError(f"composition outside the paper's range: {comp}")
+    cold_idx = np.flatnonzero(~hot_np & ~zero_np)
+    if zero_np[working_set].any():
+        raise AssertionError("a hot page of the image is all zero")
+    phase_done("image")
 
     # 4. kernels against their plain versions
     log("kernels:")
@@ -383,10 +852,19 @@ def main() -> int:
         f"{res_wrapper_ms:.4f} ms verified, {res_wrapper_unverified_ms:.4f} ms unverified "
         f"(plain {res_plain_ms:.4f} ms, bound {res_bound:.6f} ms by {res_by}) per "
         f"{m}-page chunk")
+    fused_csum = ops.fused_publish(pm, ws_full).checksums
+    row_err = check_row_kernels(torch, np, pm, fused_csum, working_set, cold_idx, device)
+    del fused_csum
+    row_t = time_row_kernels(torch, pm, working_set, cold_idx, device)
+    report["row_kernel_timings"] = row_t
+    phase_done("kernels")
 
     # 5. main path, counts reset just before it
-    ops.fused_publish.launches = 0
-    ops.fused_restore.launches = 0
+    from repro_torch import kernels as kmod
+
+    row_kernels = {name: getattr(kmod, name) for name in ROW_KERNELS}
+    for k in (ops.fused_publish, ops.fused_restore, *row_kernels.values()):
+        k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
@@ -409,6 +887,7 @@ def main() -> int:
     restore_s = time.perf_counter() - t0
     launches = {"fused_publish": ops.fused_publish.launches,
                 "fused_restore": ops.fused_restore.launches}
+    launches_private_row = {name: k.launches for name, k in row_kernels.items()}
     n_cold_runs = int(reader.cold_runs().shape[0])
     want_restore = math.ceil(regions.n_hot / 256) + n_cold_runs
     verified = inst.scatter_fn.stats["pages_verified"]
@@ -437,25 +916,52 @@ def main() -> int:
     log(f"  peak device memory {main['peak_mem_bytes'] / 2**30:.3f} GiB")
     log(f"  modeled (paper cost model, not device time): total "
         f"{main['modeled_total_s'] * 1e3:.4f} ms {json.dumps(main['modeled_ledger_s'])}")
+    phase_done("main")
 
+    del inst, engine, reader
+    free_snapshot(pool, regions)
+    del pool
+    torch.cuda.empty_cache()
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    report["profile"] = profile_main_path(torch, HierarchicalPool(device="cuda"), image,
+                                          working_set, ops, out.parent)
+    phase_done("profile")
+
+    # 7. the dedup fleet, counts reset inside just before it
+    log("dedup fleet:")
+    report["dedup"] = dedup_phase(torch, np, buf, working_set, cold_idx, manifest, args.seed,
+                                  out.parent)
+    torch.cuda.empty_cache()
+    phase_done("dedup")
+
+    dedup_launches = report["dedup"]["launches"]
     kernels = [
         {"name": "fused_publish", "route": "cuda", "source": f"{CSRC}/fused_publish.cu",
          "replaces": PUBLISH_TPU, "launches": launches["fused_publish"],
+         "launches_by_path": {"private": launches["fused_publish"],
+                              "dedup": dedup_launches["fused_publish"]},
          "bit_equal": True, "max_abs_err": pub_err, "ms": pub_ms, "plain_ms": pub_plain_ms,
          "bound_ms": pub_bound, "bound_by": pub_by, "library_ms": None},
         {"name": "fused_restore", "route": "cuda", "source": f"{CSRC}/fused_restore.cu",
          "replaces": RESTORE_TPU, "launches": launches["fused_restore"],
+         "launches_by_path": {"private": launches["fused_restore"],
+                              "dedup": dedup_launches["fused_restore"]},
          "bit_equal": True, "max_abs_err": res_err, "ms": res_ms, "plain_ms": res_plain_ms,
          "bound_ms": res_bound, "bound_by": res_by, "library_ms": None},
     ]
+    for name, tpu in ROW_KERNELS.items():
+        r = row_t[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu", "replaces": tpu,
+            "launches": dedup_launches[name],
+            "launches_by_path": {"private": launches_private_row[name],
+                                 "dedup": dedup_launches[name]},
+            "bit_equal": True, "max_abs_err": row_err[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
     report["kernels"] = kernels
-    del inst, engine, reader
-    free_snapshot(pool, regions)
-    torch.cuda.empty_cache()
-    report["profile"] = profile_main_path(torch, pool, image, working_set, ops,
-                                          Path(args.out).parent)
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

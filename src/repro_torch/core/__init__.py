@@ -3,14 +3,16 @@
 - :mod:`pagestore`  — paged flat address space over a device byte buffer
 - :mod:`pool`       — two-tier pool on device arenas, cost models, incoherent
   host views with a vectorized line cache
-- :mod:`snapshot`   — hotness-based compact snapshot format, private layout (§3.2)
+- :mod:`snapshot`   — hotness-based compact snapshot format, private and
+  content-addressed layouts (§3.2, §3.6)
+- :mod:`dedup`      — content-addressed, refcounted page stores (§3.6)
 - :mod:`serving`    — copy-based page serving, async RDMA demand paging (§3.4)
 - :mod:`profiler`   — TouchEvent telemetry and decayed heat maps
 - :mod:`prefetch_model` — learned first-touch ordering behind PrefetchPolicy
 - :mod:`faults`     — deterministic fault injection, retry policy, tier health
 
-Coherence, pool master, node server, orchestrator, dedup and re-curation
-are not ported yet (ROADMAP §A).
+Coherence, pool master, node server, orchestrator and re-curation are not
+ported yet (ROADMAP §A).
 """
 from .clock import REAL_CLOCK, Clock, RealClock
 from .faults import (
@@ -26,9 +28,11 @@ from .pagestore import (
     ArrayExtent,
     Manifest,
     StateImage,
+    kernel_zero_scan,
     pages_from_runs,
     resolve_device,
     runs_from_pages,
+    set_zero_scan_backend,
 )
 from .pool import (
     CXL_COST,
@@ -51,12 +55,22 @@ from .snapshot import (
     SnapshotRegions,
     build_snapshot,
     classify_pages,
+    decode_dedup_offsets,
     decode_slot,
     encode_slot,
     estimate_snapshot_cxl_size,
+    exclusive_cxl_bytes,
     free_snapshot,
     reconstruct_image,
     runs_of_indices,
+)
+from .dedup import (
+    FNV_OFFSET,
+    FNV_PRIME,
+    DedupStore,
+    fnv1a_page,
+    fnv1a_pages,
+    poly32_hash_fn,
 )
 from .serving import AsyncRDMAEngine, BufferPool, Instance, RestoreEngine
 from .profiler import RUN_PAGES, START_RUN, HeatMap, HeatRegistry, TouchEvent

@@ -15,6 +15,8 @@ from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence, 
 import numpy as np
 import torch
 
+from ..kernels.zero_detect import zero_detect
+
 PAGE_SIZE = 4096  # bytes — matches the paper's 4 KiB guest pages
 
 
@@ -33,21 +35,24 @@ def resolve_device(device) -> torch.device:
 
 
 # zero_scan(pages_matrix uint8[N, PAGE_SIZE]) -> bool[N] (True = all-zero).
-# Pluggable backend for the publish-path zero scan; the plain torch version
-# is the default until the zero_detect kernel is ported.
+# Pluggable backend for the publish-path zero scan; the default is
+# kernel_zero_scan.
 ZeroScanFn = Callable[[torch.Tensor], torch.Tensor]
 
 _zero_scan_backend: Optional[ZeroScanFn] = None
 
 
-def torch_zero_scan(pages_matrix: torch.Tensor) -> torch.Tensor:
-    """Plain version: vectorized any() over each page row."""
-    return ~pages_matrix.any(dim=1).to(torch.bool)   # any() of uint8 is uint8
+def kernel_zero_scan(pages_matrix: torch.Tensor) -> torch.Tensor:
+    """``kernels/zero_detect`` adapted to the ``ZeroScanFn`` signature, the
+    counterpart of the reference's ``repro.core.pagestore.pallas_zero_scan``:
+    the hand-written kernel on a CUDA matrix, its plain version on a CPU one."""
+    return zero_detect(pages_matrix) != 0
 
 
 def set_zero_scan_backend(fn: Optional[ZeroScanFn]) -> Optional[ZeroScanFn]:
-    """Install a process-wide zero-scan backend (None restores the plain
-    version); returns the previous backend so callers can restore it."""
+    """Install a process-wide zero-scan backend (None restores
+    :func:`kernel_zero_scan`); returns the previous backend so callers can
+    restore it."""
     global _zero_scan_backend
     prev = _zero_scan_backend
     _zero_scan_backend = fn
@@ -190,7 +195,7 @@ class StateImage:
 
     def zero_page_bitmap(self, backend: Optional[ZeroScanFn] = None) -> np.ndarray:
         """bool[total_pages] on the host; True where the page is all zero."""
-        fn = backend or _zero_scan_backend or torch_zero_scan
+        fn = backend or _zero_scan_backend or kernel_zero_scan
         out = fn(self.pages_matrix()).to(torch.bool).cpu().numpy()
         if out.shape != (self.total_pages,):
             raise ValueError(f"zero-scan backend returned shape {out.shape}")

@@ -200,6 +200,9 @@ class MemoryTier:
         # host-link reads.
         self.fault_injector = None
         self.health = None
+        # back-pointer to this tier's content-addressed store (set by
+        # DedupStore); checksum repair resolves the store from the tier
+        self.dedup_store = None
 
     @property
     def device(self) -> torch.device:
@@ -225,10 +228,45 @@ class MemoryTier:
                         self._free[i] = (off + nbytes, size - nbytes)
                     self.bytes_in_use += nbytes
                     return off
+        raise self._alloc_error(nbytes)
+
+    def _alloc_error(self, nbytes: int) -> AllocError:
         err = AllocError(f"tier {self.name}: cannot alloc {nbytes} B "
                          f"({self.bytes_in_use}/{self.capacity} in use)")
         err.tier = self.name    # which tier failed (degrade paths branch on it)
-        raise err
+        return err
+
+    def alloc_pages(self, k: int) -> np.ndarray:
+        """Up to ``k`` single pages, first fit: exactly the offsets (in
+        order) and the free list that ``k`` calls of ``alloc(PAGE_SIZE)``
+        leave, stopping where such a call would raise.  Returns int64
+        offsets; fewer than ``k`` means the tier ran out (the caller raises
+        :meth:`_alloc_error` if it needs them all)."""
+        got: List[np.ndarray] = []
+        need = int(k)
+        with self._lock:
+            i = 0
+            while need and i < len(self._free):
+                off, size = self._free[i]
+                take = min(need, size // PAGE_SIZE)
+                if take == 0:
+                    i += 1
+                    continue
+                got.append(off + PAGE_SIZE * np.arange(take, dtype=np.int64))
+                need -= take
+                self.bytes_in_use += take * PAGE_SIZE
+                if size == take * PAGE_SIZE:
+                    self._free.pop(i)
+                else:
+                    self._free[i] = (off + take * PAGE_SIZE, size - take * PAGE_SIZE)
+                    i += 1
+        return np.concatenate(got) if got else np.zeros(0, dtype=np.int64)
+
+    def page_rows(self) -> torch.Tensor:
+        """The arena's whole pages as a ``(capacity // PAGE_SIZE, PAGE_SIZE)``
+        view: row ``off // PAGE_SIZE`` holds the page at byte ``off``."""
+        n = self.capacity // PAGE_SIZE
+        return self.buf[: n * PAGE_SIZE].view(n, PAGE_SIZE)
 
     def free(self, offset: int, nbytes: int) -> None:
         """Return a block: O(log n) position search + O(1) neighbor merge
@@ -363,8 +401,8 @@ class HostView:
 class HierarchicalPool:
     """The two-tier pool a pod sees: CXL (fast/near) + RDMA (big/far).
 
-    Both arenas live on ``device``.  Content-addressed dedup stores are not
-    part of this package yet (ROADMAP A4, dedup layout).
+    Both arenas live on ``device``, each with a content-addressed page store
+    (``dedup_cxl`` / ``dedup_rdma``) that dedup publishes route pages through.
     """
 
     def __init__(
@@ -375,6 +413,7 @@ class HierarchicalPool:
         rdma_cost: CostModel = RDMA_COST,
         clock: Optional[Clock] = None,
         device="cuda",
+        dedup_hash_fn=None,
     ):
         # The pool is the one object every component of a pod shares, so it
         # carries the pod's time source.
@@ -383,6 +422,15 @@ class HierarchicalPool:
         self.fault_injector = None
         self.cxl = MemoryTier("cxl", cxl_capacity, cxl_cost, self.device)
         self.rdma = MemoryTier("rdma", rdma_capacity, rdma_cost, self.device)
+        # content-addressed page stores (one per tier): dedup publishes route
+        # page payloads through these, and the offset array then points at
+        # refcounted absolute tier offsets.  ``dedup_hash_fn`` is the stores'
+        # hash seam: pass ``dedup.poly32_hash_fn`` and the fused publish
+        # sweep's checksum column doubles as the stores' hash input.
+        from .dedup import DedupStore  # local import: dedup imports pool
+
+        self.dedup_cxl = DedupStore(self.cxl, hash_fn=dedup_hash_fn)
+        self.dedup_rdma = DedupStore(self.rdma, hash_fn=dedup_hash_fn)
         # per-tier circuit breakers; inert until a failure
         from .faults import TierHealth
 
@@ -396,6 +444,13 @@ class HierarchicalPool:
         self.fault_injector = injector
         self.cxl.fault_injector = injector
         self.rdma.fault_injector = injector
+
+    def dedup_store(self, tag: int):
+        if tag == TIER_CXL:
+            return self.dedup_cxl
+        if tag == TIER_RDMA:
+            return self.dedup_rdma
+        raise ValueError(f"unknown tier tag {tag}")
 
     def tier(self, tag: int) -> MemoryTier:
         if tag == TIER_CXL:

@@ -12,10 +12,12 @@ Zero-page faults take the ``uffd.zeropage()`` fast path (§4).
 Page bytes (guest image, tier arenas, chunks, demand buffers) are tensors on
 the pool's device; the ``present`` bitmap, run indices, ledgers and stats
 are host control state, as a real uffd handler keeps them.  The hot
-pre-install streams the rank-compacted hot region in 256-page chunks, and
-each chunk is installed by ONE in-place scatter call — with
-:class:`~repro_torch.kernels.snapshot_fuse.FusedScatter`, one fused
-gather→verify→scatter kernel launch.
+pre-install walks the snapshot's hot extents (256-page chunks of the
+rank-compacted region, or runs of adjacent store offsets for a dedup
+snapshot), and each extent is installed by ONE in-place scatter call: a
+``page_scatter`` kernel launch by default, or with
+:class:`~repro_torch.kernels.snapshot_fuse.FusedScatter` one fused
+gather→verify→scatter launch.
 
 Async RDMA fault handling mirrors the paper: the fault handler grabs a free
 buffer page, posts a one-sided read, and returns immediately; a completion
@@ -34,6 +36,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..kernels.page_scatter import page_scatter
 from .clock import Clock, REAL_CLOCK
 from .faults import (
     DEFAULT_RETRY_POLICY,
@@ -54,22 +57,14 @@ from .pool import (
 )
 from .snapshot import SnapshotReader
 
-# scatter_fn(dest_matrix, compact, indices, src_indices=None) -> None, IN
-# PLACE on device tensors: dest[indices[i]] = compact[src_indices[i]]
-# (src_indices None means arange).  indices / src_indices are host int64
-# arrays.  kernels/snapshot_fuse.FusedScatter plugs in here; RestoreEngine
+# scatter_fn(dest_matrix, compact, indices, src_indices=None), IN PLACE on
+# device tensors: dest[indices[i]] = compact[src_indices[i]] (src_indices
+# None means arange).  indices / src_indices are host int64 arrays.  The
+# default is the page_scatter kernel (no verification);
+# kernels/snapshot_fuse.FusedScatter plugs in here too, and RestoreEngine
 # binds it to the snapshot's publish-time checksum table so every installed
 # batch is verified inside the installing kernel launch.
-ScatterFn = Callable[..., None]
-
-
-def plain_scatter(dest: torch.Tensor, compact: torch.Tensor, indices: np.ndarray,
-                  src_indices: Optional[np.ndarray] = None) -> None:
-    """Default ``ScatterFn``: a torch index store, no verification."""
-    dst = torch.from_numpy(np.asarray(indices, dtype=np.int64)).to(dest.device)
-    rows = compact if src_indices is None else compact[
-        torch.from_numpy(np.asarray(src_indices, dtype=np.int64)).to(compact.device)]
-    dest[dst] = rows
+ScatterFn = Callable[..., object]
 
 
 class Instance:
@@ -109,21 +104,27 @@ class Instance:
             self._cv.notify_all()
             return True
 
-    def uffd_copy_batch(self, pages: np.ndarray, mat: torch.Tensor) -> int:
+    def uffd_copy_batch(self, pages: np.ndarray, mat: torch.Tensor,
+                        rows: Optional[np.ndarray] = None) -> int:
         """Install many pages under ONE lock acquisition via one in-place
         scatter; the ledger is charged per contiguous range (one uffd.copy
-        ioctl per range), not per page.  Already-present pages are skipped:
-        the scatter gathers the rest straight from ``mat`` by position.
-        Returns the number of pages actually installed."""
+        ioctl per range), not per page.  Page ``pages[i]`` comes from row
+        ``rows[i]`` of ``mat`` (default: row ``i``).  Already-present pages
+        are skipped: the scatter gathers the rest straight from ``mat`` by
+        position.  Returns the number of pages actually installed."""
         pages = np.asarray(pages, dtype=np.int64).reshape(-1)
-        mat = mat.reshape(pages.size, PAGE_SIZE)
+        if rows is None:
+            mat = mat.reshape(pages.size, PAGE_SIZE)
         with self._cv:
             todo = ~self.present[pages]
             if not todo.any():
                 return 0
             sel = pages[todo]
-            src = None if todo.all() else np.nonzero(todo)[0]
-            scatter = self.scatter_fn or plain_scatter
+            if rows is not None:
+                src = np.asarray(rows, dtype=np.int64).reshape(-1)[todo]
+            else:
+                src = None if todo.all() else np.nonzero(todo)[0]
+            scatter = self.scatter_fn or page_scatter
             scatter(self.image.pages_matrix(), mat, sel, src_indices=src)
             self.present[sel] = True
             n = int(sel.size)
@@ -395,8 +396,6 @@ class RestoreEngine:
         self._retry_rng = random.Random(0x9E37 ^ int(retry_seed))
         self.retry_trace: List[float] = []
         self.repair_budget = 3
-        # the reference's keys; quarantine/rematerialize belong to the dedup
-        # layout (ROADMAP A4b) and stay 0 here
         self.repair_stats = {"checksum_mismatches": 0, "checksum_repairs": 0,
                              "quarantined": 0, "rematerialized": 0,
                              "repair_failures": 0,
@@ -466,7 +465,15 @@ class RestoreEngine:
             if ht is not None:
                 ht.record_success()
             n_hot += int(pages.size)
-            installed = self._install_verified(pages, raw.view(-1, PAGE_SIZE))
+            mat = raw.view(-1, PAGE_SIZE)
+            rows = None
+            if pages.size > 1 and np.any(np.diff(pages) < 0):
+                # dedup extents visit pages in store-offset order: the batch
+                # wants them guest-sorted (one uffd range per guest run), and
+                # the scatter reads the chunk through the permutation
+                rows = np.argsort(pages, kind="stable")
+                pages = pages[rows]
+            installed = self._install_verified(pages, mat, rows)
             self.instance.stats["pre_installed"] += installed
         return n_hot
 
@@ -490,8 +497,10 @@ class RestoreEngine:
         return (isinstance(err, TierFaultError)
                 or getattr(err, "bad_pages", None) is not None)
 
-    def _install_verified(self, pages: np.ndarray, mat: torch.Tensor) -> int:
-        """Install a batch; on checksum mismatch, repair instead of abort.
+    def _install_verified(self, pages: np.ndarray, mat: torch.Tensor,
+                          rows: Optional[np.ndarray] = None) -> int:
+        """Install a batch (page ``pages[i]`` from row ``rows[i]`` of ``mat``,
+        default row ``i``); on checksum mismatch, repair instead of abort.
 
         The bound scatter kernel raises with the guest indices of the bad
         pages; the good subset re-installs immediately and each bad page is
@@ -499,24 +508,25 @@ class RestoreEngine:
         exhausted budget surfaces the error."""
         pages = np.asarray(pages, dtype=np.int64).reshape(-1)
         try:
-            return self.instance.uffd_copy_batch(pages, mat)
+            return self.instance.uffd_copy_batch(pages, mat, rows)
         except RuntimeError as err:
             bad = getattr(err, "bad_pages", None)
             if bad is None:
                 raise
-            return self._repair_batch(pages, mat, bad)
+            return self._repair_batch(pages, mat, bad, rows)
 
     def _repair_batch(self, pages: np.ndarray, mat: torch.Tensor,
-                      bad_pages) -> int:
-        mat = mat.reshape(pages.size, PAGE_SIZE)
+                      bad_pages, rows: Optional[np.ndarray] = None) -> int:
+        if rows is None:
+            mat = mat.reshape(pages.size, PAGE_SIZE)
+            rows = np.arange(pages.size, dtype=np.int64)
         bad = {int(p) for p in np.atleast_1d(np.asarray(bad_pages))}
         self.repair_stats["checksum_mismatches"] += len(bad)
         good = np.array([i for i, p in enumerate(pages) if int(p) not in bad],
                         dtype=np.int64)
         n = 0
         if good.size:
-            n += self.instance.uffd_copy_batch(
-                pages[good], mat[torch.from_numpy(good).to(mat.device)])
+            n += self.instance.uffd_copy_batch(pages[good], mat, rows[good])
         for p in sorted(bad):
             n += self._repair_page(int(p))
         return n
@@ -537,8 +547,15 @@ class RestoreEngine:
 
     def _repair_page(self, page: int) -> int:
         """Re-read one checksum-bad page from its home tier until it
-        verifies; an exhausted budget raises the last error."""
+        verifies, quarantining a persistently-bad shared dedup offset so no
+        new snapshot rides it, then re-materializing it once a clean copy is
+        in hand; an exhausted budget raises the last error."""
         kind, off = self.reader.lookup(page)
+        store = None
+        if self.reader.regions.dedup and kind in ("cxl", "rdma"):
+            tier = self.reader.view.tier if kind == "cxl" else self.reader.rdma
+            store = getattr(tier, "dedup_store", None)
+        quarantined = False
         last_err: Optional[Exception] = None
         for _attempt in range(self.repair_budget):
             try:
@@ -553,8 +570,20 @@ class RestoreEngine:
                 if getattr(err, "bad_pages", None) is None:
                     raise
                 last_err = err
+                if store is not None and not quarantined:
+                    # the shared store offset itself is corrupt: bar it from
+                    # new sharing before anyone else rides it (refcounts are
+                    # untouched, so invariant I6 holds)
+                    quarantined = store.quarantine(off)
+                    if quarantined:
+                        self.repair_stats["quarantined"] += 1
                 continue
             self.repair_stats["checksum_repairs"] += 1
+            if quarantined:
+                # this re-read verified clean: scrub the store offset and
+                # put it back into circulation
+                store.rematerialize(off, row)
+                self.repair_stats["rematerialized"] += 1
             return n
         self.repair_stats["repair_failures"] += 1
         self.repair_error = last_err
@@ -836,15 +865,17 @@ class RestoreEngine:
             self.instance.uffd_zeropage_range(int(start), int(n))
         self.pre_install_hot()
         self.drain_degraded_hot()
-        for start, n in self.reader.cold_runs():
-            start, n = int(start), int(n)
-            rank0 = self.reader.cold_rank(start)
-            pool_off, nbytes = self.reader.cold_extent_span(rank0, n)
+        # one read per extent contiguous in guest and tier: the private
+        # layout's cold runs in guest order; a dedup snapshot's runs, split
+        # where store offsets stop being adjacent, largest run first (the
+        # order the reference walks them in, which the ledger's sums follow)
+        for es, en, rank0, pool_off, nbytes in self.reader.iter_cold_extents(
+                max_extent_pages=1 << 30, largest_first=self.reader.regions.dedup):
             payload = call_with_retries(
                 lambda o=pool_off, b=nbytes: self.reader.rdma.read(o, b),
                 policy=self.retry, rng=self._retry_rng,
                 ledger=self.ledger, clock=self.clock,
                 trace=self.retry_trace)
             self.ledger.add("rdma_read", self._rdma_arbiter.charge(nbytes))
-            self._install_verified(np.arange(start, start + n),
-                                   self.reader.split_cold_extent(rank0, n, payload))
+            self._install_verified(np.arange(es, es + en),
+                                   self.reader.split_cold_extent(rank0, en, payload))

@@ -1,4 +1,4 @@
-"""Hotness-based snapshot format (§3.2), private layout.
+"""Hotness-based snapshot format (§3.2): private and content-addressed layouts.
 
 A snapshot of a paged ``StateImage`` is stored as:
 
@@ -14,11 +14,15 @@ A snapshot of a paged ``StateImage`` is stored as:
 CXL-region layout (all sections page-aligned):
     [ machine_state | offset_array | hot page data ]
 
+The content-addressed (dedup) layout routes page payloads through the pool's
+per-tier ``DedupStore``s instead: offset-array slots hold refcounted
+ABSOLUTE tier offsets, the private CXL region holds only machine state and
+offset array, and there is no private RDMA region.
+
 Page bytes stay on the pool's device; the offset array, page classes and run
 index are host numpy (read back from the device once).  The zstd-compressed
-cold tier, the content-addressed (dedup) layout and re-curation are not in
-this package yet: they raise ``NotImplementedError`` naming their ROADMAP
-item.
+cold tier and re-curation raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels.page_gather import page_gather
+from ..kernels.page_scatter import page_scatter
 from .faults import TierFaultError
 from .pagestore import PAGE_SIZE, Manifest, StateImage, num_pages
 from .pool import TIER_CXL, TIER_RDMA, HierarchicalPool, HostView, MemoryTier
@@ -37,8 +43,7 @@ ZERO_SENTINEL = np.uint64(0xFFFF_FFFF_FFFF_FFFF)
 TIER_SHIFT = np.uint64(62)
 OFFSET_MASK = np.uint64((1 << 62) - 1)
 
-_DEDUP_TODO = "dedup snapshot layout is not ported yet (ROADMAP A4b)"
-_ZSTD_TODO = "compress_cold (zstd cold tier) is not ported yet (ROADMAP A4b)"
+_ZSTD_TODO = "compress_cold (zstd cold tier) is not ported yet (ROADMAP A4d)"
 _RECURATE_TODO = "plan_recuration is not ported yet (ROADMAP A4c)"
 
 
@@ -67,6 +72,27 @@ def runs_of_indices(idx: np.ndarray) -> np.ndarray:
     starts = np.concatenate([[0], brk + 1])
     ends = np.concatenate([brk, [idx.size - 1]])
     return np.stack([idx[starts], ends - starts + 1], axis=1)
+
+
+def _offset_subruns(offsets: np.ndarray):
+    """Yield ``(start_index, length)`` over positions of ``offsets`` such
+    that each run's byte offsets are PAGE_SIZE-adjacent — the dedup
+    extent-splitting primitive."""
+    n = int(offsets.size)
+    if n == 0:
+        return
+    brk = np.nonzero(np.diff(offsets) != PAGE_SIZE)[0]
+    starts = np.concatenate([[0], brk + 1])
+    ends = np.concatenate([brk + 1, [n]])
+    for a, b in zip(starts.tolist(), ends.tolist()):
+        yield a, b - a
+
+
+def _offset_runs(sorted_offsets: np.ndarray):
+    """Yield ``(byte_offset, n_pages)`` maximal adjacent runs of SORTED
+    absolute page offsets (dedup flush/read coalescing)."""
+    for a, k in _offset_subruns(sorted_offsets):
+        yield int(sorted_offsets[a]), k
 
 
 def _to_device(host: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -153,10 +179,14 @@ class SnapshotRegions:
     n_hot: int
     n_cold: int
     n_zero: int
-    # zstd cold tier and dedup layout: always off in this package
+    # zstd cold tier: always off in this package (ROADMAP A4d)
     cold_compressed: bool = False
     ci_size: int = 0
     cold_raw_bytes: int = 0       # uncompressed cold payload
+    # content-addressed layout (core/dedup.py): page payloads live in the
+    # per-tier DedupStores and offset-array slots hold ABSOLUTE tier byte
+    # offsets (refcounted, possibly shared across snapshots); no private
+    # RDMA region (rdma_size == 0)
     dedup: bool = False
 
     @property
@@ -183,9 +213,7 @@ class SnapshotRegions:
         return SnapshotRegions(**d)
 
 
-def _check_private(regions: SnapshotRegions) -> None:
-    if regions.dedup:
-        raise NotImplementedError(_DEDUP_TODO)
+def _check_layout(regions: SnapshotRegions) -> None:
     if regions.cold_compressed:
         raise NotImplementedError(_ZSTD_TODO)
 
@@ -216,10 +244,6 @@ def _run_publish_fn(publish_fn, image: StateImage, working_set: Sequence[int]):
     return classes, res.hot, res.cold, res.checksums
 
 
-def _gather_rows(mat: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-    return mat[torch.from_numpy(idx).to(mat.device)]
-
-
 def build_snapshot(
     pool: HierarchicalPool,
     image: StateImage,
@@ -236,16 +260,23 @@ def build_snapshot(
     """Write one snapshot into the pool tiers; returns its region record.
 
     ``gather_fn(pages_matrix, page_indices) -> compact`` swaps the row
-    gather (default: torch indexing).  ``publish_fn(pages_matrix, ws_bool)
-    -> FusedPublishResult`` goes further: the fused single-sweep kernel
+    gather (default: the ``page_gather`` kernel).  ``publish_fn(pages_matrix,
+    ws_bool) -> FusedPublishResult`` goes further: the fused single-sweep kernel
     replaces the zero scan, the checksum AND both gathers in one pass; its
     per-page checksum column is recorded on the returned regions (in-memory
     ``page_checksums`` attribute, guest-page-indexed int32 tensor on the
     device) so restores can verify installed pages against publish-time
     content.  When set it supersedes ``zero_bitmap``/``gather_fn``.
+    ``dedup`` routes page payloads through the pool's content-addressed
+    stores instead of private data regions (offset-array slots then hold
+    refcounted absolute tier offsets).
     """
     if dedup:
-        raise NotImplementedError(_DEDUP_TODO)
+        return _build_snapshot_dedup(pool, image, working_set, name,
+                                     version=version, metadata=metadata,
+                                     zero_bitmap=zero_bitmap,
+                                     gather_fn=gather_fn,
+                                     publish_fn=publish_fn)
     if compress_cold:
         raise NotImplementedError(_ZSTD_TODO)
     checksums = None
@@ -254,7 +285,7 @@ def build_snapshot(
             publish_fn, image, working_set)
     else:
         classes = classify_pages(image, working_set, zero_bitmap)
-        gather = gather_fn or _gather_rows
+        gather = gather_fn or page_gather
         mat = image.pages_matrix()
         hot_mat = gather(mat, classes.hot_pages) if classes.hot_pages.size else None
         cold_mat = gather(mat, classes.cold_pages) if classes.cold_pages.size else None
@@ -313,11 +344,131 @@ def build_snapshot(
     return regions
 
 
+def _build_snapshot_dedup(
+    pool: HierarchicalPool,
+    image: StateImage,
+    working_set: Sequence[int],
+    name: str,
+    version: int = 0,
+    metadata: Optional[dict] = None,
+    zero_bitmap: Optional[np.ndarray] = None,
+    gather_fn=None,
+    publish_fn=None,
+) -> SnapshotRegions:
+    """Content-addressed build: page payloads go through the per-tier
+    DedupStores (one refcount per offset-array slot); only machine state and
+    the offset array occupy a private, contiguous CXL region.  A mid-build
+    ``AllocError`` rolls every reference taken by this build back, so a
+    failed publish leaves both stores and the tiers unchanged.
+
+    With ``publish_fn`` the fused sweep's checksum column feeds the stores:
+    when a store hashes with the polynomial checksum (``is_poly32``),
+    ``put_pages`` receives the precomputed hashes and launches no hash of
+    its own."""
+    checksums = None
+    if publish_fn is not None:
+        classes, hot_mat, cold_mat, checksums = _run_publish_fn(
+            publish_fn, image, working_set)
+    else:
+        classes = classify_pages(image, working_set, zero_bitmap)
+        gather = gather_fn or page_gather
+        mat = image.pages_matrix()
+        empty = torch.zeros((0, PAGE_SIZE), dtype=torch.uint8, device=image.device)
+        hot_mat = gather(mat, classes.hot_pages) if classes.hot_pages.size else empty
+        cold_mat = gather(mat, classes.cold_pages) if classes.cold_pages.size else empty
+    hot, cold = classes.hot_pages, classes.cold_pages
+
+    ms = _serialize_machine_state(image.manifest, metadata or {})
+    ms_size = _align_pages(len(ms))
+    oa_size = _align_pages(image.total_pages * 8)
+    cxl_size = ms_size + oa_size
+
+    def _hashes_for(store, idx):
+        """Fused checksums reused as the store's hash input — only when the
+        store itself hashes with the same 32-bit polynomial checksum."""
+        if checksums is None or not getattr(store.hash_fn, "is_poly32", False):
+            return None
+        return checksums[torch.from_numpy(idx).to(checksums.device)]
+
+    cxl_off = pool.cxl.alloc(cxl_size)
+    hot_offs = np.zeros(0, dtype=np.int64)
+    try:
+        hot_offs = pool.dedup_cxl.put_pages(
+            hot_mat, hashes=_hashes_for(pool.dedup_cxl, hot))
+        cold_offs = pool.dedup_rdma.put_pages(
+            cold_mat, hashes=_hashes_for(pool.dedup_rdma, cold))
+    except Exception:
+        if hot_offs.size:
+            pool.dedup_cxl.release_offsets(hot_offs)
+        pool.cxl.free(cxl_off, cxl_size)
+        raise
+
+    oa = np.full(image.total_pages, ZERO_SENTINEL, dtype=np.uint64)
+    if hot.size:
+        oa[hot] = (np.uint64(TIER_CXL) << TIER_SHIFT) | hot_offs.astype(np.uint64)
+    if cold.size:
+        oa[cold] = (np.uint64(TIER_RDMA) << TIER_SHIFT) | cold_offs.astype(np.uint64)
+
+    regions = SnapshotRegions(
+        name=name, version=version,
+        cxl_off=cxl_off, cxl_size=cxl_size,
+        ms_size=ms_size, oa_size=oa_size,
+        hot_bytes=int(hot.size) * PAGE_SIZE,
+        rdma_off=0, rdma_size=0,
+        cold_bytes=int(cold.size) * PAGE_SIZE,
+        total_pages=image.total_pages,
+        n_hot=int(hot.size), n_cold=int(cold.size), n_zero=classes.n_zero,
+        cold_raw_bytes=int(cold.size) * PAGE_SIZE,
+        dedup=True,
+    )
+    dev = pool.device
+    pool.cxl.write(regions.ms_off, _to_device(np.frombuffer(bytearray(ms), np.uint8), dev))
+    pool.cxl.write(regions.oa_off, _to_device(oa, dev))
+    if checksums is not None:
+        regions.page_checksums = checksums
+    return regions
+
+
+def decode_dedup_offsets(pool: HierarchicalPool, regions: SnapshotRegions,
+                         tier_tag: int) -> np.ndarray:
+    """Absolute store offsets a dedup snapshot's offset array holds for one
+    tier (owner-side direct read of the stored offset array)."""
+    oa = pool.cxl.read(regions.oa_off, regions.total_pages * 8).cpu().numpy().view(np.uint64)
+    sel = (oa != ZERO_SENTINEL) & ((oa >> TIER_SHIFT) == np.uint64(tier_tag))
+    return (oa[sel] & OFFSET_MASK).astype(np.int64)
+
+
 def free_snapshot(pool: HierarchicalPool, regions: SnapshotRegions) -> None:
-    """Return a snapshot's storage."""
-    _check_private(regions)
+    """Return a snapshot's storage.  For dedup snapshots this DECREMENTS the
+    per-page references (one per offset-array slot); the stores free tier
+    bytes only for pages whose last reference this was."""
+    _check_layout(regions)
+    if regions.dedup:
+        # read the offset array BEFORE freeing the metadata region that
+        # holds it — it is the authoritative list of held references
+        pool.dedup_cxl.release_offsets(decode_dedup_offsets(pool, regions, TIER_CXL))
+        pool.dedup_rdma.release_offsets(decode_dedup_offsets(pool, regions, TIER_RDMA))
+        pool.cxl.free(regions.cxl_off, regions.cxl_size)
+        return
     pool.cxl.free(regions.cxl_off, regions.cxl_size)
     pool.rdma.free(regions.rdma_off, regions.rdma_size)
+
+
+def exclusive_cxl_bytes(pool: HierarchicalPool, regions: SnapshotRegions) -> int:
+    """CXL bytes demoting/deleting this snapshot's hot set would actually
+    reclaim.  For a private layout that is the whole hot section; for a
+    dedup layout only pages whose store refcount equals THIS snapshot's own
+    reference count free on release."""
+    if not regions.dedup:
+        return regions.cxl_size - regions.ms_size - regions.oa_size - regions.ci_size
+    offs = decode_dedup_offsets(pool, regions, TIER_CXL)
+    if offs.size == 0:
+        return 0
+    refs = pool.dedup_cxl.refcounts()
+    uniq, counts = np.unique(offs, return_counts=True)
+    exclusive = sum(1 for off, mine in zip(uniq.tolist(), counts.tolist())
+                    if refs.get(off, 0) == mine)
+    return exclusive * PAGE_SIZE
 
 
 def estimate_snapshot_cxl_size(
@@ -327,18 +478,26 @@ def estimate_snapshot_cxl_size(
     metadata: Optional[dict] = None,
     compress_cold: bool = False,
     dedup: bool = False,
+    pool: Optional[HierarchicalPool] = None,
 ) -> int:
     """CXL bytes :func:`build_snapshot` would allocate for this publish —
     machine state + offset array + hot data — WITHOUT building anything.
-    It matches the build's own arithmetic exactly."""
-    if dedup:
-        raise NotImplementedError(_DEDUP_TODO)
-    if compress_cold:
+    It matches the build's own arithmetic exactly.
+
+    With ``dedup`` (requires ``pool``) the hot-data term is the MARGINAL
+    size: only page contents the CXL store does not already hold count."""
+    if compress_cold and not dedup:
         raise NotImplementedError(_ZSTD_TODO)
     classes = classify_pages(image, working_set, zero_bitmap)
     ms = _serialize_machine_state(image.manifest, metadata or {})
     ms_size = _align_pages(len(ms))
     oa_size = _align_pages(image.total_pages * 8)
+    if dedup:
+        assert pool is not None, "dedup estimate needs the pool's stores"
+        hot = classes.hot_pages
+        hot_new = (pool.dedup_cxl.probe_new_bytes(page_gather(image.pages_matrix(), hot))
+                   if hot.size else 0)
+        return ms_size + oa_size + hot_new
     hot_size = (_align_pages(int(classes.hot_pages.size) * PAGE_SIZE)
                 if classes.hot_pages.size else 0)
     return ms_size + oa_size + hot_size
@@ -350,9 +509,11 @@ def reconstruct_image(pool: HierarchicalPool, regions: SnapshotRegions) -> State
     Reads the tiers directly (no incoherent HostView cache in the path) and
     reassembles the exact ``StateImage`` the snapshot was built from, on the
     pool's device: hot pages from CXL, cold pages from RDMA, zero pages left
-    zero.
+    zero.  For a dedup snapshot each tier's pages are collected by one
+    ``page_gather`` of the tier's page rows and installed by one
+    ``page_scatter`` into the image.
     """
-    _check_private(regions)
+    _check_layout(regions)
     ms_raw = pool.cxl.read(regions.ms_off, regions.ms_size).cpu().numpy()
     manifest, _meta = _deserialize_machine_state(ms_raw)
     oa = pool.cxl.read(regions.oa_off, regions.total_pages * 8).cpu().numpy().view(np.uint64)
@@ -362,6 +523,12 @@ def reconstruct_image(pool: HierarchicalPool, regions: SnapshotRegions) -> State
     tiers = (oa >> TIER_SHIFT).astype(np.int64)
     hot = np.nonzero(nonzero & (tiers == TIER_CXL))[0]
     cold = np.nonzero(nonzero & (tiers == TIER_RDMA))[0]
+    if regions.dedup:
+        offs = (oa & OFFSET_MASK).astype(np.int64)
+        for pages_sel, tier in ((hot, pool.cxl), (cold, pool.rdma)):
+            if pages_sel.size:
+                _gather_store_pages(tier, mat, pages_sel, offs[pages_sel])
+        return image
     # both data regions are rank-compacted: ranks are ordered by guest page
     if hot.size:
         raw = pool.cxl.read(regions.hot_off, int(hot.size) * PAGE_SIZE)
@@ -370,6 +537,24 @@ def reconstruct_image(pool: HierarchicalPool, regions: SnapshotRegions) -> State
         raw = pool.rdma.read(regions.rdma_off, int(cold.size) * PAGE_SIZE)
         mat[torch.from_numpy(cold).to(mat.device)] = raw.view(int(cold.size), PAGE_SIZE)
     return image
+
+
+def _gather_store_pages(tier: MemoryTier, mat: torch.Tensor, pages: np.ndarray,
+                        offs: np.ndarray) -> None:
+    """``mat[pages[i]] = tier page at offs[i]``.  The reference reads each run
+    of adjacent store offsets with one owner-side ``tier.read``; with a
+    fault injector armed, the same reads are checked and the same poison is
+    applied to the gathered rows, run by run, before they are installed."""
+    order = np.argsort(offs, kind="stable")
+    pages_o, offs_o = pages[order], offs[order]
+    rows = page_gather(tier.page_rows(), offs_o // PAGE_SIZE)
+    fi = tier.fault_injector
+    if fi is not None:
+        for a, k in _offset_subruns(offs_o):
+            off, nbytes = int(offs_o[a]), k * PAGE_SIZE
+            fi.check_read(tier.name, off, nbytes)
+            fi.filter_read(tier.name, off, nbytes, rows[a : a + k].view(-1))
+    page_scatter(mat, rows, pages_o)
 
 
 def plan_recuration(*_args, **_kwargs):
@@ -388,7 +573,7 @@ class SnapshotReader:
     """
 
     def __init__(self, regions: SnapshotRegions, cxl_view: HostView, rdma: MemoryTier):
-        _check_private(regions)
+        _check_layout(regions)
         self.regions = regions
         self.view = cxl_view
         self.rdma = rdma
@@ -444,9 +629,21 @@ class SnapshotReader:
 
     # -- protocol hook ------------------------------------------------------
     def invalidate_cxl(self) -> None:
-        """clflushopt over machine state + offset array + hot data (§3.3)."""
+        """clflushopt over machine state + offset array + hot data (§3.3).
+
+        A dedup snapshot has no contiguous hot section: the metadata region
+        is flushed first, then the (now-fresh) offset array is decoded and
+        each maximal run of ADJACENT store offsets flushed separately."""
         r = self.regions
-        self.view.invalidate(r.cxl_off, r.ms_size + r.oa_size + max(r.hot_bytes, 0))
+        if not r.dedup:
+            self.view.invalidate(r.cxl_off, r.ms_size + r.oa_size + max(r.hot_bytes, 0))
+            return
+        self.view.invalidate(r.cxl_off, r.ms_size + r.oa_size)
+        oa = self.offset_array()
+        sel = (oa != ZERO_SENTINEL) & ((oa >> TIER_SHIFT) == np.uint64(TIER_CXL))
+        offs = np.sort((oa[sel] & OFFSET_MASK).astype(np.int64))
+        for off, n in _offset_runs(offs):
+            self.view.invalidate(int(off), int(n) * PAGE_SIZE)
 
     # -- index + machine state ----------------------------------------------
     def machine_state(self) -> Tuple[Manifest, dict]:
@@ -464,11 +661,14 @@ class SnapshotReader:
 
     # -- page lookup ----------------------------------------------------------
     def lookup(self, page: int) -> Tuple[str, int]:
-        """-> ("zero", 0) | ("cxl", pool_byte_offset) | ("rdma", pool_byte_offset)."""
+        """-> ("zero", 0) | ("cxl", pool_byte_offset) | ("rdma", pool_byte_offset).
+        Dedup slots already hold absolute tier offsets (no region base)."""
         slot = self.offset_array()[page]
         if slot == ZERO_SENTINEL:
             return "zero", 0
         tier, off = decode_slot(slot)
+        if self.regions.dedup:
+            return ("cxl" if tier == TIER_CXL else "rdma"), off
         if tier == TIER_CXL:
             return "cxl", self.regions.hot_off + off
         return "rdma", self.regions.rdma_off + off
@@ -520,41 +720,78 @@ class SnapshotReader:
         """Yield ``(es, en, rank0, pool_off, nbytes)`` extents covering the
         cold runs (largest-first by default), each readable with ONE
         one-sided read.  The prefetcher and the node-level pump consume this
-        one splitting arithmetic, so they cannot drift apart."""
+        one splitting arithmetic, so they cannot drift apart.
+
+        Dedup snapshots additionally split each guest run wherever the
+        stored tier offsets stop being adjacent, so every extent is
+        contiguous in BOTH the guest address space and the tier."""
         runs = self.cold_runs()
         if runs.size == 0:
             return
+        dedup = self.regions.dedup
+        oa = self.offset_array() if dedup else None
         order = (np.argsort(-runs[:, 1], kind="stable") if largest_first
                  else range(runs.shape[0]))
         for ri in order:
             start, n = int(runs[ri, 0]), int(runs[ri, 1])
             for es in range(start, start + n, max_extent_pages):
                 en = min(max_extent_pages, start + n - es)
-                rank0 = self.cold_rank(es)
-                pool_off, nbytes = self.cold_extent_span(rank0, en)
-                yield es, en, rank0, pool_off, nbytes
+                if not dedup:
+                    rank0 = self.cold_rank(es)
+                    pool_off, nbytes = self.cold_extent_span(rank0, en)
+                    yield es, en, rank0, pool_off, nbytes
+                    continue
+                offs = (oa[es : es + en] & OFFSET_MASK).astype(np.int64)
+                for a, k in _offset_subruns(offs):
+                    yield (es + a, k, int(offs[a]) // PAGE_SIZE,
+                           int(offs[a]), k * PAGE_SIZE)
 
     def iter_hot_extents(self, chunk_pages: int = 256):
         """Yield ``(pages, pool_off, nbytes)`` CXL extents covering the hot
         set, each readable with ONE sequential CXL read of ``nbytes`` at
-        ``pool_off`` whose i-th page belongs to guest page ``pages[i]``.  The
-        hot region is rank-compacted, so this is the region streamed in
-        ``chunk_pages`` chunks (``pages`` ascending)."""
+        ``pool_off`` whose i-th page belongs to guest page ``pages[i]``.
+
+        Private layout: the hot region is rank-compacted, so this is the
+        region streamed in ``chunk_pages`` chunks (``pages`` ascending).
+        Dedup layout: hot pages are visited in STORE-OFFSET order and split
+        wherever offsets stop being adjacent and at absolute tier-grid
+        boundaries of ``chunk_pages`` pages (so snapshots sharing store runs
+        emit identical chunks); ``pages`` is then generally unsorted."""
         hot = self.hot_page_indices()
-        hot_off = self.regions.hot_off
-        for r0 in range(0, int(hot.size), chunk_pages):
-            r1 = min(int(hot.size), r0 + chunk_pages)
-            yield (hot[r0:r1], hot_off + r0 * PAGE_SIZE,
-                   (r1 - r0) * PAGE_SIZE)
+        if hot.size == 0:
+            return
+        if not self.regions.dedup:
+            hot_off = self.regions.hot_off
+            for r0 in range(0, int(hot.size), chunk_pages):
+                r1 = min(int(hot.size), r0 + chunk_pages)
+                yield (hot[r0:r1], hot_off + r0 * PAGE_SIZE,
+                       (r1 - r0) * PAGE_SIZE)
+            return
+        offs = (self.offset_array()[hot] & OFFSET_MASK).astype(np.int64)
+        order = np.argsort(offs, kind="stable")
+        hot_o, offs_o = hot[order], offs[order]
+        chunk_bytes = chunk_pages * PAGE_SIZE
+        for a, k in _offset_subruns(offs_o):
+            s = a
+            while s < a + k:
+                off_s = int(offs_o[s])
+                to_boundary = (chunk_bytes - off_s % chunk_bytes) // PAGE_SIZE
+                n = min(a + k - s, max(1, to_boundary))
+                yield hot_o[s : s + n], off_s, n * PAGE_SIZE
+                s += n
 
     def cold_rank(self, page: int) -> int:
-        """Rank (position in the sorted cold set) of a cold page."""
+        """Rank (position in the sorted cold set) of a cold page.  For a
+        dedup snapshot the "rank" is the absolute tier page number."""
         _tier, off = decode_slot(self.offset_array()[page])
         return off // PAGE_SIZE
 
     def cold_extent_span(self, rank: int, n: int) -> Tuple[int, int]:
         """Byte span of `n` consecutive cold ranks in the RDMA tier:
-        ``(pool_byte_offset, nbytes)``."""
+        ``(pool_byte_offset, nbytes)``.  Dedup ranks are absolute tier page
+        numbers, so no region base is added."""
+        if self.regions.dedup:
+            return rank * PAGE_SIZE, n * PAGE_SIZE
         return self.regions.rdma_off + rank * PAGE_SIZE, n * PAGE_SIZE
 
     def split_cold_extent(self, rank: int, n: int, payload: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,9 @@
 
 These functions take and return plain dicts and numpy arrays, so a snapshot
 that another implementation of the same format published (its manifest
-dict, image bytes, tier arenas, free lists and region record) can be
-restored here, and the other way round.  They import nothing but this
-package.
+dict, image bytes, tier arenas, free lists, dedup store states and region
+record) can be restored and freed here, and the other way round.  They
+import nothing but this package.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .core.dedup import DedupStore
 from .core.pagestore import Manifest, StateImage
 from .core.pool import HierarchicalPool, MemoryTier
 from .core.snapshot import SnapshotRegions
@@ -43,15 +44,45 @@ def _load_tier(tier: MemoryTier, buf: np.ndarray, free: List[Tuple[int, int]]) -
     tier.bytes_in_use = tier.capacity - sum(s for _o, s in blocks)
 
 
+def dedup_store_state(store: DedupStore) -> dict:
+    """A dedup store's state as plain dicts and lists: ``buckets`` (hash ->
+    offsets, in bucket order), ``refs`` (offset -> refcount), ``hash_of``
+    (offset -> hash), ``quarantined`` (sorted offsets) and ``stats``."""
+    with store._lock:
+        return {"buckets": {h: list(b) for h, b in store._buckets.items()},
+                "refs": dict(store._refs), "hash_of": dict(store._hash_of),
+                "quarantined": sorted(store._quarantined), "stats": dict(store.stats)}
+
+
+def dedup_store_from_state(tier: MemoryTier, state: dict, hash_fn=None) -> DedupStore:
+    """A dedup store on ``tier`` (whose arena already holds the pages) with
+    the state :func:`dedup_store_state` describes."""
+    store = DedupStore(tier, hash_fn=hash_fn)
+    store._buckets = {int(h): [int(o) for o in b] for h, b in state["buckets"].items()}
+    store._refs = {int(o): int(c) for o, c in state["refs"].items()}
+    store._hash_of = {int(o): int(h) for o, h in state["hash_of"].items()}
+    store._quarantined = {int(o) for o in state["quarantined"]}
+    store.stats.update({k: int(v) for k, v in state["stats"].items()})
+    return store
+
+
 def pool_from_numpy(cxl_buf: np.ndarray, rdma_buf: np.ndarray, free_lists: FreeLists,
-                    device="cuda", **pool_kwargs) -> HierarchicalPool:
+                    device="cuda", dedup_states: Optional[Dict[str, dict]] = None,
+                    **pool_kwargs) -> HierarchicalPool:
     """A pool on ``device`` holding the given tier arenas and allocator state
-    (``free_lists = {"cxl": [(offset, size), ...], "rdma": [...]}``)."""
+    (``free_lists = {"cxl": [(offset, size), ...], "rdma": [...]}``) and,
+    when given, the two dedup store states (``{"cxl": state, "rdma": state}``,
+    see :func:`dedup_store_state`)."""
     pool = HierarchicalPool(cxl_capacity=int(np.asarray(cxl_buf).nbytes),
                             rdma_capacity=int(np.asarray(rdma_buf).nbytes),
                             device=device, **pool_kwargs)
     _load_tier(pool.cxl, cxl_buf, free_lists["cxl"])
     _load_tier(pool.rdma, rdma_buf, free_lists["rdma"])
+    if dedup_states is not None:
+        pool.dedup_cxl = dedup_store_from_state(pool.cxl, dedup_states["cxl"],
+                                                pool.dedup_cxl.hash_fn)
+        pool.dedup_rdma = dedup_store_from_state(pool.rdma, dedup_states["rdma"],
+                                                 pool.dedup_rdma.hash_fn)
     return pool
 
 

@@ -1,10 +1,15 @@
 """Hand-written Hopper kernels of the port, each beside its plain torch version.
 
 ``snapshot_fuse`` holds the fused publish sweep and the fused
-gather→verify→scatter restore (CUDA C++, ``csrc/``), ``page_checksum`` the
-plain poly32 checksum they are held to.  The CUDA libraries are compiled at
-first use by :mod:`repro_torch.kernels.build`.
+gather→verify→scatter restore; ``zero_detect``, ``page_checksum``,
+``page_gather`` and ``page_scatter`` are the piecemeal kernels of the same
+data plane (zero scan, dedup hash, compaction, install and store writes).
+All are CUDA C++ under ``<name>/csrc/``, compiled at first use by
+:mod:`repro_torch.kernels.build`.
 """
+from .page_checksum import page_checksum
+from .page_gather import page_gather
+from .page_scatter import page_scatter
 from .snapshot_fuse import (
     ChecksumMismatchError,
     FusedPublishResult,
@@ -13,3 +18,4 @@ from .snapshot_fuse import (
     fused_restore,
     make_fused_publish_fn,
 )
+from .zero_detect import zero_detect

@@ -17,7 +17,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
 
 KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
@@ -26,12 +26,19 @@ BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
-_FUSE_CSRC = KERNELS_DIR / "snapshot_fuse" / "csrc"
+_COMMON = (KERNELS_DIR / "snapshot_fuse" / "csrc" / "common.cuh",)
 # library name -> (main source, headers it includes)
 SOURCES: Dict[str, tuple] = {
-    "fused_publish": (_FUSE_CSRC / "fused_publish.cu", (_FUSE_CSRC / "common.cuh",)),
-    "fused_restore": (_FUSE_CSRC / "fused_restore.cu", (_FUSE_CSRC / "common.cuh",)),
+    "fused_publish": (KERNELS_DIR / "snapshot_fuse" / "csrc" / "fused_publish.cu", _COMMON),
+    "fused_restore": (KERNELS_DIR / "snapshot_fuse" / "csrc" / "fused_restore.cu", _COMMON),
+    **{name: (KERNELS_DIR / name / "csrc" / f"{name}.cu", _COMMON)
+       for name in ("zero_detect", "page_checksum", "page_gather", "page_scatter")},
 }
+
+# ctypes argument types of the C entry points
+PTR = ctypes.c_void_p
+I64 = ctypes.c_int64
+U32 = ctypes.c_uint32
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -100,3 +107,25 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
         return lib
+
+
+def call(lib_name: str, fn_name: str, argtypes: Sequence, *args) -> None:
+    """Call the C entry point ``fn_name`` of a kernel library (built first if
+    needed); raise ``RuntimeError`` when it returns a CUDA error code."""
+    lib = load(lib_name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        lib.aq_error_string.argtypes = [ctypes.c_int]
+        lib.aq_error_string.restype = ctypes.c_char_p
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} ({lib.aq_error_string(rc).decode()})")
+
+
+def stream_of(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as a pointer value."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,46 @@
+// Row gather for Hopper (sm_90a), bound to Python with ctypes.
+//
+// Replaces the TPU kernel src/repro/kernels/page_gather/kernel.py:26
+// `page_gather_pallas` (body `_gather_kernel`, kernel.py:20):
+//     out[i] = rows[idx[i]],  i < m,
+// for rows of any width that is a multiple of 16 bytes (any dtype: the
+// kernel moves bytes).  It compacts a snapshot's hot and cold pages at
+// publish and materializes dedup pages from a tier's page rows.
+//
+// Bound: each output row is read once and written once, plus 8 bytes of
+// index: 2*m*row + 8m bytes.  For the hot set of the 1.5 GiB image (~21.7k
+// pages) 0.053 ms at 3.35 TB/s, for its cold set (~136.9k pages) 0.335 ms.
+//
+// Design.  The TPU kernel scalar-prefetches the index list to drive its
+// input BlockSpec.  Here one block of 256 threads takes one output row: it
+// loads its own index, and each thread copies 16-byte words of the row.
+// Byte offsets are 64-bit (a 3 GiB arena has rows past 2^31 bytes).
+
+#include "../../snapshot_fuse/csrc/common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+page_gather_kernel(const uint4* __restrict__ rows, const int64_t* __restrict__ idx,
+                   int64_t row_u4, uint4* __restrict__ out) {
+  const int64_t i = blockIdx.x;
+  const uint4* src = rows + idx[i] * row_u4;
+  uint4* dst = out + i * row_u4;
+  for (int64_t j = threadIdx.x; j < row_u4; j += kThreads) dst[j] = src[j];
+}
+
+}  // namespace
+
+// rows: (N, row_bytes) bytes, out: (m, row_bytes) bytes, both 16-byte
+// aligned with row_bytes a multiple of 16; idx: int64[m], each in [0, N).
+extern "C" int aq_page_gather(const void* rows, const void* idx, int64_t m, int64_t row_bytes,
+                              void* out, void* stream) {
+  if (m <= 0) return 0;
+  page_gather_kernel<<<static_cast<unsigned int>(m), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(rows), static_cast<const int64_t*>(idx), row_bytes / 16,
+      static_cast<uint4*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -9,15 +9,14 @@ is refused.  The libraries are compiled at first call (``kernels/build.py``).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from .. import build
+from ..build import I64 as _I64
+from ..build import PTR as _P
 
-_P = ctypes.c_void_p
-_I64 = ctypes.c_int64
 _SIGNATURES = {
     ("fused_publish", "aq_publish_classify"): (_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P),
     ("fused_publish", "aq_publish_compact"): (_P, _P, _P, _I64, _P, _P, _P),
@@ -25,27 +24,12 @@ _SIGNATURES = {
 }
 
 
-def _fn(lib_name: str, fn_name: str):
-    lib = build.load(lib_name)
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = list(_SIGNATURES[(lib_name, fn_name)])
-        fn.restype = ctypes.c_int
-        lib.aq_error_string.argtypes = [ctypes.c_int]
-        lib.aq_error_string.restype = ctypes.c_char_p
-    return fn, lib
-
-
 def _call(lib_name: str, fn_name: str, *args) -> None:
-    fn, lib = _fn(lib_name, fn_name)
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {rc} "
-                           f"({lib.aq_error_string(rc).decode()})")
+    build.call(lib_name, fn_name, _SIGNATURES[(lib_name, fn_name)], *args)
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return build.stream_of(t)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -20,18 +20,17 @@ launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from ..page_checksum.ref import poly_weights
+from .. import rows
+from ..page_checksum.ops import weights_on
 from . import kernel
 from .ref import fused_publish_ref, fused_restore_ref
 
 PAGE_BYTES = 4096  # the kernels' row width: one 4 KiB guest page
-
-_weights_cache: Dict[torch.device, torch.Tensor] = {}
 
 
 class ChecksumMismatchError(RuntimeError):
@@ -68,22 +67,15 @@ class FusedPublishResult:
 
 def _weights(device: torch.device) -> torch.Tensor:
     """poly32 weights for a 4 KiB page as an int32 tensor on ``device``."""
-    w = _weights_cache.get(device)
-    if w is None:
-        w = torch.from_numpy(poly_weights(PAGE_BYTES // 4).view(np.int32)).to(device)
-        _weights_cache[device] = w
-    return w
+    return weights_on(device, PAGE_BYTES // 4)
 
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
     """What the CUDA kernels take: contiguous uint8 (rows, 4096), 16-byte aligned."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
     if t.dtype != torch.uint8 or t.dim() != 2 or t.shape[1] != PAGE_BYTES:
         raise ValueError(f"{name}: expected uint8 (rows, {PAGE_BYTES}), got "
                          f"{t.dtype} {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name}: rows must be contiguous and 16-byte aligned")
+    rows.check_rows(name, t)
 
 
 def fused_publish(pages: torch.Tensor, ws_mask: torch.Tensor) -> FusedPublishResult:
@@ -142,19 +134,15 @@ def fused_restore(dest: torch.Tensor, compact: torch.Tensor, indices,
     :class:`ChecksumMismatchError` lists the guest pages that disagree.  The
     rows are written either way.
     """
-    dst = np.asarray(indices, dtype=np.int64).reshape(-1)
+    dst = rows.host_indices("fused_restore", indices, dest.shape[0])
     m = dst.size
     src = (np.arange(m, dtype=np.int64) if src_indices is None
-           else np.asarray(src_indices, dtype=np.int64).reshape(-1))
+           else rows.host_indices("fused_restore src", src_indices, compact.shape[0]))
     if src.size != m:
         raise ValueError(f"fused_restore: {src.size} sources for {m} destinations")
     if m == 0:
         return dest, torch.zeros(0, dtype=torch.int32, device=dest.device)
-    if dst.min() < 0 or dst.max() >= dest.shape[0] or src.min() < 0 \
-            or src.max() >= compact.shape[0]:
-        raise IndexError("fused_restore: row index out of range")
-    if __debug__:
-        assert np.unique(dst).size == m, "fused_restore: duplicate destination rows"
+    rows.check_unique("fused_restore", dst)
     idx = torch.from_numpy(np.stack([src, dst])).to(dest.device)   # one host→device copy
     if dest.device.type == "cpu":
         csum = fused_restore_ref(dest, compact, idx[0], idx[1])

@@ -13,8 +13,21 @@ import pytest
 import torch
 
 from repro_torch import core
-from repro_torch.kernels import ChecksumMismatchError, FusedScatter, fused_publish, fused_restore
+from repro_torch.kernels import (
+    ChecksumMismatchError,
+    FusedScatter,
+    fused_publish,
+    fused_restore,
+    page_checksum,
+    page_gather,
+    page_scatter,
+    zero_detect,
+)
+from repro_torch.kernels.page_checksum.ref import page_checksum_ref
+from repro_torch.kernels.page_gather.ref import page_gather_ref
+from repro_torch.kernels.page_scatter.ref import page_scatter_ref
 from repro_torch.kernels.snapshot_fuse.ref import fused_publish_ref, fused_restore_ref
+from repro_torch.kernels.zero_detect.ref import zero_detect_ref
 
 PAGE = 4096
 pytestmark = pytest.mark.gpu
@@ -149,3 +162,136 @@ def test_demand_faults_and_prefetch_threads_on_card(cuda_device):
     assert inst.all_present() and torch.equal(inst.image.buf, image.buf)
     assert eng.buffers.outstanding == 0 and eng.repair_error is None
     assert not rdma._worker.is_alive() and not eng._prefetch_thread.is_alive()
+
+
+ROW_CASES = [(0, None), (1, None), (7, None), (37, None), (1000, None),
+             (64, 0), (64, 5), (64, 0xFF)]
+
+
+def _rows(n, fill, device, seed=0):
+    """n random pages (every third zero, every seventh all-0xFF) or n pages
+    of one byte value."""
+    if fill is not None:
+        return torch.full((n, PAGE), fill, dtype=torch.uint8, device=device)
+    pages, _ = _pages(n, seed, 3)
+    return torch.from_numpy(pages).to(device)
+
+
+@pytest.mark.parametrize("n,fill", ROW_CASES)
+def test_zero_detect_and_checksum_kernels_match_plain(cuda_device, n, fill):
+    p = _rows(n, fill, cuda_device, seed=n)
+    before = (zero_detect.launches, page_checksum.launches)
+    z, c = zero_detect(p), page_checksum(p)
+    torch.cuda.synchronize()
+    assert torch.equal(z, zero_detect_ref(p)) and torch.equal(c, page_checksum_ref(p))
+    assert (zero_detect.launches, page_checksum.launches) == tuple(
+        b + (1 if n else 0) for b in before)
+    if n:
+        assert torch.equal(c, fused_publish(p, torch.zeros(n, dtype=torch.bool,
+                                                           device=cuda_device)).checksums)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16,
+                                   torch.float64, torch.int32])
+def test_zero_detect_kernel_value_semantics(cuda_device, dtype):
+    width = PAGE // torch.tensor([], dtype=dtype).element_size()
+    x = torch.zeros((6, width), dtype=dtype, device=cuda_device)
+    if dtype.is_floating_point:
+        x[1, 3] = -0.0
+        x[2, :] = -0.0
+        x[3, 5] = float("nan")
+    x[4, width - 1] = 1
+    x[5, 0] = -2
+    got = zero_detect(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, zero_detect_ref(x))
+
+
+def test_checksum_kernel_other_widths(cuda_device):
+    for width in (16, 1024, 65536):
+        p = torch.randint(0, 256, (33, width), dtype=torch.uint8, device=cuda_device)
+        p[0] = 0xFF
+        got = page_checksum(p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, page_checksum_ref(p)), width
+
+
+@pytest.mark.parametrize("n,fill", ROW_CASES)
+def test_gather_and_scatter_kernels_match_plain(cuda_device, n, fill):
+    rng = np.random.default_rng(n)
+    p = _rows(n, fill, cuda_device, seed=n + 1)
+    idx = rng.permutation(n)
+    before = (page_gather.launches, page_scatter.launches)
+    got = page_gather(p, idx)
+    want = page_gather_ref(p, torch.from_numpy(idx).to(cuda_device))
+    dest_k = torch.randint(0, 256, (n + 50, PAGE), dtype=torch.uint8, device=cuda_device)
+    dest_p = dest_k.clone()
+    dst = rng.permutation(n + 50)[:n]
+    src = rng.integers(0, max(n, 1), n)
+    page_scatter(dest_k, p, dst, src_indices=src)
+    page_scatter_ref(dest_p, p, torch.from_numpy(dst).to(cuda_device),
+                     torch.from_numpy(src).to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(dest_k, dest_p)
+    assert (page_gather.launches, page_scatter.launches) == tuple(
+        b + (1 if n else 0) for b in before)
+
+
+def test_gather_scatter_device_indices_and_dtypes(cuda_device):
+    f = torch.randn((40, 1024), device=cuda_device)
+    idx = torch.tensor([39, 0, 0, 17], device=cuda_device)
+    assert torch.equal(page_gather(f, idx), f[idx])
+    dest = torch.zeros((8, 1024), device=cuda_device)
+    page_scatter(dest, f, torch.tensor([7, 1], device=cuda_device),
+                 src_indices=torch.tensor([3, 39], device=cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(dest[7], f[3]) and torch.equal(dest[1], f[39]) and not dest[0].any()
+    with pytest.raises(IndexError):
+        page_gather(f, np.array([40]))
+    with pytest.raises(ValueError):
+        page_gather(torch.zeros((4, 100), dtype=torch.uint8, device=cuda_device), [0])
+
+
+def test_dedup_slice_small(cuda_device):
+    """Three variants sharing a base at 2048 pages each, on the card: the
+    kernel route and the fused route share pages, every restore is
+    bit-identical, and freeing the fleet empties both stores."""
+    rng = np.random.default_rng(7)
+    n = 2048
+    base = rng.integers(0, 256, (n, PAGE), dtype=np.uint8)
+    base[rng.random(n) < 0.6] = 0
+    hot = np.flatnonzero(rng.random(n) < 0.1)
+    cold = np.setdiff1d(np.flatnonzero(base.any(axis=1)), hot)
+    manifest = core.Manifest([core.ArrayExtent("guest", 0, n * PAGE, (n * PAGE,), "uint8")], n)
+    pool = core.HierarchicalPool(16 << 20, 32 << 20, device=cuda_device,
+                                 dedup_hash_fn=core.poly32_hash_fn)
+    from repro_torch.kernels import make_fused_publish_fn
+
+    for k in (zero_detect, page_checksum, page_gather, page_scatter):
+        k.launches = 0
+    images, regions = [], []
+    for v in range(3):
+        pages = base.copy()
+        pages[hot[v * 4 : v * 4 + 4]] = rng.integers(1, 255, (4, PAGE), dtype=np.uint8)
+        pages[cold] = rng.integers(1, 255, (cold.size, PAGE), dtype=np.uint8)
+        image = core.StateImage(manifest, torch.from_numpy(pages.reshape(-1)).to(cuda_device))
+        kw = {"publish_fn": make_fused_publish_fn()} if v == 2 else {}
+        regions.append(core.build_snapshot(pool, image, hot, f"v{v}", dedup=True, **kw))
+        images.append(image)
+    assert pool.dedup_cxl.stats["unique"] == np.count_nonzero(base[hot].any(axis=1)) + 12
+    for image, reg in zip(images, regions):
+        ledger = core.TimeLedger()
+        reader = core.SnapshotReader(reg, pool.host_view("h", ledger), pool.rdma)
+        reader.invalidate_cxl()
+        inst = core.Instance(core.StateImage.empty_like(manifest, device=cuda_device), ledger)
+        scatter = FusedScatter() if reg.name == "v2" else None
+        eng = core.RestoreEngine(reader, inst, scatter_fn=scatter)
+        eng.install_all_sync()
+        torch.cuda.synchronize()
+        assert torch.equal(inst.image.buf, image.buf)
+        assert torch.equal(core.reconstruct_image(pool, reg).buf, image.buf)
+    assert all(k.launches > 0 for k in (zero_detect, page_checksum, page_gather, page_scatter))
+    for reg in regions:
+        core.free_snapshot(pool, reg)
+    assert pool.dedup_cxl.unique_pages() == pool.dedup_rdma.unique_pages() == 0
+    assert pool.cxl.bytes_in_use == pool.rdma.bytes_in_use == 0

@@ -97,3 +97,45 @@ def test_carriers_round_trip():
                                   regions.page_checksums.numpy())
     inst, _ = _restore_port(pool2, regions2, img.manifest)
     np.testing.assert_array_equal(inst.image.buf.numpy(), img.buf.numpy())
+
+
+def test_jax_published_dedup_fleet_restored_and_freed_by_port():
+    """The JAX package publishes a dedup fleet (fused sweep, poly32 stores,
+    Pallas interpret mode); the port loads arenas, free lists and both store
+    states, restores every variant bit-identically and verified, shares a
+    re-publish with the loaded pages, and frees the fleet to empty stores."""
+    from test_torch_dedup import _ref_state
+    from test_torch_dedup_layout import _ref_poly_hash, make_fleet
+
+    pool_r = ref.HierarchicalPool(CXL, RDMA, dedup_hash_fn=_ref_poly_hash)
+    published = []
+    for v, (arrays, ws) in enumerate(make_fleet(seed=3)):
+        img = ref.StateImage.build(arrays)
+        reg = ref.build_snapshot(pool_r, img, ws, f"v{v}", version=v, dedup=True,
+                                 publish_fn=ref_publish_fn(block_pages=8, use_pallas=True,
+                                                           interpret=True))
+        published.append((img, reg))
+    pool_g = interop.pool_from_numpy(
+        pool_r.cxl.buf, pool_r.rdma.buf, {"cxl": pool_r.cxl._free, "rdma": pool_r.rdma._free},
+        device="cpu", dedup_hash_fn=port.poly32_hash_fn,
+        dedup_states={"cxl": _ref_state(pool_r.dedup_cxl), "rdma": _ref_state(pool_r.dedup_rdma)})
+    assert interop.dedup_store_state(pool_g.dedup_rdma) == _ref_state(pool_r.dedup_rdma)
+    assert pool_g.cxl.dedup_store is pool_g.dedup_cxl
+    regions = []
+    for img, reg in published:
+        reg_g = interop.regions_from_dict(reg.to_dict(), page_checksums=reg.page_checksums)
+        manifest = port.Manifest.from_dict(img.manifest.to_dict())
+        inst, _ = _restore_port(pool_g, reg_g, manifest)
+        np.testing.assert_array_equal(inst.image.buf.numpy(), img.buf)
+        assert inst.scatter_fn.stats["pages_verified"] == reg.n_hot + reg.n_cold
+        regions.append(reg_g)
+    unique = pool_g.dedup_cxl.unique_pages(), pool_g.dedup_rdma.unique_pages()
+    arrays, ws = make_fleet(seed=3)[0]
+    again = port.build_snapshot(pool_g, port.StateImage.build(arrays, device="cpu"), ws, "again",
+                                dedup=True, publish_fn=make_fused_publish_fn())
+    assert (pool_g.dedup_cxl.unique_pages(), pool_g.dedup_rdma.unique_pages()) == unique
+    for reg_g in regions + [again]:
+        port.free_snapshot(pool_g, reg_g)
+    for store in (pool_g.dedup_cxl, pool_g.dedup_rdma):
+        assert store.refcounts() == {} and store.unique_pages() == 0
+    assert pool_g.cxl.bytes_in_use == 0 and pool_g.rdma.bytes_in_use == 0

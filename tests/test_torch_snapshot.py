@@ -129,15 +129,16 @@ def test_unported_layouts_raise():
     arrays, ws = make_image()
     img = port.StateImage.build(arrays, device="cpu")
     pool = port.HierarchicalPool(CXL, RDMA, device="cpu")
-    for kw in ({"dedup": True}, {"compress_cold": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.build_snapshot(pool, img, ws, "m", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.build_snapshot(pool, img, ws, "m", compress_cold=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.estimate_snapshot_cxl_size(img, ws, compress_cold=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.snapshot.plan_recuration(pool, None, None)
     regions = port.build_snapshot(pool, img, ws, "m")
-    dedup = dataclasses.replace(regions, dedup=True)
+    compressed = dataclasses.replace(regions, cold_compressed=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.SnapshotReader(dedup, pool.host_view("h"), pool.rdma)
+        port.SnapshotReader(compressed, pool.host_view("h"), pool.rdma)
     assert pool.cxl.free_list_stats()["blocks"] == 1
 
 
