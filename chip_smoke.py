@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's publish→restore paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's publish→restore paths and its model on one
+NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
@@ -46,6 +47,22 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              freeing the fleet must empty both stores.  One more variant is
              published and restored under ``torch.profiler``.
 
+8. model   — the flash-attention kernel against its plain versions on the
+             card (the prefill path's shape B=1, Hq=24, Hkv=8, S=8192, D=128,
+             causal; bf16 within one rounding of the float32 reference on
+             the upcast inputs, 2^-8|want| + 1e-4, float32 within 1e-5; ragged
+             Sq < Skv, Dk != Dv and non-causal cases) and its times beside
+             the plain versions, ``scaled_dot_product_attention`` and its
+             bound; then Phi-4-mini 3.8B at full width from seeded random
+             weights: ``build(...).forward`` over one 8,192-token sequence
+             with all 32 layers (32 kernel launches, finite logits), the
+             serving engine answering 4 requests of 128-token prompts with 32
+             new tokens each through ``generate`` (decode attention, no
+             kernel launch), the full-depth bf16 forward's last logits against
+             the engine's prefill logits (printed), and decode against forward
+             at full width, 2 layers, float32 (relative error < 2e-3).  One
+             prefill forward and four decode steps run under torch.profiler.
+
 Prints each phase's wall time, a ``{"kernels": [...]}`` line, the card line,
 and as the last line ``{"ok": true, "device": {...}}``.  Details go to
 ``--out``.  Modeled ledger seconds are the paper's CXL/RDMA cost model, not
@@ -79,6 +96,12 @@ ROW_KERNELS = {   # name -> the TPU kernel it replaces
 }
 ARENA_BYTES = 3 << 30          # the dedup pool's RDMA arena: rows pass 2^31 bytes
 N_VARIANTS = 4
+BF16_FLOPS_PER_S = 989e12                      # H100 SXM data sheet, dense tensor cores
+F32_FLOPS_PER_S = 67e12                        # float32 outside the tensor cores
+MODEL_ARCH = "phi4-mini-3.8b"
+PREFILL_SEQ = 8192          # prefill_32k cut to one 8,192-token sequence
+FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:91"
+FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 
 
 def log(msg: str) -> None:
@@ -712,6 +735,304 @@ def profile_dedup(torch, core, pool, base_buf, hot_t, cold_t, d, seed, working_s
     return out
 
 
+def flash_pairs(b: int, hq: int, sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs the attention computes: suffix-aligned causal rows
+    see i + Skv - Sq + 1 keys."""
+    if not causal:
+        return b * hq * sq * skv
+    off = skv - sq
+    return b * hq * (sq * (off + 1) + sq * (sq - 1) // 2)
+
+
+def flash_bound_ms(q, k, v, causal: bool):
+    """Least time for one call: 2*(Dk+Dv) operations per (query, key) pair at
+    the peak rate for the inputs' type (bf16: tensor cores; float32: CUDA
+    cores, as its float32 semantics rule out TF32), against q, k, v read and
+    the output written once at the memory rate."""
+    import torch
+
+    b, hq, sq, dk = q.shape
+    skv, dv = k.shape[2], v.shape[3]
+    ops = 2 * (dk + dv) * flash_pairs(b, hq, sq, skv, causal)
+    rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    nbytes = (q.numel() + k.numel() + v.numel() + b * hq * sq * dv) * q.element_size()
+    t, by = bound_ms(nbytes, 0)
+    if ops / rate * 1e3 > t:
+        t, by = ops / rate * 1e3, "operations"
+    return t, by, ops, nbytes
+
+
+def check_flash(torch, device, seed: int) -> dict:
+    """The flash kernel against its plain versions on the card: the prefill
+    path's shape (B=1, Hq=24, Hkv=8, S=8192, D=128, causal) in bf16 and
+    float32, a ragged Sq=1000 < Skv=1500 case and a non-causal one; then
+    CUDA-event times of the kernel, the plain versions and the library call at
+    the path's shape in bf16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import attention_ref, chunked_attention_ref
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 17)
+
+    def qkv(b, hq, hkv, sq, skv, dk, dv, dtype):
+        return (torch.randn(b, hq, sq, dk, generator=g, device=device).to(dtype),
+                torch.randn(b, hkv, skv, dk, generator=g, device=device).to(dtype),
+                torch.randn(b, hkv, skv, dv, generator=g, device=device).to(dtype))
+
+    # The reference runs in float32 on the inputs upcast, so it carries no
+    # bf16 rounding: float32 output within 1e-5 (summation order), bf16
+    # output within one round-to-nearest of it, |got - want| <= 2^-8 |want|
+    # + 1e-4.  Truncating, computing in bf16 or losing 1% of a tile fails.
+    tol = {torch.float32: {"rtol": 1e-5, "atol": 1e-5},
+           torch.bfloat16: {"rtol": 2.0 ** -8, "atol": 1e-4}}
+
+    def check(name, got, want, dtype):
+        """``want``: float32 from the upcast inputs.  Returns (max abs error,
+        worst share of the limit)."""
+        t = tol[dtype]
+        err = (got.float() - want).abs()
+        share = float((err / (t["atol"] + t["rtol"] * want.abs())).max())
+        if got.dtype != dtype or got.shape != want.shape or share > 1:
+            raise AssertionError(f"flash_attention ({name}) differs from its float32 plain "
+                                 f"version: max_abs_err {float(err.max())}, {share:.3f} of "
+                                 f"the limit {t}")
+        return float(err.max()), share
+
+    cases = [("path shape bf16", (1, 24, 8, PREFILL_SEQ, PREFILL_SEQ, 128, 128), torch.bfloat16,
+              True),
+             ("path shape f32", (1, 24, 8, PREFILL_SEQ, PREFILL_SEQ, 128, 128), torch.float32,
+              True),
+             ("ragged Sq=1000<Skv=1500", (1, 24, 8, 1000, 1500, 128, 128), torch.bfloat16, True),
+             ("ragged f32, Dk=192 Dv=128", (2, 6, 2, 333, 517, 192, 128), torch.float32, True),
+             ("non-causal", (1, 24, 8, 1000, 1500, 128, 128), torch.bfloat16, False),
+             ("non-causal f32", (2, 8, 2, 300, 200, 64, 64), torch.float32, False)]
+    out = {"cases": [], "tolerance": {"float32": tol[torch.float32],
+                                      "bfloat16": tol[torch.bfloat16]}}
+    for name, shape, dtype, causal in cases:
+        q, k, v = qkv(*shape, dtype)
+        got = flash_attention(q, k, v, causal=causal)
+        want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+        torch.cuda.synchronize()
+        err, share = check(name, got, want, dtype)
+        out["cases"].append({"name": name, "shape": list(shape), "dtype": str(dtype),
+                             "causal": causal, "max_abs_err": err, "share_of_limit": share})
+        log(f"  flash_attention {name} {tuple(shape)} causal={causal}: max_abs_err {err:.3g}, "
+            f"{share:.3f} of the limit {tol[dtype]}")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    q, k, v = qkv(1, 24, 8, PREFILL_SEQ, PREFILL_SEQ, 128, 128, torch.bfloat16)
+    chunked = chunked_attention_ref(q.float(), k.float(), v.float())
+    err, share = check("vs chunked", flash_attention(q, k, v), chunked, torch.bfloat16)
+    log(f"  flash_attention path shape bf16 vs chunked_attention_ref (float32): max_abs_err "
+        f"{err:.3g}, {share:.3f} of the limit")
+    del chunked
+    bound, by, ops, nbytes = flash_bound_ms(q, k, v, True)
+    r = {"shape": f"B=1 Hq=24 Hkv=8 S={PREFILL_SEQ} D=128 causal bf16",
+         "ms": cuda_ms(lambda: flash_attention(q, k, v), iters=10),
+         "plain_ms": cuda_ms(lambda: chunked_attention_ref(q, k, v), iters=3, warmup=1),
+         "plain": "chunked_attention_ref (block_k=512), the CPU dispatch's version at this Skv",
+         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+             q, k, v, is_causal=True, enable_gqa=True), iters=10),
+         "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+         "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes}
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    r["library_max_abs_err"] = float((flash_attention(q, k, v).float() - lib.float()).abs().max())
+    del q, k, v, lib
+    qf, kf, vf = qkv(1, 24, 8, PREFILL_SEQ, PREFILL_SEQ, 128, 128, torch.float32)
+    bf, byf, _, _ = flash_bound_ms(qf, kf, vf, True)
+    r["f32"] = {"ms": cuda_ms(lambda: flash_attention(qf, kf, vf), iters=5),
+                "bound_ms": bf, "bound_by": byf}
+    del qf, kf, vf
+    torch.cuda.empty_cache()
+    out["timing"] = r
+    out["max_abs_err"] = max(c["max_abs_err"] for c in out["cases"])
+    log(f"  flash_attention {r['ms']:.3f} ms at {r['shape']} (plain chunked "
+        f"{r['plain_ms']:.3f} ms, library "
+        f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {by}: "
+        f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); float32 {r['f32']['ms']:.3f} ms "
+        f"(bound {bf:.3f} ms at the CUDA-core rate)")
+    return out
+
+
+def profile_model(torch, fn, name: str, out_dir: Path) -> dict:
+    """``fn()`` under torch.profiler: device busy time and idle share, the top
+    device kernels, and the top host ops by their own CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    row = _device_summary(torch, prof, wall, top=6)
+    host = [e for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CUDA]
+    host.sort(key=lambda e: -e.self_cpu_time_total)
+    row["host_top"] = [{"name": e.key, "count": e.count, "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                       for e in host[:6]]
+    (out_dir / f"profile_{name}.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25) + "\n" +
+        prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=25))
+    log(f"  profile {name}: wall {row['wall_ms']:.2f} ms under the profiler, device busy "
+        f"{row['device_busy_ms']:.3f} ms, idle share {row['device_idle_share']:.4f}")
+    for r in row["top"][:3]:
+        log(f"    device {r['device_ms']:.3f} ms x{r['count']} {r['name'][:70]}")
+    for r in row["host_top"][:3]:
+        log(f"    host {r['self_cpu_ms']:.3f} ms x{r['count']} {r['name'][:70]}")
+    return row
+
+
+def model_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
+    """Phi-4-mini at full width on the card through the port's entry points:
+    the full-depth prefill forward (flash kernel), the serving engine
+    (decode attention), and decode against forward (see the docstring)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import build
+    from repro_torch.serve import new_instance
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 means float32 here
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(MODEL_ARCH)
+    rep = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "param_count": cfg.param_count()}
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    # prefill: Model.forward, all layers, one 8,192-token sequence
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, device=device)
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    rep["init_s"] = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_SEQ), generator=g, device=device)
+    fwd_s = []
+    for i in range(2):
+        if i == 0:
+            flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - t0)
+        if i == 0:
+            rep["launches"] = flash_attention.launches
+            if rep["launches"] != cfg.n_layers:
+                raise AssertionError(f"prefill forward launched flash_attention "
+                                     f"{rep['launches']} times, want {cfg.n_layers}")
+        if (logits.shape != (1, PREFILL_SEQ, cfg.padded_vocab) or logits.dtype != torch.float32
+                or not bool(torch.isfinite(logits[..., :cfg.vocab]).all())):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} {logits.dtype} not "
+                                 "finite / of the expected shape")
+        del logits
+    rep["forward_s"] = fwd_s
+    rep["forward_tokens_per_s"] = PREFILL_SEQ / min(fwd_s)
+    rep["forward_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  prefill: Model.forward of {PREFILL_SEQ} tokens, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}: {fwd_s[0]:.3f} s cold, {fwd_s[1]:.3f} s warm; "
+        f"flash_attention launches {rep['launches']}; logits finite; peak device memory "
+        f"{rep['forward_peak_mem_bytes'] / 2**30:.3f} GiB (init {rep['init_s']:.2f} s)")
+    rep["profile_prefill"] = profile_model(
+        torch, lambda: model.forward(params, {"tokens": tokens}), "prefill", out_dir)
+
+    # serve: 4 requests of 128-token prompts, 32 new tokens each, through generate
+    batch, prompt_len, n_new = 4, 128, 32
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g, device=device)
+    before = flash_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inst = new_instance(cfg, params, batch=batch, max_len=prompt_len + n_new, device=device)
+    answer = inst.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if answer.shape != (batch, n_new) or inst.pos != prompt_len + n_new:
+        raise AssertionError(f"generate gave {answer.shape} at pos {inst.pos}")
+    if flash_attention.launches != before:
+        raise AssertionError("the serving engine launched flash_attention")
+    # the same requests once more, prefill and decode timed apart
+    inst2 = new_instance(cfg, params, batch=batch, max_len=prompt_len + n_new, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre_logits = inst2.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = torch.argmax(pre_logits, dim=-1)[:, None].to(torch.int32)
+    again = []
+    t0 = time.perf_counter()
+    for _ in range(n_new):
+        again.append(tok[:, 0].cpu().numpy())
+        tok = torch.argmax(inst2.decode(tok), dim=-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not np.array_equal(np.stack(again, axis=1), answer):
+        raise AssertionError("a second serving of the same requests gave other tokens")
+    rep["serve"] = {"batch": batch, "prompt_len": prompt_len, "new_tokens": n_new,
+                    "generate_s": gen_s, "prefill_s": prefill_s, "decode_s": decode_s,
+                    "decode_tokens_per_s": batch * n_new / decode_s,
+                    "prefill_tokens_per_s": batch * prompt_len / prefill_s,
+                    "answer_first_tokens": answer[:, :4].tolist()}
+    log(f"  serve: {batch} requests x {prompt_len}-token prompts, {n_new} new tokens each: "
+        f"generate {gen_s:.3f} s (incl. instance set-up); timed apart: prefill "
+        f"{prefill_s:.3f} s ({rep['serve']['prefill_tokens_per_s']:.1f} tokens/s, one decode "
+        f"step per prompt token), decode {decode_s:.3f} s "
+        f"({rep['serve']['decode_tokens_per_s']:.1f} tokens/s); flash_attention launches "
+        "unchanged; both servings gave the same tokens")
+    del inst
+
+    # decode vs forward, full depth bf16: last-position logits of the forward
+    # (flash path) against the engine's prefill logits (decode path)
+    full, _ = model.forward(params, {"tokens": prompts})
+    last = full[:, -1]
+    del full
+    rel = float((last - pre_logits).abs().max() / last.abs().max())
+    agree = float((last.argmax(-1) == pre_logits.argmax(-1)).float().mean())
+    rep["bf16_forward_vs_prefill"] = {"rel_max_err": rel, "argmax_agreement": agree}
+    log(f"  full depth bf16: forward last-position logits vs engine prefill logits: "
+        f"relative max error {rel:.4g}, argmax agreement {agree:.2f} (not asserted)")
+    del inst2, last, pre_logits
+
+    # four decode steps of a fresh instance under the profiler (after two)
+    inst3 = new_instance(cfg, params, batch=batch, max_len=8, device=device)
+    tok = prompts[:, :1].to(torch.int32)
+    for _ in range(2):
+        inst3.decode(tok)
+
+    def four_steps():
+        for _ in range(4):
+            inst3.decode(tok)
+    rep["profile_decode"] = profile_model(torch, four_steps, "decode", out_dir)
+    del inst3, params, model
+    torch.cuda.empty_cache()
+
+    # decode vs forward, full width, 2 layers, float32 compute (tests/test_models.py's bound)
+    cfg2 = dataclasses.replace(cfg, name=f"{cfg.name}-2l-f32", n_layers=2,
+                               compute_dtype="float32")
+    m2 = build(cfg2, device=device)
+    p2 = m2.init(seed + 1)
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=g, device=device)
+    full, _ = m2.forward(p2, {"tokens": toks})
+    caches = m2.init_caches(p2, 2, 16)
+    dec = []
+    for t in range(16):
+        lg, caches = m2.decode_step(p2, {"tokens": toks[:, t:t + 1], "pos": t}, caches)
+        dec.append(lg[:, 0])
+    rel2 = float((torch.stack(dec, 1) - full).abs().max() / full.abs().max())
+    rep["f32_decode_vs_forward_rel"] = rel2
+    if not rel2 < 2e-3:
+        raise AssertionError(f"f32 decode vs forward relative error {rel2} >= 2e-3")
+    log(f"  full width, 2 layers, float32: decode vs forward relative max error {rel2:.3g} "
+        "(< 2e-3)")
+    del p2, m2, full, dec, caches
+    torch.cuda.empty_cache()
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -935,6 +1256,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("dedup")
 
+    # 8. the model: the flash kernel's checks and timings, then Phi-4-mini's
+    # prefill forward (counts reset inside just before it), serving and parity
+    log("model:")
+    del pm, image, buf
+    torch.cuda.empty_cache()
+    report["flash"] = check_flash(torch, device, args.seed)
+    report["model"] = model_phase(torch, np, args.seed, device, out.parent)
+    phase_done("model")
+
     dedup_launches = report["dedup"]["launches"]
     kernels = [
         {"name": "fused_publish", "route": "cuda", "source": f"{CSRC}/fused_publish.cu",
@@ -961,6 +1291,15 @@ def main() -> int:
             "bit_equal": True, "max_abs_err": row_err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
+    r = report["flash"]["timing"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SRC, "replaces": FLASH_TPU,
+        "launches": report["model"]["launches"],
+        "launches_by_path": {"prefill_forward": report["model"]["launches"]},
+        "bit_equal": False, "tolerance": report["flash"]["tolerance"],
+        "max_abs_err": report["flash"]["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": r["shape"]})
     report["kernels"] = kernels
     out.write_text(json.dumps(report, indent=1))
     log(json.dumps({"kernels": kernels}))

@@ -1,0 +1,16 @@
+"""Qwen2.5-14B [hf:Qwen/Qwen2.5-0.5B family; hf]. GQA kv=8, QKV bias."""
+from .base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="qwen2.5-14b",
+    family="dense",
+    n_layers=48,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_ff=13824,
+    vocab=152064,
+    d_head=128,
+    qkv_bias=True,
+    rope_theta=1e6,
+))

@@ -1,10 +1,13 @@
-"""Carry images, pools and snapshot records across from plain host data.
+"""Carry images, pools, snapshot records and model parameters across from
+plain host data.
 
 These functions take and return plain dicts and numpy arrays, so a snapshot
 that another implementation of the same format published (its manifest
 dict, image bytes, tier arenas, free lists, dedup store states and region
-record) can be restored and freed here, and the other way round.  They
-import nothing but this package.
+record) can be restored and freed here, and the other way round; and a
+model's parameter tree (nested dicts of arrays under the same names and
+shapes) can be loaded here or written out.  They import nothing but this
+package.
 """
 from __future__ import annotations
 
@@ -108,3 +111,24 @@ def regions_to_dict(regions: SnapshotRegions) -> Tuple[dict, Optional[np.ndarray
     """Inverse of :func:`regions_from_dict`: ``(dict, page_checksums uint32 or None)``."""
     cs = getattr(regions, "page_checksums", None)
     return regions.to_dict(), (None if cs is None else cs.cpu().numpy().view(np.uint32))
+
+
+def params_from_numpy(tree, device="cuda"):
+    """A parameter tree of tensors on ``device`` from nested dicts/lists of
+    numpy arrays (or anything ``np.asarray`` takes): same names, shapes,
+    dtypes and bits, copied (no tensor aliases the caller's arrays)."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device) for v in tree)
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def params_to_numpy(params):
+    """Inverse of :func:`params_from_numpy`: nested dicts/lists of host numpy
+    arrays with the tensors' bits."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_to_numpy(v) for v in params)
+    return params.detach().cpu().numpy()

@@ -3,10 +3,12 @@
 ``snapshot_fuse`` holds the fused publish sweep and the fused
 gather→verify→scatter restore; ``zero_detect``, ``page_checksum``,
 ``page_gather`` and ``page_scatter`` are the piecemeal kernels of the same
-data plane (zero scan, dedup hash, compaction, install and store writes).
+data plane (zero scan, dedup hash, compaction, install and store writes);
+``flash_attention`` is the grouped-query attention of the models' forward.
 All are CUDA C++ under ``<name>/csrc/``, compiled at first use by
 :mod:`repro_torch.kernels.build`.
 """
+from .flash_attention import flash_attention
 from .page_checksum import page_checksum
 from .page_gather import page_gather
 from .page_scatter import page_scatter

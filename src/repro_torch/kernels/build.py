@@ -33,12 +33,15 @@ SOURCES: Dict[str, tuple] = {
     "fused_restore": (KERNELS_DIR / "snapshot_fuse" / "csrc" / "fused_restore.cu", _COMMON),
     **{name: (KERNELS_DIR / name / "csrc" / f"{name}.cu", _COMMON)
        for name in ("zero_detect", "page_checksum", "page_gather", "page_scatter")},
+    "flash_attention": (KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu", ()),
 }
 
 # ctypes argument types of the C entry points
 PTR = ctypes.c_void_p
 I64 = ctypes.c_int64
 U32 = ctypes.c_uint32
+I32 = ctypes.c_int
+F32 = ctypes.c_float
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

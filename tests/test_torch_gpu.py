@@ -1,5 +1,5 @@
 """On the card: each CUDA kernel of the port against its plain torch version,
-and the publish→restore slice at a small size.  Marked ``gpu``; they skip
+the publish→restore slice and a reduced dense model at a small size.  Marked ``gpu``; they skip
 where there is no card.  This file imports no JAX, so it runs on a machine
 with PyTorch alone:
 
@@ -295,3 +295,103 @@ def test_dedup_slice_small(cuda_device):
         core.free_snapshot(pool, reg)
     assert pool.dedup_cxl.unique_pages() == pool.dedup_rdma.unique_pages() == 0
     assert pool.cxl.bytes_in_use == pool.rdma.bytes_in_use == 0
+
+
+# --------------------------------------------------------------------------
+# flash attention and the dense model
+# --------------------------------------------------------------------------
+
+# Against the float32 reference on the upcast inputs: float32 within 1e-5
+# (summation order), bf16 within one round-to-nearest, 2^-8 |want| + 1e-4.
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -8, 1e-4)}
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dk,dv", [
+    (1, 4, 4, 128, 128, 64, 64),      # MHA
+    (2, 8, 2, 256, 256, 64, 64),      # GQA 4:1
+    (1, 4, 1, 100, 300, 64, 64),      # MQA, ragged Sq < Skv
+    (1, 2, 2, 77, 130, 192, 128),     # ragged, Dk != Dv (MLA)
+    (1, 2, 1, 64, 64, 256, 256),      # the largest head dims
+    (2, 6, 3, 1, 33, 32, 16),         # one query row
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, dk, dv, causal, dtype):
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    g = torch.Generator(device=cuda_device).manual_seed(sq * 7 + dk)
+    q = torch.randn(b, hq, sq, dk, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(b, hkv, skv, dk, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(b, hkv, skv, dv, generator=g, device=cuda_device).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    rtol, atol = FLASH_TOL[dtype]
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.allclose(got.float(), want, rtol=rtol, atol=atol)
+
+
+def test_flash_kernel_takes_strided_views(cuda_device):
+    """The model hands the kernel (B, S, H, D) projections viewed as
+    (B, H, S, D); a non-contiguous last dim is copied first."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn(2, 70, 6, 32, generator=g, device=cuda_device).transpose(1, 2)
+    k = torch.randn(2, 90, 2, 32, generator=g, device=cuda_device).transpose(1, 2)
+    v = torch.randn(2, 2, 16, 90, generator=g, device=cuda_device).transpose(2, 3)
+    got = flash_attention(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    from repro_torch.kernels import flash_attention
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=cuda_device)
+
+    before = flash_attention.launches
+    for q, k, v, causal in [
+        (z(1, 4, 8, 16, dtype=torch.float16), z(1, 2, 8, 16, dtype=torch.float16),
+         z(1, 2, 8, 16, dtype=torch.float16), True),                  # dtype
+        (z(1, 3, 8, 16), z(1, 2, 8, 16), z(1, 2, 8, 16), True),       # Hq % Hkv
+        (z(1, 4, 8, 320), z(1, 2, 8, 320), z(1, 2, 8, 16), True),     # Dk > 256
+        (z(1, 4, 9, 16), z(1, 2, 8, 16), z(1, 2, 8, 16), True),       # causal Sq > Skv
+        (z(1, 4, 8, 16), z(1, 2, 8, 16).cpu(), z(1, 2, 8, 16), True),  # devices differ
+    ]:
+        with pytest.raises(ValueError):
+            flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before
+
+
+def test_reduced_model_on_card_matches_cpu(cuda_device):
+    """A reduced phi4-mini forward (flash kernel) and generate (decode path)
+    on the card against the same parameters on the CPU: float32 compute
+    within 1e-4 relative (matmul order on the card), tokens equal."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import build
+    from repro_torch.serve import new_instance
+
+    cfg = get_config("phi4-mini-3.8b").reduced(compute_dtype="float32", n_layers=3)
+    m_cpu, m_gpu = build(cfg, device="cpu"), build(cfg, device=cuda_device)
+    p_cpu = m_cpu.init(0)
+    p_gpu = params_from_numpy(params_to_numpy(p_cpu), device=cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)))
+    want, _ = m_cpu.forward(p_cpu, {"tokens": tokens})
+    before = flash_attention.launches
+    got, _ = m_gpu.forward(p_gpu, {"tokens": tokens.to(cuda_device)})
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    rel = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert rel < 1e-4, rel
+    out_cpu = new_instance(cfg, p_cpu, 2, 48, device="cpu").generate(tokens[:, :32], 8)
+    out_gpu = new_instance(cfg, p_gpu, 2, 48, device=cuda_device).generate(tokens[:, :32], 8)
+    np.testing.assert_array_equal(out_gpu, out_cpu)

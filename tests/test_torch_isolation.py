@@ -15,7 +15,11 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chi
 
 def test_import_loads_no_jax_and_no_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.interop, repro_torch.kernels.build; "
+            "repro_torch.interop, repro_torch.kernels.build, repro_torch.configs, "
+            "repro_torch.configs.base, repro_torch.configs.shapes, repro_torch.models, "
+            "repro_torch.models.transformer, repro_torch.serve, "
+            "repro_torch.kernels.flash_attention; "
+            "repro_torch.configs.base.load_all(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
