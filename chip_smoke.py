@@ -47,15 +47,22 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              freeing the fleet must empty both stores.  One more variant is
              published and restored under ``torch.profiler``.
 
-8. model   — the flash-attention kernel against its plain versions on the
-             card (the prefill path's shape B=1, Hq=24, Hkv=8, S=8192, D=128,
-             causal; bf16 within one rounding of the float32 reference on
-             the upcast inputs, 2^-8|want| + 1e-4, float32 within 1e-5; ragged
-             Sq < Skv, Dk != Dv and non-causal cases) and its times beside
-             the plain versions, ``scaled_dot_product_attention`` and its
-             bound; then Phi-4-mini 3.8B at full width from seeded random
-             weights: ``build(...).forward`` over one 8,192-token sequence
-             with all 32 layers (32 kernel launches, finite logits), the
+8. model   — flash attention against its plain versions on the card, each
+             case on the route ``ops.route`` gives it and asserted so: bf16
+             with Dk == Dv in {64, 128} on the tensor-core kernel
+             (``flash_attention_sm90.cu``), float32 and Dk != Dv on the SIMT
+             kernel (``flash_attention.cu``); the prefill path's shape B=1,
+             Hq=24, Hkv=8, S=8192, D=128, causal, one tile, keys not a
+             multiple of 128, ragged Sq < Skv and non-causal cases; bf16
+             within one rounding of the float32 reference on the upcast
+             inputs, 2^-8|want| + 1e-4, float32 within 1e-5.  At the prefill
+             shape, in turns in one call, the tensor-core kernel, the SIMT
+             kernel on the same bf16 inputs and ``scaled_dot_product_attention``,
+             beside the plain version and the bound; whether the library's
+             SASS holds HGMMA and UTMALDG.  Then Phi-4-mini 3.8B at full width
+             from seeded random weights: ``build(...).forward`` over one
+             8,192-token sequence with all 32 layers (32 launches, all on the
+             tensor-core route, finite logits), the
              serving engine answering 4 requests of 128-token prompts with 32
              new tokens each through ``generate`` (decode attention, no
              kernel launch), the full-depth bf16 forward's last logits against
@@ -101,7 +108,9 @@ F32_FLOPS_PER_S = 67e12                        # float32 outside the tensor core
 MODEL_ARCH = "phi4-mini-3.8b"
 PREFILL_SEQ = 8192          # prefill_32k cut to one 8,192-token sequence
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:91"
-FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_CSRC = "src/repro_torch/kernels/flash_attention/csrc"
+FLASH_SRC = {"sm90": f"{FLASH_CSRC}/flash_attention_sm90.cu",
+             "simt": f"{FLASH_CSRC}/flash_attention.cu"}
 
 
 def log(msg: str) -> None:
@@ -423,6 +432,20 @@ def scatter_kernel_ms(torch, dest, chunk, dst_t, reps: int = 100):
     return cuda_ms(graph.replay, iters=20, warmup=2) / reps, issued_ms
 
 
+def gather_turns(torch, page_gather, page_gather_ref, pm, idx_t) -> dict:
+    """page_gather and ``torch.index_select`` on the same rows, timed in
+    turns (kernel, library, library, kernel); ``ms`` and ``library_ms`` are
+    the means of each pair."""
+    turns = {"kernel": [], "library": []}
+    for name in ("kernel", "library", "library", "kernel"):
+        fn = ((lambda: page_gather(pm, idx_t)) if name == "kernel"
+              else (lambda: torch.index_select(pm, 0, idx_t)))
+        turns[name].append(cuda_ms(fn, iters=20))
+    return {"ms": sum(turns["kernel"]) / 2, "library_ms": sum(turns["library"]) / 2,
+            "turns_ms": turns,
+            "plain_ms": cuda_ms(lambda: page_gather_ref(pm, idx_t), iters=5, warmup=1)}
+
+
 def time_row_kernels(torch, pm, hot_idx, cold_idx, device) -> dict:
     """CUDA-event times of the four kernels, their plain versions and their
     library yardsticks at the dedup path's shapes, beside their bounds."""
@@ -455,11 +478,8 @@ def time_row_kernels(torch, pm, hot_idx, cold_idx, device) -> dict:
                 "ms": cuda_ms(lambda: page_checksum(rows), iters=20),
                 "plain_ms": cuda_ms(lambda: page_checksum_ref(rows), iters=3, warmup=1),
                 "library_ms": None, "library": None, "bound_ms": bc, "bound_by": byc},
-            "page_gather": {
+            "page_gather": gather_turns(torch, page_gather, page_gather_ref, pm, idx_t) | {
                 "shape": f"{name} set of the image, {m} pages",
-                "ms": cuda_ms(lambda: page_gather(pm, idx_t), iters=20),
-                "plain_ms": cuda_ms(lambda: page_gather_ref(pm, idx_t), iters=5, warmup=1),
-                "library_ms": cuda_ms(lambda: torch.index_select(pm, 0, idx_t), iters=10),
                 "library": "torch.index_select", "bound_ms": bg, "bound_by": byg}}
         del rows
     out["page_checksum"] = sizes["cold"]["page_checksum"]
@@ -502,6 +522,10 @@ def time_row_kernels(torch, pm, hot_idx, cold_idx, device) -> dict:
     for name, r in out["hot_shapes"].items():
         log(f"  {name:13s} {r['ms']:.5f} ms at {r['shape']} (plain {r['plain_ms']:.5f} ms, "
             f"bound {r['bound_ms']:.6f} ms)")
+    for r in (out["page_gather"], out["hot_shapes"]["page_gather"]):
+        log(f"  page_gather   in turns (kernel, index_select, index_select, kernel) at "
+            f"{r['shape']}: {r['turns_ms']['kernel'][0]:.5f}, {r['turns_ms']['library'][0]:.5f}, "
+            f"{r['turns_ms']['library'][1]:.5f}, {r['turns_ms']['kernel'][1]:.5f} ms")
     r = out["page_checksum_full_image"]
     log(f"  page_checksum {r['ms']:.5f} ms at the full image (bound {r['bound_ms']:.5f} ms)")
     r = out["page_scatter"]
@@ -762,16 +786,35 @@ def flash_bound_ms(q, k, v, causal: bool):
     return t, by, ops, nbytes
 
 
+def sass_counts(lib_path: Path) -> dict:
+    """How many HGMMA (wgmma) and UTMALDG (TMA load) instructions the
+    library's SASS holds, where the toolkit has ``cuobjdump``."""
+    import shutil
+
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return {"cuobjdump": None}
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    return {"cuobjdump": tool, "HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
+
+
 def check_flash(torch, device, seed: int) -> dict:
-    """The flash kernel against its plain versions on the card: the prefill
-    path's shape (B=1, Hq=24, Hkv=8, S=8192, D=128, causal) in bf16 and
-    float32, a ragged Sq=1000 < Skv=1500 case and a non-causal one; then
-    CUDA-event times of the kernel, the plain versions and the library call at
-    the path's shape in bf16."""
+    """Flash attention against its plain versions on the card, each case on
+    the route ``ops.route`` gives it (asserted, by the rule and by the launch
+    counts): the prefill path's shape (B=1, Hq=24, Hkv=8, S=8192, D=128,
+    causal) in bf16 and float32, one tile, keys not a multiple of 128, a
+    ragged Sq=1000 < Skv=1500 case, Dk != Dv and non-causal ones.  Then, at
+    the prefill shape in bf16 and in turns, CUDA-event times of the
+    tensor-core kernel, the SIMT kernel on the same inputs and the library
+    call, beside the plain version and the bound."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import build, flash_attention
     from repro_torch.kernels.flash_attention import attention_ref, chunked_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ops as fops
 
     g = torch.Generator(device=device)
     g.manual_seed(seed + 17)
@@ -784,75 +827,118 @@ def check_flash(torch, device, seed: int) -> dict:
     # The reference runs in float32 on the inputs upcast, so it carries no
     # bf16 rounding: float32 output within 1e-5 (summation order), bf16
     # output within one round-to-nearest of it, |got - want| <= 2^-8 |want|
-    # + 1e-4.  Truncating, computing in bf16 or losing 1% of a tile fails.
+    # + 1e-4.  Truncating, computing in bf16, rounding P to bf16 or TF32 for
+    # the P.V product, or losing 1% of a tile fails.
     tol = {torch.float32: {"rtol": 1e-5, "atol": 1e-5},
            torch.bfloat16: {"rtol": 2.0 ** -8, "atol": 1e-4}}
+
+    def share_of(got, want, dtype):
+        t = tol[dtype]
+        err = (got.float() - want).abs()
+        return float(err.max()), float((err / (t["atol"] + t["rtol"] * want.abs())).max())
 
     def check(name, got, want, dtype):
         """``want``: float32 from the upcast inputs.  Returns (max abs error,
         worst share of the limit)."""
-        t = tol[dtype]
-        err = (got.float() - want).abs()
-        share = float((err / (t["atol"] + t["rtol"] * want.abs())).max())
+        err, share = share_of(got, want, dtype)
         if got.dtype != dtype or got.shape != want.shape or share > 1:
             raise AssertionError(f"flash_attention ({name}) differs from its float32 plain "
-                                 f"version: max_abs_err {float(err.max())}, {share:.3f} of "
-                                 f"the limit {t}")
-        return float(err.max()), share
+                                 f"version: max_abs_err {err}, {share:.3f} of "
+                                 f"the limit {tol[dtype]}")
+        return err, share
 
-    cases = [("path shape bf16", (1, 24, 8, PREFILL_SEQ, PREFILL_SEQ, 128, 128), torch.bfloat16,
-              True),
-             ("path shape f32", (1, 24, 8, PREFILL_SEQ, PREFILL_SEQ, 128, 128), torch.float32,
-              True),
-             ("ragged Sq=1000<Skv=1500", (1, 24, 8, 1000, 1500, 128, 128), torch.bfloat16, True),
-             ("ragged f32, Dk=192 Dv=128", (2, 6, 2, 333, 517, 192, 128), torch.float32, True),
-             ("non-causal", (1, 24, 8, 1000, 1500, 128, 128), torch.bfloat16, False),
-             ("non-causal f32", (2, 8, 2, 300, 200, 64, 64), torch.float32, False)]
-    out = {"cases": [], "tolerance": {"float32": tol[torch.float32],
-                                      "bfloat16": tol[torch.bfloat16]}}
-    for name, shape, dtype, causal in cases:
+    bf, f32 = torch.bfloat16, torch.float32
+    path = (1, 24, 8, PREFILL_SEQ, PREFILL_SEQ, 128, 128)
+    cases = [("path shape bf16", path, bf, True, "sm90"),
+             ("path shape f32", path, f32, True, "simt"),
+             ("one tile Sq=Skv=128", (1, 24, 8, 128, 128, 128, 128), bf, True, "sm90"),
+             ("Skv=1100, not a multiple of 128", (2, 24, 8, 700, 1100, 128, 128), bf, True,
+              "sm90"),
+             ("ragged Sq=1000<Skv=1500", (1, 24, 8, 1000, 1500, 128, 128), bf, True, "sm90"),
+             ("ragged f32, Dk=192 Dv=128", (2, 6, 2, 333, 517, 192, 128), f32, True, "simt"),
+             ("non-causal", (1, 24, 8, 1000, 1500, 128, 128), bf, False, "sm90"),
+             ("non-causal D=64", (2, 8, 2, 300, 200, 64, 64), bf, False, "sm90"),
+             ("non-causal f32", (2, 8, 2, 300, 200, 64, 64), f32, False, "simt")]
+    out = {"cases": [], "tolerance": {"float32": tol[f32], "bfloat16": tol[bf]}}
+    for name, shape, dtype, causal, want_route in cases:
         q, k, v = qkv(*shape, dtype)
+        before = fops.launches_by_route()
         got = flash_attention(q, k, v, causal=causal)
+        took = [r for r, n in fops.launches_by_route().items() if n != before[r]]
+        if fops.route(q, k, v) != want_route or took != [want_route]:
+            raise AssertionError(f"flash_attention ({name}) took route {took}, want {want_route}")
         want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
         torch.cuda.synchronize()
         err, share = check(name, got, want, dtype)
-        out["cases"].append({"name": name, "shape": list(shape), "dtype": str(dtype),
-                             "causal": causal, "max_abs_err": err, "share_of_limit": share})
-        log(f"  flash_attention {name} {tuple(shape)} causal={causal}: max_abs_err {err:.3g}, "
-            f"{share:.3f} of the limit {tol[dtype]}")
+        row = {"name": name, "shape": list(shape), "dtype": str(dtype), "causal": causal,
+               "route": want_route, "max_abs_err": err, "share_of_limit": share}
+        if shape == path and dtype == bf:
+            lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+            row["library_max_abs_err"], row["library_share_of_limit"] = share_of(lib, want, bf)
+            del lib
+        out["cases"].append(row)
+        log(f"  flash_attention {name} {tuple(shape)} causal={causal} route {want_route}: "
+            f"max_abs_err {err:.3g}, {share:.3f} of the limit {tol[dtype]}")
+        if "library_share_of_limit" in row:
+            log(f"    scaled_dot_product_attention on the same inputs: max_abs_err "
+                f"{row['library_max_abs_err']:.3g}, {row['library_share_of_limit']:.3f} of the "
+                "limit (for information, not asserted)")
         del q, k, v, got, want
     torch.cuda.empty_cache()
-    q, k, v = qkv(1, 24, 8, PREFILL_SEQ, PREFILL_SEQ, 128, 128, torch.bfloat16)
+    q, k, v = qkv(*path, bf)
     chunked = chunked_attention_ref(q.float(), k.float(), v.float())
-    err, share = check("vs chunked", flash_attention(q, k, v), chunked, torch.bfloat16)
+    err, share = check("vs chunked", flash_attention(q, k, v), chunked, bf)
     log(f"  flash_attention path shape bf16 vs chunked_attention_ref (float32): max_abs_err "
         f"{err:.3g}, {share:.3f} of the limit")
     del chunked
     bound, by, ops, nbytes = flash_bound_ms(q, k, v, True)
-    r = {"shape": f"B=1 Hq=24 Hkv=8 S={PREFILL_SEQ} D=128 causal bf16",
-         "ms": cuda_ms(lambda: flash_attention(q, k, v), iters=10),
+    o = torch.empty_like(q)
+    scale = q.shape[3] ** -0.5
+
+    def sm90():
+        return flash_attention(q, k, v)
+
+    def simt():      # the SIMT kernel on the same bf16 inputs, through its binding
+        fkernel.flash_attention(q, k, v, o, scale, True)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    turns = {"sm90": [], "simt": [], "library": []}
+    for name, fn, iters in (("sm90", sm90, 20), ("simt", simt, 5), ("library", library, 20),
+                            ("library", library, 20), ("simt", simt, 5), ("sm90", sm90, 20)):
+        turns[name].append(cuda_ms(fn, iters=iters))
+    simt()
+    torch.cuda.synchronize()
+    err_simt, share_simt = check("SIMT kernel, bf16", o, attention_ref(
+        q.float(), k.float(), v.float()), bf)
+    r = {"shape": f"B=1 Hq=24 Hkv=8 S={PREFILL_SEQ} D=128 causal bf16", "turns_ms": turns,
+         "ms": sum(turns["sm90"]) / 2, "simt_ms": sum(turns["simt"]) / 2,
+         "library_ms": sum(turns["library"]) / 2,
+         "order": "sm90, simt, library, library, simt, sm90",
          "plain_ms": cuda_ms(lambda: chunked_attention_ref(q, k, v), iters=3, warmup=1),
          "plain": "chunked_attention_ref (block_k=512), the CPU dispatch's version at this Skv",
-         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-             q, k, v, is_causal=True, enable_gqa=True), iters=10),
          "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+         "simt_share_of_limit": share_simt,
          "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes}
-    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-    r["library_max_abs_err"] = float((flash_attention(q, k, v).float() - lib.float()).abs().max())
-    del q, k, v, lib
-    qf, kf, vf = qkv(1, 24, 8, PREFILL_SEQ, PREFILL_SEQ, 128, 128, torch.float32)
-    bf, byf, _, _ = flash_bound_ms(qf, kf, vf, True)
+    del q, k, v, o
+    qf, kf, vf = qkv(1, 24, 8, PREFILL_SEQ, PREFILL_SEQ, 128, 128, f32)
+    bf_, byf, _, _ = flash_bound_ms(qf, kf, vf, True)
     r["f32"] = {"ms": cuda_ms(lambda: flash_attention(qf, kf, vf), iters=5),
-                "bound_ms": bf, "bound_by": byf}
+                "bound_ms": bf_, "bound_by": byf, "route": "simt"}
     del qf, kf, vf
     torch.cuda.empty_cache()
     out["timing"] = r
     out["max_abs_err"] = max(c["max_abs_err"] for c in out["cases"])
-    log(f"  flash_attention {r['ms']:.3f} ms at {r['shape']} (plain chunked "
-        f"{r['plain_ms']:.3f} ms, library "
-        f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {by}: "
-        f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); float32 {r['f32']['ms']:.3f} ms "
-        f"(bound {bf:.3f} ms at the CUDA-core rate)")
+    out["sass"] = sass_counts(build.lib_path("flash_attention_sm90"))
+    log(f"  flash_attention {r['ms']:.4f} ms on the tensor cores at {r['shape']} "
+        f"({', '.join(f'{t:.4f}' for t in turns['sm90'])}); SIMT kernel {r['simt_ms']:.3f} ms "
+        f"({', '.join(f'{t:.3f}' for t in turns['simt'])}); library {r['library_ms']:.4f} ms "
+        f"({', '.join(f'{t:.4f}' for t in turns['library'])}); plain chunked "
+        f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms by {by}: {ops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB; float32 {r['f32']['ms']:.3f} ms on the SIMT kernel (bound "
+        f"{bf_:.3f} ms at the CUDA-core rate)")
+    log(f"  flash_attention_sm90 SASS: {out['sass']}")
     return out
 
 
@@ -892,6 +978,7 @@ def model_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models import build
     from repro_torch.serve import new_instance
 
@@ -915,7 +1002,7 @@ def model_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
     fwd_s = []
     for i in range(2):
         if i == 0:
-            flash_attention.launches = 0
+            fops.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, _ = model.forward(params, {"tokens": tokens})
@@ -923,9 +1010,11 @@ def model_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
         fwd_s.append(time.perf_counter() - t0)
         if i == 0:
             rep["launches"] = flash_attention.launches
-            if rep["launches"] != cfg.n_layers:
+            rep["launches_by_route"] = fops.launches_by_route()
+            if rep["launches_by_route"] != {"sm90": cfg.n_layers, "simt": 0}:
                 raise AssertionError(f"prefill forward launched flash_attention "
-                                     f"{rep['launches']} times, want {cfg.n_layers}")
+                                     f"{rep['launches_by_route']}, want {cfg.n_layers} on the "
+                                     "tensor-core route and none on the SIMT one")
         if (logits.shape != (1, PREFILL_SEQ, cfg.padded_vocab) or logits.dtype != torch.float32
                 or not bool(torch.isfinite(logits[..., :cfg.vocab]).all())):
             raise AssertionError(f"prefill logits {tuple(logits.shape)} {logits.dtype} not "
@@ -936,7 +1025,8 @@ def model_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
     rep["forward_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     log(f"  prefill: Model.forward of {PREFILL_SEQ} tokens, {cfg.n_layers} layers, "
         f"d_model {cfg.d_model}: {fwd_s[0]:.3f} s cold, {fwd_s[1]:.3f} s warm; "
-        f"flash_attention launches {rep['launches']}; logits finite; peak device memory "
+        f"flash_attention launches {rep['launches']} {rep['launches_by_route']}; logits finite; "
+        "peak device memory "
         f"{rep['forward_peak_mem_bytes'] / 2**30:.3f} GiB (init {rep['init_s']:.2f} s)")
     rep["profile_prefill"] = profile_model(
         torch, lambda: model.forward(params, {"tokens": tokens}), "prefill", out_dir)
@@ -1074,8 +1164,10 @@ def main() -> int:
     t0 = time.perf_counter()
     compiled = build.build()
     report["build_s"] = time.perf_counter() - t0
+    report["build_s_by_library"] = compiled
     report["build_logs"] = dict(build.build_logs)
-    log(f"build: {report['build_s']:.2f} s for {sorted(compiled) or 'cached libraries'}")
+    log(f"build: {report['build_s']:.2f} s for {sorted(compiled) or 'cached libraries'}, in "
+        f"parallel: {', '.join(f'{n} {t:.2f} s' for n, t in sorted(compiled.items()))}")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1292,14 +1384,16 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
     r = report["flash"]["timing"]
+    by_route = report["model"]["launches_by_route"]
     kernels.append({
-        "name": "flash_attention", "route": "cuda", "source": FLASH_SRC, "replaces": FLASH_TPU,
-        "launches": report["model"]["launches"],
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SRC["sm90"],
+        "replaces": FLASH_TPU, "launches": by_route["sm90"],
+        "launches_by_route": by_route,
         "launches_by_path": {"prefill_forward": report["model"]["launches"]},
         "bit_equal": False, "tolerance": report["flash"]["tolerance"],
         "max_abs_err": report["flash"]["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "shape": r["shape"]})
+        "simt_ms": r["simt_ms"], "simt_source": FLASH_SRC["simt"], "shape": r["shape"]})
     report["kernels"] = kernels
     out.write_text(json.dumps(report, indent=1))
     log(json.dumps({"kernels": kernels}))

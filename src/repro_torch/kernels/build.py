@@ -34,6 +34,8 @@ SOURCES: Dict[str, tuple] = {
     **{name: (KERNELS_DIR / name / "csrc" / f"{name}.cu", _COMMON)
        for name in ("zero_detect", "page_checksum", "page_gather", "page_scatter")},
     "flash_attention": (KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu", ()),
+    "flash_attention_sm90": (KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_sm90.cu",
+                             ()),
 }
 
 # ctypes argument types of the C entry points

@@ -252,6 +252,43 @@ def test_gather_scatter_device_indices_and_dtypes(cuda_device):
         page_gather(torch.zeros((4, 100), dtype=torch.uint8, device=cuda_device), [0])
 
 
+@pytest.mark.parametrize("m", [0, 1, 7, 8, 9, 136_900])
+def test_page_gather_kernel_row_counts(cuda_device, m):
+    """No row, one, a few, and the cold set's size (one block a row)."""
+    n = m + 100
+    p = torch.randint(0, 256, (n, PAGE), dtype=torch.uint8, device=cuda_device)
+    idx = torch.randint(0, n, (m,), device=cuda_device)
+    before = page_gather.launches
+    got = page_gather(p, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, page_gather_ref(p, idx))
+    assert page_gather.launches == before + (1 if m else 0)
+
+
+@pytest.mark.parametrize("width", [16, 1024, 4112, 8208, 65536])
+def test_page_gather_kernel_other_widths(cuda_device, width):
+    """Rows narrower than 4 KiB, wider ones, and widths that leave a tail
+    after the 4 KiB chunks."""
+    p = torch.randint(0, 256, (333, width), dtype=torch.uint8, device=cuda_device)
+    idx = torch.randint(0, 333, (257,), device=cuda_device)
+    got = page_gather(p, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, page_gather_ref(p, idx))
+
+
+def test_page_gather_kernel_rows_past_2gib(cuda_device):
+    """Rows whose byte offsets pass 2^31 in a 2.2 GB arena."""
+    n = (1 << 31) // PAGE + 600
+    arena = torch.zeros((n, PAGE), dtype=torch.uint8, device=cuda_device)
+    far = torch.tensor([n - 1, (1 << 31) // PAGE, 3, n - 300, (1 << 31) // PAGE - 1],
+                       device=cuda_device)
+    arena[far] = torch.randint(1, 256, (far.numel(), PAGE), dtype=torch.uint8,
+                               device=cuda_device)
+    got = page_gather(arena, far)
+    torch.cuda.synchronize()
+    assert torch.equal(got, page_gather_ref(arena, far)) and bool(got.all())
+
+
 def test_dedup_slice_small(cuda_device):
     """Three variants sharing a base at 2048 pages each, on the card: the
     kernel route and the fused route share pages, every restore is
@@ -313,21 +350,32 @@ FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -8, 1e-4)}
     (1, 2, 2, 77, 130, 192, 128),     # ragged, Dk != Dv (MLA)
     (1, 2, 1, 64, 64, 256, 256),      # the largest head dims
     (2, 6, 3, 1, 33, 32, 16),         # one query row
+    (1, 2, 2, 128, 128, 128, 128),    # one tile, group 1
+    (2, 6, 2, 1, 300, 128, 128),      # Sq = 1, group 3
+    (1, 8, 2, 1000, 1500, 128, 128),  # Sq = 1000 < Skv = 1500, group 4
+    (1, 4, 4, 130, 130, 64, 64),      # Skv = 130: one key past a tile
+    (1, 4, 1, 256, 512, 128, 128),    # MQA, D = 128
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, dk, dv, causal, dtype):
+    """Each call against the float32 reference on the upcast inputs, on the
+    route the rule gives it: bf16 with Dk == Dv in {64, 128} on the tensor
+    cores, everything else on the SIMT kernel."""
     from repro_torch.kernels import flash_attention
-    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import attention_ref, ops
 
     g = torch.Generator(device=cuda_device).manual_seed(sq * 7 + dk)
     q = torch.randn(b, hq, sq, dk, generator=g, device=cuda_device).to(dtype)
     k = torch.randn(b, hkv, skv, dk, generator=g, device=cuda_device).to(dtype)
     v = torch.randn(b, hkv, skv, dv, generator=g, device=cuda_device).to(dtype)
-    before = flash_attention.launches
+    want_route = "sm90" if dtype == torch.bfloat16 and dk == dv and dk in (64, 128) else "simt"
+    assert ops.route(q, k, v) == want_route
+    before, by_route = flash_attention.launches, ops.launches_by_route()
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert ops.launches_by_route() == {r: n + (r == want_route) for r, n in by_route.items()}
     want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
     rtol, atol = FLASH_TOL[dtype]
     assert got.dtype == dtype and got.shape == want.shape
@@ -348,6 +396,30 @@ def test_flash_kernel_takes_strided_views(cuda_device):
     want = attention_ref(q, k, v, causal=True)
     torch.cuda.synchronize()
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_sm90_takes_model_views_without_copy(cuda_device, d):
+    """bf16 (B, S, H, D) projections viewed as (B, H, S, D) go to the tensor
+    cores as they are: the call allocates its output and nothing else."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import attention_ref, ops
+
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = (torch.randn(2, 300, h, d, generator=g, device=cuda_device).to(torch.bfloat16)
+               .transpose(1, 2) for h in (6, 2, 2))
+    assert ops.route(q, k, v) == "sm90"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    before = flash_attention.launches_sm90
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_sm90 == before + 1
+    assert torch.cuda.max_memory_allocated() - start == got.numel() * got.element_size()
+    want = attention_ref(q.float(), k.float(), v.float(), causal=True)
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    assert torch.allclose(got.float(), want, rtol=rtol, atol=atol)
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
