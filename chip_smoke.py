@@ -15,25 +15,32 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 4. kernels — each of the six kernels against its plain torch version on the
              card, bit for bit (small, ragged, all-zero, none-zero, all-0xFF
              cases; the full image for publish, zero_detect and
-             page_checksum; the image's hot and cold sets for page_gather; a
-             256-page chunk and a forced checksum mismatch for restore; rows
-             past 2^31 bytes of a 3 GiB arena for page_gather and
-             page_scatter), then CUDA-event timings of each kernel, its
-             plain version and its library yardstick at the paths' shapes,
-             beside the least time the card could take for the same work.
-             The two per-chunk kernels (fused restore, page_scatter) are timed
-             by their device time per launch (the C entry point on
-             device-resident indices, replayed from a CUDA graph); the
-             wrappers' round trips are kept beside them as separate numbers.
+             page_checksum; the image's hot and cold sets for page_gather;
+             one-segment restores and a forced checksum mismatch; rows past
+             2^31 bytes of a 3 GiB arena for page_gather and page_scatter).
+             The row-list forms of fused_restore and page_scatter at the
+             private walks' shapes — the hot walk in 256-page chunks, the cold walk in guest
+             runs, one segment an extent: verified installs, verify-only
+             launches, three forced mismatches named exactly, the row
+             scatter.  Then CUDA-event times of each kernel, its plain
+             version and its library yardstick at the paths' shapes, beside
+             the least time the card could take for the same work: the
+             row-list kernels one launch a walk on a device-resident row list,
+             and page_scatter's store write in
+             turns with ``Tensor.index_copy_``.
 5. main    — the private layout: ``HierarchicalPool`` →
              ``build_snapshot(publish_fn=fused)`` → ``SnapshotReader`` →
              ``Instance`` → ``RestoreEngine(FusedScatter)`` →
              ``pre_install_hot`` → ``install_all_sync``; the restored image
              must equal the source, every installed page must be verified,
-             and both kernels' launch counts (reset just before) must match
-             the path's shape.
-6. profile — the private path once more under ``torch.profiler``: device
-             busy time by kernel and copy, and the idle share.
+             both walks must take the batched route, and both kernels'
+             launch counts (reset just before) must match it: one publish,
+             a verify-only launch and an install a walk.  Then the same
+             snapshot restored on the batched and the per-extent route in
+             turns (walls; routes asserted).
+6. profile — the private path once more under ``torch.profiler``, the
+             restore on both routes: device busy time by kernel and copy,
+             and the idle share.
 7. dedup   — a fleet of four variants of the image (shared base hot pages,
              a per-variant hot delta of round(n_hot*12/256) pages, a
              per-variant cold arena, shared zero pages) published into one
@@ -41,11 +48,13 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              kernels (zero_detect, page_gather, page_checksum as the store
              hash, page_scatter for store writes and restores), 2 and 3
              through the fused publish and the verified fused restore.  Store
-             counts, refcounts (I6), the CXL estimate, every restore, the
-             reconstruction of variant 3 and the launch counts of all six
-             kernels (reset just before) must match the fleet's shape;
-             freeing the fleet must empty both stores.  One more variant is
-             published and restored under ``torch.profiler``.
+             counts, refcounts (I6), the CXL estimate, every restore (all
+             walks batched), the reconstruction of variant 3 and the launch
+             counts of all six kernels (reset just before) must match the
+             fleet's shape; variants 0 and 2 are restored again on both
+             routes in turns; freeing the fleet must empty both stores.  One
+             more variant is published and restored on both routes under
+             ``torch.profiler``.
 
 8. model   — flash attention against its plain versions on the card, each
              case on the route ``ops.route`` gives it and asserted so: bf16
@@ -79,7 +88,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import subprocess
 import sys
 import time
@@ -237,31 +245,6 @@ def check_restore(torch, np, ops, ref, dest_rows: int, device):
     return err
 
 
-def restore_kernel_ms(torch, kernel, weights, dest, chunk, src_t, dst_t, table,
-                      reps: int = 100):
-    """Device time per launch of the restore kernel's C entry point, verified
-    as on the main path (counter reset + kernel), with indices, table and
-    outputs already on the card: ``reps`` launches captured in one CUDA graph
-    and replayed, so no host work sits between them.  Also returns the time
-    per launch when the host issues the same launches one by one."""
-    m = src_t.shape[0]
-    csum = torch.empty(m, dtype=torch.int32, device=dest.device)
-    n_bad = torch.empty(1, dtype=torch.int32, device=dest.device)
-
-    def launch():
-        kernel.restore(dest, chunk, src_t, dst_t, weights, table, csum, n_bad)
-
-    issued_ms = cuda_ms(launch, iters=200, warmup=10)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            launch()
-    graph_ms = cuda_ms(graph.replay, iters=20, warmup=2) / reps
-    if int(n_bad.item()) != 0 or not torch.equal(csum, table[dst_t]):
-        raise AssertionError("timed restore launches disagree with the checksum table")
-    return graph_ms, issued_ms
-
-
 def _device_summary(torch, prof, wall_s: float, top: int = 8) -> dict:
     """Device busy time (sum of kernel and copy times) and the top entries."""
     dev = torch.autograd.DeviceType.CUDA
@@ -275,7 +258,8 @@ def _device_summary(torch, prof, wall_s: float, top: int = 8) -> dict:
 
 
 def profile_main_path(torch, pool, image, working_set, ops, out_dir: Path) -> dict:
-    """Publish and restore once more under torch.profiler (CPU + CUDA)."""
+    """Publish once more, then restore on the batched and on the per-extent
+    route, under torch.profiler (CPU + CUDA)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import (Instance, RestoreEngine, SnapshotReader, StateImage,
@@ -290,22 +274,28 @@ def profile_main_path(torch, pool, image, working_set, ops, out_dir: Path) -> di
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out["publish"] = _device_summary(torch, prof, wall)
-    ledger = TimeLedger()
-    reader = SnapshotReader(regions, pool.host_view("host1", ledger), pool.rdma)
-    reader.invalidate_cxl()
-    inst = Instance(StateImage.empty_like(image.manifest, device=image.device), ledger)
-    engine = RestoreEngine(reader, inst, scatter_fn=ops.FusedScatter())
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        engine.pre_install_hot()
-        engine.install_all_sync()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    out["restore"] = _device_summary(torch, prof, wall)
-    (out_dir / "profile_restore.txt").write_text(
-        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
-    if not torch.equal(inst.image.buf, image.buf):
-        raise AssertionError("profiled restore differs from the published image")
+    for key, scatter in (("restore", ops.FusedScatter()),
+                         ("restore_per_extent", PerExtentScatter())):
+        ledger = TimeLedger()
+        reader = SnapshotReader(regions, pool.host_view(f"host-{key}", ledger), pool.rdma)
+        reader.invalidate_cxl()
+        inst = Instance(StateImage.empty_like(image.manifest, device=image.device), ledger)
+        engine = RestoreEngine(reader, inst, scatter_fn=scatter)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            engine.pre_install_hot()
+            engine.install_all_sync()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[key] = _device_summary(torch, prof, wall)
+        out[key]["walk_routes"] = engine.walk_routes
+        check_routes(f"profiled {key}", engine.walk_routes,
+                     "" if key == "restore" else "scatter_fn")
+        (out_dir / f"profile_{key}.txt").write_text(
+            prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+        if not torch.equal(inst.image.buf, image.buf):
+            raise AssertionError(f"profiled {key} differs from the published image")
+        del inst, engine, reader
     for phase, row in out.items():
         log(f"profile {phase}: wall {row['wall_ms']:.2f} ms under the profiler, device busy "
             f"{row['device_busy_ms']:.3f} ms, idle share {row['device_idle_share']:.4f}")
@@ -415,23 +405,6 @@ def check_far_rows(torch, np, chunk, device) -> None:
         f"(byte offsets up to {int(far.max()) * PAGE}): bit-equal, other rows untouched")
 
 
-def scatter_kernel_ms(torch, dest, chunk, dst_t, reps: int = 100):
-    """Device time per launch of the page_scatter C entry point on
-    device-resident indices, ``reps`` launches replayed from one CUDA graph,
-    and the time per launch when the host issues them one by one."""
-    from repro_torch.kernels.page_scatter import kernel
-
-    def launch():
-        kernel.page_scatter(dest, chunk, dst_t, None)
-
-    issued_ms = cuda_ms(launch, iters=200, warmup=10)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            launch()
-    return cuda_ms(graph.replay, iters=20, warmup=2) / reps, issued_ms
-
-
 def gather_turns(torch, page_gather, page_gather_ref, pm, idx_t) -> dict:
     """page_gather and ``torch.index_select`` on the same rows, timed in
     turns (kernel, library, library, kernel); ``ms`` and ``library_ms`` are
@@ -447,12 +420,12 @@ def gather_turns(torch, page_gather, page_gather_ref, pm, idx_t) -> dict:
 
 
 def time_row_kernels(torch, pm, hot_idx, cold_idx, device) -> dict:
-    """CUDA-event times of the four kernels, their plain versions and their
-    library yardsticks at the dedup path's shapes, beside their bounds."""
-    from repro_torch.kernels import page_checksum, page_gather, page_scatter, zero_detect
+    """CUDA-event times of zero_detect, page_checksum and page_gather, their
+    plain versions and their library yardsticks at the dedup path's shapes,
+    beside their bounds (page_scatter: :func:`time_row_lists`)."""
+    from repro_torch.kernels import page_checksum, page_gather, zero_detect
     from repro_torch.kernels.page_checksum.ref import page_checksum_ref
     from repro_torch.kernels.page_gather.ref import page_gather_ref
-    from repro_torch.kernels.page_scatter.ref import page_scatter_ref
     from repro_torch.kernels.zero_detect.ref import zero_detect_ref
 
     n = pm.shape[0]
@@ -488,33 +461,8 @@ def time_row_kernels(torch, pm, hot_idx, cold_idx, device) -> dict:
     b_img, by_img = bound_ms(n * PAGE + 4 * n, 2 * n * lanes)
     out["page_checksum_full_image"] = {"ms": cuda_ms(lambda: page_checksum(pm), iters=10),
                                        "bound_ms": b_img, "bound_by": by_img}
-    m = 256
-    dest = torch.zeros_like(pm)
-    chunk = page_gather(pm, hot_idx[:m])
-    dst = hot_idx[:m]
-    dst_t = hot_t[:m]
-    graph_ms, issued_ms = scatter_kernel_ms(torch, dest, chunk, dst_t)
-    bs, bys = bound_ms(2 * m * PAGE + 8 * m, 0)
-    out["page_scatter"] = {
-        "shape": f"{m}-page restore chunk", "ms": graph_ms, "kernel_host_issued_ms": issued_ms,
-        "wrapper_ms": cuda_ms(lambda: page_scatter(dest, chunk, dst), iters=200, warmup=10),
-        "plain_ms": cuda_ms(lambda: page_scatter_ref(dest, chunk, dst_t), iters=50, warmup=5),
-        "library_ms": cuda_ms(lambda: dest.index_copy_(0, dst_t, chunk), iters=50, warmup=5),
-        "library": "Tensor.index_copy_", "bound_ms": bs, "bound_by": bys}
-    if not torch.equal(page_gather(dest, dst_t), chunk):
-        raise AssertionError("timed page_scatter launches left the wrong rows")
-    del dest
-    rows = page_gather(pm, cold_t)
-    arena = torch.zeros((ARENA_BYTES // PAGE, PAGE), dtype=torch.uint8, device=device)
-    at = torch.arange(rows.shape[0], device=device) * 5 % arena.shape[0]
-    bw, byw = bound_ms(2 * rows.shape[0] * PAGE + 8 * rows.shape[0], 0)
-    out["page_scatter_store_write"] = {
-        "shape": f"cold store write, {rows.shape[0]} pages into a 3 GiB arena",
-        "ms": cuda_ms(lambda: page_scatter(arena, rows, at), iters=10),
-        "bound_ms": bw, "bound_by": byw}
-    del arena, rows
     torch.cuda.empty_cache()
-    for name in ROW_KERNELS:
+    for name in ("zero_detect", "page_checksum", "page_gather"):
         r = out[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms ({r['library']})"
         log(f"  {name:13s} {r['ms']:.5f} ms at {r['shape']} (plain {r['plain_ms']:.5f} ms, "
@@ -528,11 +476,247 @@ def time_row_kernels(torch, pm, hot_idx, cold_idx, device) -> dict:
             f"{r['turns_ms']['library'][1]:.5f}, {r['turns_ms']['kernel'][1]:.5f} ms")
     r = out["page_checksum_full_image"]
     log(f"  page_checksum {r['ms']:.5f} ms at the full image (bound {r['bound_ms']:.5f} ms)")
-    r = out["page_scatter"]
-    log(f"  page_scatter  host-issued {r['kernel_host_issued_ms']:.5f} ms per launch, wrapper "
-        f"round trip {r['wrapper_ms']:.5f} ms per {m}-page chunk")
-    r = out["page_scatter_store_write"]
-    log(f"  page_scatter  {r['ms']:.5f} ms at {r['shape']} (bound {r['bound_ms']:.5f} ms)")
+    return out
+
+
+def walk_segments(torch, np, pm, pages: np.ndarray, chunk: int = 0):
+    """A restore walk's row list as the serving layer queues it: the walk's
+    pages gathered once (the extents' buffers), one segment an extent —
+    ``chunk``-page chunks (the private hot walk) or the guest runs (the cold
+    walk) — each a view at its own address.  Returns (segments, buffers)."""
+    from repro_torch.kernels import page_gather
+
+    buf = page_gather(pm, pages)
+    if chunk:
+        cuts = list(range(chunk, pages.size, chunk))
+    else:
+        cuts = (np.flatnonzero(np.diff(pages) != 1) + 1).tolist()
+    bounds = [0, *cuts, int(pages.size)]
+    segs = [(buf[a:b], None, pages[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+    return segs, buf
+
+
+def check_row_lists(torch, np, pm, table, walks) -> int:
+    """Both row-list kernels against their plain versions at the private
+    walks' shapes, bit for bit: verified installs, verify-only launches,
+    forced mismatches named exactly, and the row scatter."""
+    from repro_torch.kernels import ChecksumMismatchError, fused_restore_rows, page_scatter_rows
+    from repro_torch.kernels.page_scatter.ref import page_scatter_rows_ref
+    from repro_torch.kernels.snapshot_fuse.ref import fused_restore_rows_ref
+
+    err = 0
+    for name, (segs, _buf) in walks.items():
+        dst = np.concatenate([d for _t, _r, d in segs])
+        dst_t = torch.from_numpy(dst).to(pm.device)
+        dest_p = torch.zeros_like(pm)
+        cs_p = fused_restore_rows_ref(dest_p, segs)
+        if not torch.equal(cs_p, table[dst_t]):
+            raise AssertionError(f"plain checksums of the {name} walk differ from the publish")
+        bad = dst[[0, dst.size // 2, dst.size - 1]]
+        dest_k = torch.zeros_like(pm)
+        cs = fused_restore_rows(dest_k, segs, expected_table=table)
+        cs_v = fused_restore_rows(None, segs, expected_table=table, verify_only=True)
+        torch.cuda.synchronize()
+        _require_equal(f"fused_restore_rows ({name} walk)", dest_k, dest_p)
+        _require_equal(f"fused_restore_rows csum ({name} walk)", cs, cs_p)
+        _require_equal(f"fused_restore_rows verify-only ({name} walk)", cs_v, cs_p)
+        err = max(err, max_abs_err([(cs, cs_p), (cs_v, cs_p)]))
+        table[torch.from_numpy(bad).to(pm.device)] ^= 1
+        try:
+            for verify_only in (True, False):
+                try:
+                    fused_restore_rows(dest_k, segs, expected_table=table,
+                                       verify_only=verify_only)
+                except ChecksumMismatchError as e:
+                    if sorted(e.bad_pages.tolist()) != sorted(bad.tolist()):
+                        raise AssertionError(f"mismatch names {e.bad_pages}, want {bad}")
+                else:
+                    raise AssertionError("a forced checksum mismatch did not raise")
+        finally:
+            table[torch.from_numpy(bad).to(pm.device)] ^= 1
+        dest_k.zero_()
+        page_scatter_rows(dest_k, segs)
+        want = page_scatter_rows_ref(torch.zeros_like(pm), segs)
+        torch.cuda.synchronize()
+        _require_equal(f"page_scatter_rows ({name} walk)", dest_k, want)
+        del dest_k, want, dest_p
+        log(f"  row lists, {name} walk ({dst.size} rows, {len(segs)} segments): "
+            "fused_restore_rows installed + verify-only bit-equal, 3 forced mismatches "
+            "named, page_scatter_rows bit-equal")
+    torch.cuda.empty_cache()
+    return err
+
+
+def _turns(order, fns, iters):
+    """CUDA-event ms of each named function, called in ``order``."""
+    out = {}
+    for name in order:
+        out.setdefault(name, []).append(cuda_ms(fns[name], iters=iters))
+    return out
+
+
+def time_row_lists(torch, np, pm, table, walks, cold_idx, device) -> dict:
+    """At the private walks' shapes, device times of one launch of each
+    row-list kernel on a device-resident row list, beside the bound, the
+    plain version and the wrapper's whole flush (address build, one pinned
+    upload, launch, the verify read-back).  Then the store-write form of
+    page_scatter (one compact tensor of the cold set, device-resident
+    indices into a 3 GiB arena), in turns with ``Tensor.index_copy_``."""
+    from repro_torch import kernels
+    from repro_torch.kernels import page_gather, rows
+    from repro_torch.kernels.page_scatter import kernel as skernel
+    from repro_torch.kernels.page_scatter.ref import page_scatter_ref, page_scatter_rows_ref
+    from repro_torch.kernels.snapshot_fuse import kernel as rkernel
+    from repro_torch.kernels.snapshot_fuse.ops import _weights
+    from repro_torch.kernels.snapshot_fuse.ref import fused_restore_rows_ref
+
+    weights = _weights(device)
+    out = {}
+    for name, (segs, _buf) in walks.items():
+        dst = np.concatenate([d for _t, _r, d in segs])
+        m = dst.size
+        _segs, _dst, addr = rows.check_segments(name, segs, PAGE, pm.shape[0])
+        idx = rows.upload([addr, dst], device)
+        dest = torch.zeros_like(pm)
+        csum = torch.empty(m, dtype=torch.int32, device=device)
+        bad = torch.empty(m, dtype=torch.uint8, device=device)
+        n_bad = torch.empty(1, dtype=torch.int32, device=device)
+        fns = {
+            "install": lambda: rkernel.restore_rows(dest, 0, 1, idx[0], idx[1], weights, table,
+                                                    csum, bad, n_bad),
+            "verify_only": lambda: rkernel.restore_rows(None, 0, 1, idx[0], idx[1], weights,
+                                                        table, csum, bad, n_bad),
+            "scatter": lambda: skernel.scatter_rows(dest, 0, 1, idx[0], idx[1])}
+        row = {"rows": m, "segments": len(segs)}
+        for op, nbytes in (("install", m * (2 * PAGE + 16 + 4 + 4 + 1) + 4),
+                           ("verify_only", m * (PAGE + 16 + 4 + 4 + 1) + 4),
+                           ("scatter", m * (2 * PAGE + 16))):
+            b, by = bound_ms(nbytes, 3 * m * (PAGE // 4) if op != "scatter" else 0)
+            row[op] = {"ms": cuda_ms(fns[op], iters=20), "bound_ms": b, "bound_by": by}
+            torch.cuda.synchronize()
+            if op != "scatter" and (int(n_bad.item()) != 0 or not torch.equal(
+                    csum, table[idx[1]])):
+                raise AssertionError(f"timed {op} launches disagree with the checksum table")
+        if not torch.equal(page_gather(dest, idx[1]), page_gather(pm, idx[1])):
+            raise AssertionError(f"timed row-list launches left wrong rows ({name} walk)")
+        row["flush_wrapper_ms"] = cuda_ms(lambda: kernels.fused_restore_rows(
+            dest, segs, expected_table=table), iters=5, warmup=1)
+        row["scatter_wrapper_ms"] = cuda_ms(lambda: kernels.page_scatter_rows(dest, segs),
+                                            iters=5, warmup=1)
+        row["plain_ms"] = cuda_ms(lambda: fused_restore_rows_ref(dest, segs), iters=1, warmup=1)
+        row["scatter_plain_ms"] = cuda_ms(lambda: page_scatter_rows_ref(dest, segs), iters=1,
+                                          warmup=1)
+        out[name] = row
+        del dest, idx
+        for op in ("install", "verify_only", "scatter"):
+            r = row[op]
+            log(f"  row list {name} walk ({m} rows, {len(segs)} segments) {op}: "
+                f"{r['ms']:.5f} ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']}")
+        log(f"  row list {name} walk: wrapper flush {row['flush_wrapper_ms']:.4f} ms verified, "
+            f"{row['scatter_wrapper_ms']:.4f} ms scatter; plain {row['plain_ms']:.3f} / "
+            f"{row['scatter_plain_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    # the store write: one compact tensor, device-resident destination rows
+    cold_t = torch.from_numpy(cold_idx).to(device)
+    compact = page_gather(pm, cold_t)
+    del cold_t
+    arena = torch.zeros((ARENA_BYTES // PAGE, PAGE), dtype=torch.uint8, device=device)
+    at = torch.arange(compact.shape[0], device=device) * 5 % arena.shape[0]
+    m = compact.shape[0]
+    fns = {"kernel": lambda: skernel.scatter_rows(arena, compact.data_ptr(), PAGE, None, at),
+           "library": lambda: arena.index_copy_(0, at, compact)}
+    turns = _turns(("kernel", "library", "library", "kernel"), fns, iters=10)
+    b, by = bound_ms(2 * m * PAGE + 8 * m, 0)
+    wrapper_ms = cuda_ms(lambda: kernels.page_scatter(arena, compact, at), iters=10)
+    plain_ms = cuda_ms(lambda: page_scatter_ref(arena, compact, at), iters=3, warmup=1)
+    torch.cuda.synchronize()
+    if not torch.equal(page_gather(arena, at), compact):
+        raise AssertionError("timed store writes left the wrong rows")
+    out["store_write"] = {
+        "shape": f"cold store write, {m} pages from one tensor into a 3 GiB arena",
+        "rows": m, "turns_ms": turns, "ms": {k: sum(t) / 2 for k, t in turns.items()},
+        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library": "Tensor.index_copy_",
+        "bound_ms": b, "bound_by": by}
+    del arena, compact, at
+    torch.cuda.empty_cache()
+    r = out["store_write"]
+    log(f"  page_scatter  store write ({m} rows), in turns kernel, library, library, kernel: "
+        + ", ".join(f"{k} {r['ms'][k]:.5f} ms {turns[k]}" for k in turns)
+        + f"; wrapper {wrapper_ms:.5f} ms; plain {plain_ms:.5f} ms; bound {b:.5f} ms")
+    return out
+
+
+class PerExtentScatter:
+    """A scatter without a batched form, so every bulk walk runs per extent
+    (the route before batched walks, kept to time against them): it wraps a
+    ``FusedScatter`` (verified once bound) or ``page_scatter``."""
+
+    def __init__(self, inner=None):
+        from repro_torch.kernels import FusedScatter
+
+        self.inner = FusedScatter() if inner is None else inner
+        self.stats = getattr(self.inner, "stats", None)
+
+    def bind_checksums(self, table) -> "PerExtentScatter":
+        return PerExtentScatter(self.inner.bind_checksums(table))
+
+    def __call__(self, *args, **kwargs):
+        return self.inner(*args, **kwargs)
+
+
+def check_routes(where: str, routes: dict, per_extent: str = "") -> None:
+    """Every walk with rows took the batched route (``per_extent`` given:
+    every walk stayed per extent for that reason)."""
+    total = routes["batched"] + sum(routes["per_extent"].values())
+    want = ({"batched": total, "per_extent": dict.fromkeys(routes["per_extent"], 0)}
+            if not per_extent else
+            {"batched": 0, "per_extent": {k: (total if k == per_extent else 0)
+                                          for k in routes["per_extent"]}})
+    if routes != want or total != 2:
+        raise AssertionError(f"{where}: walk routes {routes}, want {want} over 2 walks")
+
+
+def restore_once(torch, pool, regions, src_buf, manifest, scatter) -> dict:
+    """One restore (pre-install, then install everything) of a published
+    snapshot through ``RestoreEngine`` on a fresh host view and instance,
+    compared with its source; wall time and the walks' routes."""
+    from repro_torch import core
+
+    ledger = core.TimeLedger()
+    reader = core.SnapshotReader(regions, pool.host_view(f"turn-{time.perf_counter_ns()}",
+                                                         ledger), pool.rdma)
+    reader.invalidate_cxl()
+    inst = core.Instance(core.StateImage.empty_like(manifest, device=src_buf.device), ledger)
+    eng = core.RestoreEngine(reader, inst, scatter_fn=scatter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.pre_install_hot()
+    eng.install_all_sync()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not torch.equal(inst.image.buf, src_buf):
+        raise AssertionError(f"restore of {regions.name} differs from its source")
+    stats = getattr(inst.scatter_fn, "stats", None)
+    verified = None if stats is None else stats["pages_verified"]
+    if (verified is not None and reader.page_checksums() is not None
+            and verified != regions.n_hot + regions.n_cold):
+        raise AssertionError(f"{regions.name}: {verified} pages verified")
+    return {"restore_s": wall, "walk_routes": eng.walk_routes, "pages_verified": verified,
+            "modeled_ledger_s": dict(ledger.seconds), "modeled_total_s": ledger.total()}
+
+
+def route_turns(torch, where: str, restore, batched_scatter, per_extent_scatter) -> dict:
+    """Restore walls of one snapshot on the batched and the per-extent route,
+    in turns (batched, per-extent, per-extent, batched), routes asserted."""
+    out = {"batched": [], "per_extent": []}
+    for route in ("batched", "per_extent", "per_extent", "batched"):
+        r = restore(batched_scatter() if route == "batched" else per_extent_scatter())
+        check_routes(f"{where} ({route})", r["walk_routes"],
+                     "" if route == "batched" else "scatter_fn")
+        out[route].append(r["restore_s"])
+    log(f"  {where} restore in turns (batched, per-extent, per-extent, batched): batched "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in out['batched'])} ms, per-extent "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in out['per_extent'])} ms wall; bit-identical")
     return out
 
 
@@ -546,33 +730,6 @@ def make_variant(torch, base: "torch.Tensor", hot_t, cold_t, d: int, v: int, see
     buf.view(-1, PAGE)[rows] = torch.randint(0, 256, (rows.numel(), PAGE), dtype=torch.uint8,
                                              generator=g, device=base.device)
     return buf
-
-
-def restore_variant(torch, core, pool, regions, src_buf, manifest, scatter) -> dict:
-    """Restore one published variant through ``RestoreEngine`` (pre-install,
-    then install everything) and compare it with its source."""
-    ledger = core.TimeLedger()
-    reader = core.SnapshotReader(regions, pool.host_view(f"host-{regions.name}", ledger),
-                                 pool.rdma)
-    reader.invalidate_cxl()
-    n_hot_ext = sum(1 for _ in reader.iter_hot_extents(core.RestoreEngine.HOT_CHUNK_PAGES))
-    n_cold_ext = sum(1 for _ in reader.iter_cold_extents(max_extent_pages=1 << 30))
-    inst = core.Instance(core.StateImage.empty_like(manifest, device=src_buf.device), ledger)
-    eng = core.RestoreEngine(reader, inst, scatter_fn=scatter)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.pre_install_hot()
-    eng.install_all_sync()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if not torch.equal(inst.image.buf, src_buf):
-        raise AssertionError(f"restore of {regions.name} differs from its source")
-    verified = None if scatter is None else inst.scatter_fn.stats["pages_verified"]
-    if scatter is not None and verified != regions.n_hot + regions.n_cold:
-        raise AssertionError(f"{regions.name}: {verified} pages verified")
-    return {"restore_s": wall, "hot_extents": n_hot_ext, "cold_extents": n_cold_ext,
-            "pages_verified": verified, "modeled_ledger_s": dict(ledger.seconds),
-            "modeled_total_s": ledger.total()}
 
 
 def i6_holds(np, core, pool, all_regions) -> bool:
@@ -652,16 +809,17 @@ def dedup_phase(torch, np, base_buf, working_set, cold_idx, manifest, seed, out_
     want_restore = 0
     for v, (reg, buf) in enumerate(zip(regions, variants)):
         scatter = None if v < 2 else FusedScatter()
-        row = restore_variant(torch, core, pool, reg, buf, manifest, scatter)
+        row = restore_once(torch, pool, reg, buf, manifest, scatter)
         row["variant"] = v
         rep["restores"].append(row)
-        n_ext = row["hot_extents"] + row["cold_extents"]
+        check_routes(f"dedup v{v}", row["walk_routes"])
+        walks = row["walk_routes"]["batched"]
         if v < 2:
-            want_scatter += n_ext
+            want_scatter += walks          # one install a walk
         else:
-            want_restore += n_ext
+            want_restore += 2 * walks      # a verify-only launch and an install a walk
         log(f"  restore v{v} ({'page_scatter' if v < 2 else 'fused, verified'}): "
-            f"{row['restore_s'] * 1e3:.2f} ms wall, {n_ext} extents, bit-identical; "
+            f"{row['restore_s'] * 1e3:.2f} ms wall, {walks} batched walks, bit-identical; "
             f"modeled {row['modeled_total_s'] * 1e3:.4f} ms")
     t0 = time.perf_counter()
     back = core.reconstruct_image(pool, regions[3])
@@ -700,6 +858,19 @@ def dedup_phase(torch, np, base_buf, working_set, cold_idx, manifest, seed, out_
         f"{rep['reconstruct_s'] * 1e3:.2f} ms, bit-identical")
     log(f"  launches {launches} as the fleet's shape implies; peak device memory "
         f"{rep['peak_mem_bytes'] / 2**30:.3f} GiB")
+
+    def per_extent_page_scatter(*args, **kwargs):      # page_scatter, no batched form
+        return page_scatter(*args, **kwargs)
+
+    rep["routes_in_turns"] = {
+        f"v{v}": route_turns(
+            torch, f"dedup v{v} ({label})",
+            lambda scatter, v=v: restore_once(torch, pool, regions[v], variants[v], manifest,
+                                              scatter),
+            batched, per_extent)
+        for v, label, batched, per_extent in (
+            (0, "page_scatter", lambda: None, lambda: per_extent_page_scatter),
+            (2, "fused, verified", FusedScatter, PerExtentScatter))}
     rep["profile"] = profile_dedup(torch, core, pool, base_buf, hot_t, cold_t, d, seed,
                                    working_set, manifest, out_dir)
     t0 = time.perf_counter()
@@ -716,8 +887,9 @@ def dedup_phase(torch, np, base_buf, working_set, cold_idx, manifest, seed, out_
 
 def profile_dedup(torch, core, pool, base_buf, hot_t, cold_t, d, seed, working_set, manifest,
                   out_dir) -> dict:
-    """One more variant published (kernel route) and restored under
-    torch.profiler while the fleet is stored; freed afterwards."""
+    """One more variant published (kernel route) and restored on the batched
+    and on the per-extent route under torch.profiler while the fleet is
+    stored; freed afterwards."""
     from torch.profiler import ProfilerActivity, profile
 
     buf = make_variant(torch, base_buf, hot_t, cold_t, d, N_VARIANTS, seed)
@@ -733,22 +905,33 @@ def profile_dedup(torch, core, pool, base_buf, hot_t, cold_t, d, seed, working_s
     out["publish"] = _device_summary(torch, prof, wall)
     (out_dir / "profile_dedup_publish.txt").write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
-    ledger = core.TimeLedger()
-    reader = core.SnapshotReader(reg, pool.host_view("host-profiled", ledger), pool.rdma)
-    reader.invalidate_cxl()
-    inst = core.Instance(core.StateImage.empty_like(manifest, device=buf.device), ledger)
-    eng = core.RestoreEngine(reader, inst)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        eng.pre_install_hot()
-        eng.install_all_sync()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    out["restore"] = _device_summary(torch, prof, wall)
-    (out_dir / "profile_dedup_restore.txt").write_text(
-        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
-    if not torch.equal(inst.image.buf, buf):
-        raise AssertionError("profiled dedup restore differs from its source")
+    from repro_torch.kernels import page_scatter
+
+    def per_extent_page_scatter(*args, **kwargs):      # page_scatter, no batched form
+        return page_scatter(*args, **kwargs)
+
+    for key, scatter in (("restore", None), ("restore_per_extent", per_extent_page_scatter)):
+        ledger = core.TimeLedger()
+        reader = core.SnapshotReader(reg, pool.host_view(f"host-profiled-{key}", ledger),
+                                     pool.rdma)
+        reader.invalidate_cxl()
+        inst = core.Instance(core.StateImage.empty_like(manifest, device=buf.device), ledger)
+        eng = core.RestoreEngine(reader, inst, scatter_fn=scatter)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            eng.pre_install_hot()
+            eng.install_all_sync()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[key] = _device_summary(torch, prof, wall)
+        out[key]["walk_routes"] = eng.walk_routes
+        check_routes(f"profiled dedup {key}", eng.walk_routes,
+                     "" if key == "restore" else "scatter_fn")
+        (out_dir / f"profile_dedup_{key}.txt").write_text(
+            prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+        if not torch.equal(inst.image.buf, buf):
+            raise AssertionError(f"profiled dedup {key} differs from its source")
+        del inst, eng, reader
     core.free_snapshot(pool, reg)
     for phase, row in out.items():
         log(f"  profile dedup {phase}: wall {row['wall_ms']:.2f} ms under the profiler, "
@@ -1140,7 +1323,7 @@ def main() -> int:
                                   RestoreEngine, SnapshotReader, StateImage, TimeLedger,
                                   build_snapshot, free_snapshot, runs_of_indices)
     from repro_torch.kernels import build
-    from repro_torch.kernels.snapshot_fuse import kernel, ops, ref
+    from repro_torch.kernels.snapshot_fuse import ops, ref
 
     device = torch.device("cuda", 0)
     n = PAPER_INSTANCE_PAGES
@@ -1234,37 +1417,16 @@ def main() -> int:
     pub_plain_ms = cuda_ms(lambda: ref.fused_publish_ref(pm, ws_full), iters=3, warmup=1)
     pub_bytes = n * PAGE + n + PAGE + n + 4 * n + nnz * PAGE + 8
     pub_bound, pub_by = bound_ms(pub_bytes, 3 * n * (PAGE // 4))
-    m = 256
-    chunk = pm[torch.from_numpy(working_set[:m]).to(device)].contiguous()
-    dst = working_set[:m]
-    dest = torch.zeros_like(pm)
-    table = torch.zeros(n, dtype=torch.int32, device=device)
-    table[torch.from_numpy(dst).to(device)] = ops.fused_restore(dest, chunk, dst)[1]
-    src_t = torch.arange(m, device=device)
-    dst_t = torch.from_numpy(dst).to(device)
-    res_ms, res_issued_ms = restore_kernel_ms(torch, kernel, ops._weights(device), dest,
-                                              chunk, src_t, dst_t, table)
-    # the wrapper's whole round trip: index checks, H2D index copy, launch, read-back
-    res_wrapper_ms = cuda_ms(lambda: ops.fused_restore(dest, chunk, dst, expected_table=table),
-                             iters=200, warmup=10)
-    res_wrapper_unverified_ms = cuda_ms(lambda: ops.fused_restore(dest, chunk, dst),
-                                        iters=200, warmup=10)
-    res_plain_ms = cuda_ms(lambda: ref.fused_restore_ref(dest, chunk, src_t, dst_t),
-                           iters=50, warmup=5)
-    res_bound, res_by = bound_ms(2 * m * PAGE + 2 * 8 * m + 4 * m + 4 * m + PAGE,
-                                 3 * m * (PAGE // 4))
-    report["restore_timings_ms"] = {
-        "kernel_graph_replay": res_ms, "kernel_host_issued": res_issued_ms,
-        "wrapper_verified": res_wrapper_ms, "wrapper_unverified": res_wrapper_unverified_ms}
-    del dest, chunk, table
-    torch.cuda.empty_cache()
     log(f"  fused_publish  {pub_ms:.4f} ms (plain {pub_plain_ms:.4f} ms, bound "
         f"{pub_bound:.4f} ms by {pub_by}) at {n} pages")
-    log(f"  fused_restore  kernel {res_ms:.5f} ms per launch, verified, from a CUDA graph "
-        f"({res_issued_ms:.5f} ms issued one by one from the host); wrapper round trip "
-        f"{res_wrapper_ms:.4f} ms verified, {res_wrapper_unverified_ms:.4f} ms unverified "
-        f"(plain {res_plain_ms:.4f} ms, bound {res_bound:.6f} ms by {res_by}) per "
-        f"{m}-page chunk")
+    table = ops.fused_publish(pm, ws_full).checksums      # guest-indexed, as a snapshot's
+    walks = {"hot": walk_segments(torch, np, pm, working_set, RestoreEngine.HOT_CHUNK_PAGES),
+             "cold": walk_segments(torch, np, pm, cold_idx)}
+    res_err = max(res_err, check_row_lists(torch, np, pm, table, walks))
+    row_lists = time_row_lists(torch, np, pm, table, walks, cold_idx, device)
+    report["row_lists"] = row_lists
+    del walks, table
+    torch.cuda.empty_cache()
     fused_csum = ops.fused_publish(pm, ws_full).checksums
     row_err = check_row_kernels(torch, np, pm, fused_csum, working_set, cold_idx, device)
     del fused_csum
@@ -1302,12 +1464,13 @@ def main() -> int:
                 "fused_restore": ops.fused_restore.launches}
     launches_private_row = {name: k.launches for name, k in row_kernels.items()}
     n_cold_runs = int(reader.cold_runs().shape[0])
-    want_restore = math.ceil(regions.n_hot / 256) + n_cold_runs
+    routes = engine.walk_routes
+    want_restore = 2 * routes["batched"]     # a walk: one verify-only launch, one install
     verified = inst.scatter_fn.stats["pages_verified"]
     main = {"publish_s": publish_s, "restore_s": restore_s,
             "pre_install_hot_s": t_hot - t0, "n_hot": regions.n_hot,
             "n_cold": regions.n_cold, "n_zero": regions.n_zero,
-            "cold_runs": n_cold_runs, "launches": launches,
+            "cold_runs": n_cold_runs, "launches": launches, "walk_routes": routes,
             "expected_restore_launches": want_restore, "pages_verified": verified,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "peak_mem_above_start_bytes": torch.cuda.max_memory_allocated() - base_mem,
@@ -1318,6 +1481,7 @@ def main() -> int:
         raise AssertionError("restored image differs from the published one")
     if verified != regions.n_hot + regions.n_cold:
         raise AssertionError(f"{verified} pages verified, want {regions.n_hot + regions.n_cold}")
+    check_routes("private main path", routes)
     if launches["fused_publish"] != 1 or launches["fused_restore"] != want_restore:
         raise AssertionError(f"launch counts {launches}, want publish 1, "
                              f"restore {want_restore}")
@@ -1325,10 +1489,15 @@ def main() -> int:
         f"(hot pre-install {main['pre_install_hot_s'] * 1e3:.2f} ms) wall; "
         f"n_hot={regions.n_hot} n_cold={regions.n_cold} n_zero={regions.n_zero} "
         f"cold_runs={n_cold_runs}")
-    log(f"  bit-identical restore: True; pages verified {verified}; launches {launches}")
+    log(f"  bit-identical restore: True; pages verified {verified}; launches {launches}; "
+        f"walks {routes}")
     log(f"  peak device memory {main['peak_mem_bytes'] / 2**30:.3f} GiB")
     log(f"  modeled (paper cost model, not device time): total "
         f"{main['modeled_total_s'] * 1e3:.4f} ms {json.dumps(main['modeled_ledger_s'])}")
+    main["routes_in_turns"] = route_turns(
+        torch, "private", lambda scatter: restore_once(
+            torch, pool, regions, image.buf, image.manifest, scatter),
+        ops.FusedScatter, PerExtentScatter)
     phase_done("main")
 
     del inst, engine, reader
@@ -1358,6 +1527,7 @@ def main() -> int:
     phase_done("model")
 
     dedup_launches = report["dedup"]["launches"]
+    cold, hot, store = row_lists["cold"], row_lists["hot"], row_lists["store_write"]
     kernels = [
         {"name": "fused_publish", "route": "cuda", "source": f"{CSRC}/fused_publish.cu",
          "replaces": PUBLISH_TPU, "launches": launches["fused_publish"],
@@ -1369,11 +1539,23 @@ def main() -> int:
          "replaces": RESTORE_TPU, "launches": launches["fused_restore"],
          "launches_by_path": {"private": launches["fused_restore"],
                               "dedup": dedup_launches["fused_restore"]},
-         "bit_equal": True, "max_abs_err": res_err, "ms": res_ms, "plain_ms": res_plain_ms,
-         "bound_ms": res_bound, "bound_by": res_by, "library_ms": None},
+         "bit_equal": True, "max_abs_err": res_err,
+         "ms": cold["install"]["ms"], "plain_ms": cold["plain_ms"],
+         "bound_ms": cold["install"]["bound_ms"], "bound_by": cold["install"]["bound_by"],
+         "library_ms": None,
+         "shape": f"private cold walk, verified install, {cold['rows']} rows from "
+                  f"{cold['segments']} segments",
+         "verify_only_ms": cold["verify_only"]["ms"],
+         "verify_only_bound_ms": cold["verify_only"]["bound_ms"],
+         "hot_walk_ms": hot["install"]["ms"], "hot_walk_bound_ms": hot["install"]["bound_ms"],
+         "flush_wrapper_ms": cold["flush_wrapper_ms"]},
     ]
     for name, tpu in ROW_KERNELS.items():
-        r = row_t[name]
+        if name == "page_scatter":
+            r = dict(store, ms=store["ms"]["kernel"], library_ms=store["ms"]["library"],
+                     walk_ms=cold["scatter"]["ms"], walk_bound_ms=cold["scatter"]["bound_ms"])
+        else:
+            r = row_t[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu", "replaces": tpu,
@@ -1382,7 +1564,10 @@ def main() -> int:
                                  "dedup": dedup_launches[name]},
             "bit_equal": True, "max_abs_err": row_err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            **({} if name != "page_scatter" else
+               {"walk_ms": r["walk_ms"],
+                "walk_bound_ms": r["walk_bound_ms"]})})
     r = report["flash"]["timing"]
     by_route = report["model"]["launches_by_route"]
     kernels.append({

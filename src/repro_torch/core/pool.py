@@ -397,6 +397,19 @@ class HostView:
     def drop_all(self) -> None:
         self._valid[:] = False
 
+    def has_valid_lines(self, offsets, nbytes: int) -> bool:
+        """Whether a cached (valid) line overlaps ``[off, off + nbytes)`` for
+        any ``off`` of ``offsets``: a read there could return cached bytes
+        instead of the pool's.  A query only: no stats, no fills."""
+        offs = np.asarray(offsets, dtype=np.int64).reshape(-1)
+        per = nbytes // CACHELINE
+        if nbytes % CACHELINE == 0 and not (offs % nbytes).any():
+            # aligned blocks: the lines of block k are row k of the bitmap
+            blocks = self._valid[: self._valid.size - self._valid.size % per]
+            return bool(blocks.reshape(-1, per)[offs // nbytes].any())
+        return any(self._valid[o // CACHELINE : (o + nbytes - 1) // CACHELINE + 1].any()
+                   for o in offs.tolist())
+
 
 class HierarchicalPool:
     """The two-tier pool a pod sees: CXL (fast/near) + RDMA (big/far).

@@ -14,10 +14,16 @@ the pool's device; the ``present`` bitmap, run indices, ledgers and stats
 are host control state, as a real uffd handler keeps them.  The hot
 pre-install walks the snapshot's hot extents (256-page chunks of the
 rank-compacted region, or runs of adjacent store offsets for a dedup
-snapshot), and each extent is installed by ONE in-place scatter call: a
-``page_scatter`` kernel launch by default, or with
-:class:`~repro_torch.kernels.snapshot_fuse.FusedScatter` one fused
-gather→verify→scatter launch.
+snapshot), and each extent is installed by one in-place scatter call: a
+``page_scatter`` by default, or with
+:class:`~repro_torch.kernels.snapshot_fuse.FusedScatter` a fused
+gather→verify→scatter.  The two bulk walks (the hot pre-install and the
+cold walk of ``install_all_sync``) are *batched* when nothing in them can
+observe it (no fault injector, a scatter with a batched form, and for a
+verified walk no cached HostView line over its rows and a clean verify-only
+launch over its source rows): every extent is read and accounted as before,
+but its scatter is queued, and the walk ends with ONE kernel launch over all
+its rows.  ``RestoreEngine.walk_routes`` counts the walks by route.
 
 Async RDMA fault handling mirrors the paper: the fault handler grabs a free
 buffer page, posts a one-sided read, and returns immediately; a completion
@@ -26,6 +32,7 @@ threads launch their copies and kernels on the device's current stream.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import queue
 import random
@@ -68,7 +75,22 @@ ScatterFn = Callable[..., object]
 
 
 class Instance:
-    """A restoring/running instance's guest address space + present bitmap."""
+    """A restoring/running instance's guest address space + present bitmap.
+
+    Inside :meth:`queued_installs` (a batched restore walk) the scatter of
+    each ``uffd_copy_batch`` the walk's thread makes is queued as a row-list
+    segment instead of launched; the batch's stats, ledger charge and the
+    scatter's batch stats happen as they would.  The flush installs every
+    queued row with ONE call of the scatter's batched form and only then
+    marks the rows' pages present, so no reader, with the lock or without,
+    sees a page present whose bytes are not yet enqueued.  The instance's
+    lock is held from the first queued segment to the flush: another thread
+    installs directly before that, and waits for the flush after it.
+    """
+
+    # queued source bytes that force a flush mid-walk: bounds the memory the
+    # queued extent buffers hold
+    QUEUE_FLUSH_BYTES = 2 << 30
 
     def __init__(self, image: StateImage, ledger: Optional[TimeLedger] = None,
                  scatter_fn: Optional[ScatterFn] = None,
@@ -88,8 +110,12 @@ class Instance:
             "uffd_batches": 0,
             "bytes_installed": 0,
         }
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()     # re-entered while a walk's queue holds it
         self._cv = threading.Condition(self._lock)
+        self._queue: Optional[list] = None           # queued (source, rows, pages)
+        self._queue_bytes = 0
+        self._queue_thread: Optional[int] = None     # the walk's thread
+        self._launch_queue: Optional[Callable] = None
 
     # -- uffd analogues ------------------------------------------------------
     def uffd_copy(self, page: int, src: torch.Tensor) -> bool:
@@ -125,8 +151,11 @@ class Instance:
             else:
                 src = None if todo.all() else np.nonzero(todo)[0]
             scatter = self.scatter_fn or page_scatter
-            scatter(self.image.pages_matrix(), mat, sel, src_indices=src)
-            self.present[sel] = True
+            if self._queue is not None and threading.get_ident() == self._queue_thread:
+                self._enqueue(scatter, mat, src, sel)     # present once flushed
+            else:
+                scatter(self.image.pages_matrix(), mat, sel, src_indices=src)
+                self.present[sel] = True
             n = int(sel.size)
             n_ranges = int(1 + np.count_nonzero(np.diff(sel) != 1))
             self.stats["uffd_copies"] += n
@@ -135,6 +164,49 @@ class Instance:
             self.ledger.add("uffd_copy", uffd_copy_batch_cost(n, n_ranges))
             self._cv.notify_all()
             return n
+
+    def _enqueue(self, scatter, mat: torch.Tensor, src: Optional[np.ndarray],
+                 sel: np.ndarray) -> None:
+        """Queue one batch's scatter (caller holds the lock)."""
+        if not self._queue:
+            self._lock.acquire()        # held until flush_queued
+        self._queue.append((mat, src, sel))
+        self._queue_bytes += mat.numel() * mat.element_size()
+        count = getattr(scatter, "count_batch", None)
+        if count is not None:
+            count(sel.size)
+        if self._queue_bytes >= self.QUEUE_FLUSH_BYTES:
+            self.flush_queued()
+
+    @contextlib.contextmanager
+    def queued_installs(self, launch: Callable):
+        """Queue every ``uffd_copy_batch`` scatter inside the block and install
+        them at its end (also on an error) with ONE ``launch(dest, segments)``
+        — a scatter function's batched form (``scatter_rows``)."""
+        self._queue, self._queue_bytes, self._launch_queue = [], 0, launch
+        self._queue_thread = threading.get_ident()
+        try:
+            yield
+        finally:
+            try:
+                self.flush_queued()
+            finally:
+                self._queue = self._launch_queue = self._queue_thread = None
+
+    def flush_queued(self) -> None:
+        """Install the queued segments with one launch, mark their pages
+        present once it is issued, and release the lock the first of them
+        took."""
+        if not self._queue:
+            return
+        segments, self._queue, self._queue_bytes = self._queue, [], 0
+        try:
+            self._launch_queue(self.image.pages_matrix(), segments)
+            for _mat, _src, sel in segments:
+                self.present[sel] = True
+            self._cv.notify_all()
+        finally:
+            self._lock.release()
 
     def uffd_zeropage(self, page: int) -> None:
         with self._cv:
@@ -402,6 +474,11 @@ class RestoreEngine:
                              "degraded_preinstalls": 0, "degraded_faults": 0}
         self.degraded_cxl = False
         self.repair_error: Optional[Exception] = None
+        # bulk walks (pre_install_hot, install_all_sync's cold walk) that had
+        # rows to install, by route: batched into one launch, or per extent
+        # and why
+        self.walk_routes = {"batched": 0, "per_extent": {
+            "injector": 0, "cached_lines": 0, "preverify": 0, "scatter_fn": 0}}
 
     def _record_heat(self, pages, kind: str) -> None:
         """Typed telemetry: pages in touch order, this restore as the
@@ -441,40 +518,41 @@ class RestoreEngine:
             return 0
         chunk = chunk_pages or self.HOT_CHUNK_PAGES
         n_hot = 0
-        for pages, pool_off, nbytes in self.reader.iter_hot_extents(chunk):
-            if self.instance.present[pages].all():
-                n_hot += int(pages.size)
-                continue    # already installed (e.g. repeated pre-install)
-            try:
-                raw = call_with_retries(
-                    lambda o=pool_off, n=nbytes: self.reader.view.read(o, n),
-                    policy=self.retry, rng=self._retry_rng,
-                    ledger=self.ledger, clock=self.clock,
-                    trace=self.retry_trace)
-            except TierFaultError as e:
-                if ht is None:
+        with self._walk("cxl"):
+            for pages, pool_off, nbytes in self.reader.iter_hot_extents(chunk):
+                if self.instance.present[pages].all():
+                    n_hot += int(pages.size)
+                    continue    # already installed (e.g. repeated pre-install)
+                try:
+                    raw = call_with_retries(
+                        lambda o=pool_off, n=nbytes: self.reader.view.read(o, n),
+                        policy=self.retry, rng=self._retry_rng,
+                        ledger=self.ledger, clock=self.clock,
+                        trace=self.retry_trace)
+                except TierFaultError as e:
+                    if ht is None:
+                        raise
+                    ht.record_failure(hard=(e.kind == "brownout"))
+                    if not ht.allow():
+                        # breaker tripped mid-walk: remaining hot pages take
+                        # the degraded demand path instead of failing
+                        self.degraded_cxl = True
+                        self.repair_stats["degraded_preinstalls"] += 1
+                        return n_hot
                     raise
-                ht.record_failure(hard=(e.kind == "brownout"))
-                if not ht.allow():
-                    # breaker tripped mid-walk: remaining hot pages take
-                    # the degraded demand path instead of failing
-                    self.degraded_cxl = True
-                    self.repair_stats["degraded_preinstalls"] += 1
-                    return n_hot
-                raise
-            if ht is not None:
-                ht.record_success()
-            n_hot += int(pages.size)
-            mat = raw.view(-1, PAGE_SIZE)
-            rows = None
-            if pages.size > 1 and np.any(np.diff(pages) < 0):
-                # dedup extents visit pages in store-offset order: the batch
-                # wants them guest-sorted (one uffd range per guest run), and
-                # the scatter reads the chunk through the permutation
-                rows = np.argsort(pages, kind="stable")
-                pages = pages[rows]
-            installed = self._install_verified(pages, mat, rows)
-            self.instance.stats["pre_installed"] += installed
+                if ht is not None:
+                    ht.record_success()
+                n_hot += int(pages.size)
+                mat = raw.view(-1, PAGE_SIZE)
+                rows = None
+                if pages.size > 1 and np.any(np.diff(pages) < 0):
+                    # dedup extents visit pages in store-offset order: the batch
+                    # wants them guest-sorted (one uffd range per guest run), and
+                    # the scatter reads the chunk through the permutation
+                    rows = np.argsort(pages, kind="stable")
+                    pages = pages[rows]
+                installed = self._install_verified(pages, mat, rows)
+                self.instance.stats["pre_installed"] += installed
         return n_hot
 
     def drain_degraded_hot(self) -> int:
@@ -869,13 +947,80 @@ class RestoreEngine:
         # layout's cold runs in guest order; a dedup snapshot's runs, split
         # where store offsets stop being adjacent, largest run first (the
         # order the reference walks them in, which the ledger's sums follow)
-        for es, en, rank0, pool_off, nbytes in self.reader.iter_cold_extents(
-                max_extent_pages=1 << 30, largest_first=self.reader.regions.dedup):
-            payload = call_with_retries(
-                lambda o=pool_off, b=nbytes: self.reader.rdma.read(o, b),
-                policy=self.retry, rng=self._retry_rng,
-                ledger=self.ledger, clock=self.clock,
-                trace=self.retry_trace)
-            self.ledger.add("rdma_read", self._rdma_arbiter.charge(nbytes))
-            self._install_verified(np.arange(es, es + en),
-                                   self.reader.split_cold_extent(rank0, en, payload))
+        with self._walk("rdma"):
+            for es, en, rank0, pool_off, nbytes in self.reader.iter_cold_extents(
+                    max_extent_pages=1 << 30, largest_first=self.reader.regions.dedup):
+                payload = call_with_retries(
+                    lambda o=pool_off, b=nbytes: self.reader.rdma.read(o, b),
+                    policy=self.retry, rng=self._retry_rng,
+                    ledger=self.ledger, clock=self.clock,
+                    trace=self.retry_trace)
+                self.ledger.add("rdma_read", self._rdma_arbiter.charge(nbytes))
+                self._install_verified(np.arange(es, es + en),
+                                       self.reader.split_cold_extent(rank0, en, payload))
+
+    # -- route of a bulk walk ---------------------------------------------------
+    def _walk(self, tier: str):
+        """The context one bulk walk over ``tier``'s rows ("cxl": the hot
+        pre-install, "rdma": the cold walk) runs in.
+
+        A walk is batched — each extent's scatter queued, all of them
+        installed by one launch at its end — when nothing in it can observe
+        the deferral; the choice is made before the walk touches any state,
+        and a walk that is not batched runs per extent exactly as before.
+        Walks with no page left to install are not counted."""
+        pages, offs = self.reader.walk_rows(tier)
+        todo = ~self.instance.present[pages]
+        if not todo.any():
+            return contextlib.nullcontext()
+        reason = self._per_extent_reason(tier, pages[todo], offs[todo])
+        if reason is not None:
+            self.walk_routes["per_extent"][reason] += 1
+            return contextlib.nullcontext()
+        self.walk_routes["batched"] += 1
+        batched = (self.instance.scatter_fn or page_scatter).scatter_rows
+
+        def launch(dest: torch.Tensor, segments) -> None:
+            try:
+                batched(dest, segments)
+            except RuntimeError as err:
+                bad = getattr(err, "bad_pages", None)
+                if bad is None:
+                    raise
+                # the walk's source rows verified clean before it began: the
+                # arena changed under it, which no repair can answer
+                raise RuntimeError(
+                    f"batched restore walk: pre-verified rows changed before the install; "
+                    f"checksum mismatch on guest pages {bad.tolist()}") from err
+
+        return self.instance.queued_installs(launch)
+
+    def _per_extent_reason(self, tier: str, pages: np.ndarray,
+                           offs: np.ndarray) -> Optional[str]:
+        """Why the walk over ``pages`` (read at pool ``offs``) must run per
+        extent, or None when it can be batched:
+
+        * ``injector`` — a fault injector is armed on a tier, so a read could
+          fail, retry, sleep or be poisoned;
+        * ``scatter_fn`` — the scatter function has no batched form;
+        * ``cached_lines`` — (verified walks) a valid HostView line overlaps
+          the CXL source rows, so a read may return other bytes than the
+          arena holds;
+        * ``preverify`` — (verified walks) one verify-only launch over the
+          source rows, straight from the tier arena, found a mismatch: the
+          walk takes the reference's repair path.
+        """
+        if any(getattr(t, "fault_injector", None) is not None
+               for t in (self.reader.view.tier, self.reader.rdma)):
+            return "injector"
+        scatter = self.instance.scatter_fn or page_scatter
+        if getattr(scatter, "scatter_rows", None) is None:
+            return "scatter_fn"
+        if getattr(scatter, "expected", None) is None:
+            return None                                  # unverified walk
+        if tier == "cxl" and self.reader.view.has_valid_lines(offs, PAGE_SIZE):
+            return "cached_lines"
+        arena = (self.reader.view.tier if tier == "cxl" else self.reader.rdma).page_rows()
+        if not scatter.verify_rows([(arena, offs // PAGE_SIZE, pages)]):
+            return "preverify"
+        return None

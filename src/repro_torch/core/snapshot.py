@@ -780,6 +780,18 @@ class SnapshotReader:
                 yield hot_o[s : s + n], off_s, n * PAGE_SIZE
                 s += n
 
+    def walk_rows(self, tier: str) -> Tuple[np.ndarray, np.ndarray]:
+        """``(pages, pool_offs)``: every guest page of one tier's restore walk
+        ("cxl": the hot set, "rdma": the cold set) and the pool byte offset
+        its 4 KiB are read from — the rows :meth:`iter_hot_extents` and
+        :meth:`iter_cold_extents` cover (in guest order here), without
+        reading any of them."""
+        pages = self.hot_page_indices() if tier == "cxl" else self.cold_page_indices()
+        offs = (self.offset_array()[pages] & OFFSET_MASK).astype(np.int64)
+        if not self.regions.dedup:
+            offs += self.regions.hot_off if tier == "cxl" else self.regions.rdma_off
+        return pages, offs
+
     def cold_rank(self, page: int) -> int:
         """Rank (position in the sorted cold set) of a cold page.  For a
         dedup snapshot the "rank" is the absolute tier page number."""

@@ -11,13 +11,14 @@ All are CUDA C++ under ``<name>/csrc/``, compiled at first use by
 from .flash_attention import flash_attention
 from .page_checksum import page_checksum
 from .page_gather import page_gather
-from .page_scatter import page_scatter
+from .page_scatter import page_scatter, page_scatter_rows
 from .snapshot_fuse import (
     ChecksumMismatchError,
     FusedPublishResult,
     FusedScatter,
     fused_publish,
     fused_restore,
+    fused_restore_rows,
     make_fused_publish_fn,
 )
 from .zero_detect import zero_detect

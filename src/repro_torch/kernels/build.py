@@ -27,12 +27,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 _COMMON = (KERNELS_DIR / "snapshot_fuse" / "csrc" / "common.cuh",)
+_ROWS = (*_COMMON, KERNELS_DIR / "snapshot_fuse" / "csrc" / "row_copy.cuh")
 # library name -> (main source, headers it includes)
 SOURCES: Dict[str, tuple] = {
     "fused_publish": (KERNELS_DIR / "snapshot_fuse" / "csrc" / "fused_publish.cu", _COMMON),
-    "fused_restore": (KERNELS_DIR / "snapshot_fuse" / "csrc" / "fused_restore.cu", _COMMON),
+    "fused_restore": (KERNELS_DIR / "snapshot_fuse" / "csrc" / "fused_restore.cu", _ROWS),
     **{name: (KERNELS_DIR / name / "csrc" / f"{name}.cu", _COMMON)
-       for name in ("zero_detect", "page_checksum", "page_gather", "page_scatter")},
+       for name in ("zero_detect", "page_checksum", "page_gather")},
+    "page_scatter": (KERNELS_DIR / "page_scatter" / "csrc" / "page_scatter.cu", _ROWS),
     "flash_attention": (KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu", ()),
     "flash_attention_sm90": (KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_sm90.cu",
                              ()),

@@ -12,12 +12,12 @@ import torch
 from .. import build
 from ..build import I64, PTR
 
-_ARGS = (PTR, PTR, PTR, PTR, I64, I64, PTR)
+_ARGS = (PTR, PTR, I64, PTR, PTR, I64, I64, PTR)
 
 
-def page_scatter(dest: torch.Tensor, compact: torch.Tensor, dst: torch.Tensor,
-                 src: Optional[torch.Tensor]) -> None:
-    """``dest[dst[i]] = compact[src[i]]`` (``src`` None: ``i``), in place."""
-    build.call("page_scatter", "aq_page_scatter", _ARGS, dest.data_ptr(), compact.data_ptr(),
-               dst.data_ptr(), None if src is None else src.data_ptr(), dst.shape[0],
-               dest.shape[1] * dest.element_size(), build.stream_of(dest))
+def scatter_rows(dest: torch.Tensor, src_base: int, src_stride: int,
+                 src: Optional[torch.Tensor], dst: torch.Tensor) -> None:
+    """``dest[dst[i]]`` = the row at ``src_base + (src[i] or i) * src_stride``."""
+    build.call("page_scatter", "aq_page_scatter_rows", _ARGS, dest.data_ptr(), src_base,
+               src_stride, None if src is None else src.data_ptr(), dst.data_ptr(),
+               dst.shape[0], dest.shape[1] * dest.element_size(), build.stream_of(dest))

@@ -5,5 +5,6 @@ from .ops import (
     FusedScatter,
     fused_publish,
     fused_restore,
+    fused_restore_rows,
     make_fused_publish_fn,
 )

@@ -1,8 +1,8 @@
 """ctypes bindings of the hand-written CUDA snapshot kernels (``csrc/*.cu``).
 
 ``publish_classify`` + ``publish_compact`` are the fused publish sweep
-(replacing ``fused_publish_pallas``), ``restore`` the fused
-gather→checksum→scatter (replacing ``fused_restore_pallas``).  These take
+(replacing ``fused_publish_pallas``), ``restore_rows`` the fused
+gather→checksum→scatter over a row list (replacing ``fused_restore_pallas``).  These take
 CUDA tensors that ``ops.py`` has already checked and allocated, launch on
 PyTorch's current stream without synchronising, and raise when the launch
 is refused.  The libraries are compiled at first call (``kernels/build.py``).
@@ -20,7 +20,8 @@ from ..build import PTR as _P
 _SIGNATURES = {
     ("fused_publish", "aq_publish_classify"): (_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P),
     ("fused_publish", "aq_publish_compact"): (_P, _P, _P, _I64, _P, _P, _P),
-    ("fused_restore", "aq_fused_restore"): (_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P),
+    ("fused_restore", "aq_fused_restore_rows"): (_P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P,
+                                                 _P, _P),
 }
 
 
@@ -53,11 +54,14 @@ def publish_compact(pages: torch.Tensor, cls: torch.Tensor, pos: torch.Tensor,
           pages.shape[0], _ptr(hot), _ptr(cold), _stream(pages))
 
 
-def restore(dest: torch.Tensor, chunk: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-            weights: torch.Tensor, expected: Optional[torch.Tensor], csum: torch.Tensor,
-            n_bad: Optional[torch.Tensor]) -> None:
-    """``dest[dst[i]] = chunk[src[i]]``, ``csum[i]`` = its checksum, and
-    ``n_bad`` = rows whose checksum differs from ``expected[dst[i]]``."""
-    _call("fused_restore", "aq_fused_restore", _ptr(dest), _ptr(chunk), _ptr(src), _ptr(dst),
-          src.shape[0], _ptr(weights), _ptr(expected), _ptr(csum), _ptr(n_bad),
-          _stream(dest))
+def restore_rows(dest: Optional[torch.Tensor], src_base: int, src_stride: int,
+                 src: Optional[torch.Tensor], dst: torch.Tensor, weights: torch.Tensor,
+                 expected: Optional[torch.Tensor], csum: torch.Tensor,
+                 bad: Optional[torch.Tensor], n_bad: Optional[torch.Tensor]) -> None:
+    """For each row i at ``src_base + (src[i] or i) * src_stride``:
+    ``dest[dst[i]]`` = the row (``dest`` None: verify only), ``csum[i]`` = its
+    checksum, ``bad[i]`` = whether it differs from ``expected[dst[i]]``, and
+    ``n_bad`` = how many do."""
+    _call("fused_restore", "aq_fused_restore_rows", _ptr(dest), src_base, src_stride, _ptr(src),
+          _ptr(dst), dst.shape[0], _ptr(weights), _ptr(expected), _ptr(csum), _ptr(bad),
+          _ptr(n_bad), _stream(dst))

@@ -3,14 +3,19 @@
 ``fused_publish``   — one sweep: zero bitmap + poly32 checksum + hot/cold
                       compaction.  Plugs into ``build_snapshot`` via the
                       ``publish_fn`` seam (``make_fused_publish_fn``).
-``fused_restore``   — one kernel: gather-from-chunk → checksum-verify →
-                      scatter-into-guest-frame, in place.
+``fused_restore_rows`` — one kernel over a row list (``rows.py``): gather
+                      rows from any number of source tensors → checksum →
+                      verify against a guest-indexed table → scatter into
+                      the guest frame, in place; or verify only.
+``fused_restore``   — the same for one source tensor.
 ``FusedScatter``    — ``fused_restore`` adapted to the serving layer's
                       in-place ``ScatterFn`` signature ``(dest, compact,
                       indices, src_indices=None)``; optionally bound to a
                       snapshot's publish-time checksum table, in which case
                       every installed page is verified on the device in the
-                      same launch that installs it.
+                      same launch that installs it.  Its batched form
+                      ``scatter_rows(dest, segments)`` installs a whole
+                      restore walk in one launch.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain torch
 version in ``ref.py``; CUDA tensors launch the hand-written kernel or raise.
@@ -28,7 +33,7 @@ import torch
 from .. import rows
 from ..page_checksum.ops import weights_on
 from . import kernel
-from .ref import fused_publish_ref, fused_restore_ref
+from .ref import fused_publish_ref, fused_restore_rows_ref
 
 PAGE_BYTES = 4096  # the kernels' row width: one 4 KiB guest page
 
@@ -122,10 +127,69 @@ def make_fused_publish_fn() -> PublishFn:
     return publish_fn
 
 
+def fused_restore_rows(dest: Optional[torch.Tensor], segments,
+                       expected_table: Optional[torch.Tensor] = None,
+                       verify_only: bool = False) -> torch.Tensor:
+    """Install every row of the row list ``segments`` (``(tensor, rows, dst)``
+    with host arrays, ``rows`` None: ``arange``) at ``dest[dst]`` in place, in
+    ONE launch on the card, and return the rows' checksums (int32[M], list
+    order).  Destinations must be unique across the segments.
+
+    With ``expected_table`` (int32, guest-page-indexed, on the rows' device)
+    each row is verified against ``expected_table[dst]`` and
+    :class:`ChecksumMismatchError` lists the guest pages that disagree; the
+    rows are written either way.  ``verify_only`` checksums and verifies
+    without writing (``dest`` may then be None; ``dst`` indexes the table)."""
+    if verify_only:
+        dest = None
+    elif dest is None:
+        raise ValueError("fused_restore_rows: dest is None and verify_only is not set")
+    if dest is not None:
+        bound, device = dest.shape[0], dest.device
+    elif expected_table is not None:
+        bound, device = expected_table.shape[0], expected_table.device
+    else:
+        raise ValueError("fused_restore_rows: a verify-only launch needs expected_table")
+    segs, dst, addr = rows.check_segments("fused_restore", segments, PAGE_BYTES, bound)
+    for t, _r, _d in segs:
+        if t.dtype != torch.uint8 or t.device != device:
+            raise ValueError(f"fused_restore: expected uint8 rows on {device}, got "
+                             f"{t.dtype} on {t.device}")
+    if expected_table is not None and (expected_table.device != device
+                                       or expected_table.dtype != torch.int32):
+        raise ValueError("fused_restore: expected_table must be int32 on the rows' device")
+    m = dst.size
+    if device.type == "cpu":
+        csum = fused_restore_rows_ref(dest, segs)
+        if m and expected_table is not None:
+            bad = (csum != expected_table[torch.from_numpy(dst)]).numpy()
+            if bad.any():
+                raise ChecksumMismatchError(dst[bad])
+        return csum
+    if m == 0:
+        return torch.zeros(0, dtype=torch.int32, device=device)
+    if dest is not None:
+        _check_rows("fused_restore dest", dest)
+    idx = rows.upload([addr, dst], device)
+    csum = torch.empty(m, dtype=torch.int32, device=device)
+    bad = n_bad = None
+    if expected_table is not None:
+        bad = torch.empty(m, dtype=torch.uint8, device=device)
+        n_bad = torch.empty(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        kernel.restore_rows(dest, 0, 1, idx[0], idx[1], _weights(device), expected_table, csum,
+                            bad, n_bad)
+    fused_restore.launches += 1
+    if n_bad is not None and int(n_bad.item()) > 0:   # bad indices cross only on a mismatch
+        raise ChecksumMismatchError(dst[bad.cpu().numpy().astype(bool)])
+    return csum
+
+
 def fused_restore(dest: torch.Tensor, compact: torch.Tensor, indices,
                   *, src_indices=None, expected_table: Optional[torch.Tensor] = None):
     """Install ``compact[src_indices[i]]`` at ``dest[indices[i]]`` in place and
-    return ``(dest, csums int32[M])``.
+    return ``(dest, csums int32[M])``: :func:`fused_restore_rows` of one
+    segment.
 
     ``indices`` / ``src_indices`` are host integer arrays (``src_indices``
     defaults to ``arange(M)``); ``indices`` must be unique.  With
@@ -134,38 +198,10 @@ def fused_restore(dest: torch.Tensor, compact: torch.Tensor, indices,
     :class:`ChecksumMismatchError` lists the guest pages that disagree.  The
     rows are written either way.
     """
-    dst = rows.host_indices("fused_restore", indices, dest.shape[0])
-    m = dst.size
-    src = (np.arange(m, dtype=np.int64) if src_indices is None
-           else rows.host_indices("fused_restore src", src_indices, compact.shape[0]))
-    if src.size != m:
-        raise ValueError(f"fused_restore: {src.size} sources for {m} destinations")
-    if m == 0:
-        return dest, torch.zeros(0, dtype=torch.int32, device=dest.device)
-    rows.check_unique("fused_restore", dst)
-    idx = torch.from_numpy(np.stack([src, dst])).to(dest.device)   # one host→device copy
-    if dest.device.type == "cpu":
-        csum = fused_restore_ref(dest, compact, idx[0], idx[1])
-        bad = (None if expected_table is None
-               else (csum != expected_table[idx[1]]).numpy())
-        if bad is not None and bad.any():
-            raise ChecksumMismatchError(dst[bad])
-        return dest, csum
-    _check_rows("fused_restore dest", dest)
-    _check_rows("fused_restore compact", compact)
-    if expected_table is not None and (expected_table.device != dest.device
-                                       or expected_table.dtype != torch.int32):
-        raise ValueError("fused_restore: expected_table must be int32 on dest's device")
-    csum = torch.empty(m, dtype=torch.int32, device=dest.device)
-    n_bad = None if expected_table is None else torch.empty(1, dtype=torch.int32,
-                                                            device=dest.device)
-    with torch.cuda.device(dest.device):
-        kernel.restore(dest, compact, idx[0], idx[1], _weights(dest.device),
-                       expected_table, csum, n_bad)
-    fused_restore.launches += 1
-    if n_bad is not None and int(n_bad.item()) > 0:   # bad indices cross only on a mismatch
-        bad = (csum != expected_table[idx[1]]).cpu().numpy()
-        raise ChecksumMismatchError(dst[bad])
+    if src_indices is None:
+        src_indices = np.arange(np.asarray(indices).size, dtype=np.int64)
+    csum = fused_restore_rows(dest, [(compact, src_indices, indices)],
+                              expected_table=expected_table)
     return dest, csum
 
 
@@ -181,6 +217,11 @@ class FusedScatter:
     this when the reader's regions carry one), every batch is verified
     against ``table[indices]`` inside the launch that installs it.  Bound
     copies share the template's ``stats`` dict.
+
+    The batched form: :meth:`count_batch` accounts a logical batch whose
+    rows are queued, :meth:`scatter_rows` installs (and verifies) all the
+    queued rows in one launch, and :meth:`verify_rows` checks source rows
+    against the table without installing them.
     """
 
     def __init__(self, *, expected: Optional[torch.Tensor] = None,
@@ -196,14 +237,38 @@ class FusedScatter:
             table = torch.from_numpy(np.asarray(table, dtype=np.uint32).view(np.int32))
         return FusedScatter(expected=table, stats=self.stats)
 
+    def _table_on(self, device: torch.device) -> Optional[torch.Tensor]:
+        if self.expected is not None and self.expected.device != device:
+            self.expected = self.expected.to(device)
+        return self.expected
+
+    def count_batch(self, n: int) -> None:
+        """Account one logical batch of ``n`` pages (installed or queued)."""
+        self.stats["batches"] += 1
+        self.stats["pages"] += int(n)
+        if self.expected is not None:
+            self.stats["pages_verified"] += int(n)
+
     def __call__(self, dest: torch.Tensor, compact: torch.Tensor, indices,
                  src_indices=None) -> None:
         idx = np.asarray(indices, dtype=np.int64).reshape(-1)
-        if self.expected is not None and self.expected.device != dest.device:
-            self.expected = self.expected.to(dest.device)
         fused_restore(dest, compact, idx, src_indices=src_indices,
-                      expected_table=self.expected)
-        self.stats["batches"] += 1
-        self.stats["pages"] += int(idx.size)
-        if self.expected is not None:
-            self.stats["pages_verified"] += int(idx.size)
+                      expected_table=self._table_on(dest.device))
+        self.count_batch(idx.size)
+
+    def scatter_rows(self, dest: torch.Tensor, segments) -> torch.Tensor:
+        """Install the row list ``segments`` in one launch, verified against
+        the bound table (batches were accounted when queued)."""
+        return fused_restore_rows(dest, segments, expected_table=self._table_on(dest.device))
+
+    def verify_rows(self, segments) -> bool:
+        """Whether every row of ``segments`` (``dst`` = guest pages) matches
+        the bound table: one verify-only launch and one read-back."""
+        if not segments:
+            return True
+        try:
+            fused_restore_rows(None, segments, expected_table=self._table_on(
+                segments[0][0].device), verify_only=True)
+        except ChecksumMismatchError:
+            return False
+        return True

@@ -27,3 +27,22 @@ def fused_restore_ref(dest: torch.Tensor, chunk: torch.Tensor, src_idx: torch.Te
     csum = page_checksum_ref(rows)
     dest[dst_idx] = rows
     return csum
+
+
+def fused_restore_rows_ref(dest, segments) -> torch.Tensor:
+    """The row-list form: for each segment ``(tensor, rows, dst)`` (``rows``
+    None: ``arange``), :func:`fused_restore_ref` of ``tensor`` into ``dest``;
+    returns the checksums of all rows in list order.  ``dest`` None checksums
+    the rows without writing them (a verify-only launch's plain version)."""
+    out = []
+    for t, rows, dst in segments:
+        src = (torch.arange(len(dst), device=t.device) if rows is None
+               else torch.as_tensor(rows, dtype=torch.int64, device=t.device))
+        if dest is None:
+            out.append(page_checksum_ref(t[src]))
+        else:
+            out.append(fused_restore_ref(dest, t, src, torch.as_tensor(
+                dst, dtype=torch.int64, device=dest.device)))
+    if not out:
+        return torch.zeros(0, dtype=torch.int32, device=None if dest is None else dest.device)
+    return torch.cat(out)

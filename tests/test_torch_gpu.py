@@ -6,7 +6,6 @@ with PyTorch alone:
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
 """
-import math
 
 import numpy as np
 import pytest
@@ -18,15 +17,21 @@ from repro_torch.kernels import (
     FusedScatter,
     fused_publish,
     fused_restore,
+    fused_restore_rows,
     page_checksum,
     page_gather,
     page_scatter,
+    page_scatter_rows,
     zero_detect,
 )
 from repro_torch.kernels.page_checksum.ref import page_checksum_ref
 from repro_torch.kernels.page_gather.ref import page_gather_ref
-from repro_torch.kernels.page_scatter.ref import page_scatter_ref
-from repro_torch.kernels.snapshot_fuse.ref import fused_publish_ref, fused_restore_ref
+from repro_torch.kernels.page_scatter.ref import page_scatter_ref, page_scatter_rows_ref
+from repro_torch.kernels.snapshot_fuse.ref import (
+    fused_publish_ref,
+    fused_restore_ref,
+    fused_restore_rows_ref,
+)
 from repro_torch.kernels.zero_detect.ref import zero_detect_ref
 
 PAGE = 4096
@@ -121,8 +126,9 @@ def test_slice_publish_restore_small(cuda_device):
     assert torch.equal(inst.image.buf, image.buf)
     assert inst.scatter_fn.stats["pages_verified"] == regions.n_hot + regions.n_cold
     assert fused_publish.launches == 1
-    assert fused_restore.launches == (math.ceil(regions.n_hot / 64)
-                                      + reader.cold_runs().shape[0])
+    # two batched walks (hot, cold), each a verify-only launch and an install
+    assert eng.walk_routes["batched"] == 2
+    assert fused_restore.launches == 4
     back = core.reconstruct_image(pool, regions)
     assert torch.equal(back.buf, image.buf)
 
@@ -332,6 +338,135 @@ def test_dedup_slice_small(cuda_device):
         core.free_snapshot(pool, reg)
     assert pool.dedup_cxl.unique_pages() == pool.dedup_rdma.unique_pages() == 0
     assert pool.cxl.bytes_in_use == pool.rdma.bytes_in_use == 0
+
+
+# --------------------------------------------------------------------------
+# the row-list kernels (batched restore walks)
+# --------------------------------------------------------------------------
+
+SEGMENT_CASES = [(), (0,), (1,), (37,), (255, 1, 300, 2), (7,) * 20, (2000, 999)]
+
+
+def _segments(rng, device, sizes, dest_rows):
+    """One source tensor a size (three spare rows each, read through a
+    permutation); destinations disjoint across the segments."""
+    dst = rng.permutation(dest_rows)[: sum(sizes)]
+    segs, at = [], 0
+    for m in sizes:
+        t = torch.from_numpy(rng.integers(0, 256, (m + 3, PAGE), dtype=np.uint8)).to(device)
+        t[::5] = 0xFF                                     # all-ones lanes: the wrap case
+        segs.append((t, rng.permutation(m + 3)[:m], dst[at : at + m]))
+        at += m
+    return segs
+
+
+@pytest.mark.parametrize("sizes", SEGMENT_CASES, ids=lambda s: f"{len(s)}segs-{sum(s)}rows")
+def test_row_list_kernels_match_plain(cuda_device, sizes):
+    """page_scatter_rows and fused_restore_rows bit-equal to their plain
+    versions over ragged and empty row lists from many source tensors; one
+    launch each, whatever the number of segments."""
+    rng = np.random.default_rng(sum(sizes) + len(sizes))
+    n = 5000
+    segs = _segments(rng, cuda_device, sizes, n)
+    m = sum(sizes)
+    dest = torch.randint(0, 256, (n, PAGE), dtype=torch.uint8, device=cuda_device)
+    want = page_scatter_rows_ref(dest.clone(), segs)
+    before = page_scatter.launches
+    got = page_scatter_rows(dest.clone(), segs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert page_scatter.launches == before + (1 if m else 0)
+    dest_p = dest.clone()
+    cs_want = fused_restore_rows_ref(dest_p, segs)
+    before = fused_restore.launches
+    cs = fused_restore_rows(dest, segs)
+    torch.cuda.synchronize()
+    assert torch.equal(dest, dest_p) and torch.equal(cs, cs_want)
+    assert fused_restore.launches == before + (1 if m else 0)
+
+
+@pytest.mark.parametrize("n_bad", [0, 1, 5, 300])
+def test_row_list_restore_verifies_and_counts_mismatches(cuda_device, n_bad):
+    """Verified installs and verify-only launches against a guest-indexed
+    table: forced mismatches are named exactly, and a verify-only launch
+    writes nothing."""
+    rng = np.random.default_rng(n_bad)
+    n = 4096
+    segs = _segments(rng, cuda_device, (700, 13, 1), n)
+    dst = np.concatenate([d for _t, _r, d in segs])
+    table = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    table[torch.from_numpy(dst).to(cuda_device)] = fused_restore_rows_ref(None, segs)
+    bad = np.sort(rng.choice(dst, n_bad, replace=False))
+    table[torch.from_numpy(bad).to(cuda_device)] ^= 0x10
+    dest = torch.zeros((n, PAGE), dtype=torch.uint8, device=cuda_device)
+    for verify_only in (True, False):
+        if n_bad:
+            with pytest.raises(ChecksumMismatchError) as ei:
+                fused_restore_rows(dest, segs, expected_table=table, verify_only=verify_only)
+            assert np.sort(ei.value.bad_pages).tolist() == bad.tolist()
+        else:
+            cs = fused_restore_rows(dest, segs, expected_table=table, verify_only=verify_only)
+            assert torch.equal(cs, table[torch.from_numpy(dst).to(cuda_device)])
+        torch.cuda.synchronize()
+        assert bool(dest.any()) == (not verify_only)      # rows are written either way
+    want = page_scatter_rows_ref(torch.zeros_like(dest), segs)
+    assert torch.equal(dest, want)
+
+
+def test_row_list_kernels_addresses_past_2gib(cuda_device):
+    """Sources and destinations whose byte offsets pass 2^31 in a 2.2 GB
+    arena, in one row list with a small tensor."""
+    n = (1 << 31) // PAGE + 600
+    arena = torch.zeros((n, PAGE), dtype=torch.uint8, device=cuda_device)
+    far = np.array([n - 1, (1 << 31) // PAGE, n - 300], np.int64)
+    arena[torch.from_numpy(far).to(cuda_device)] = torch.randint(
+        1, 256, (3, PAGE), dtype=torch.uint8, device=cuda_device)
+    small = torch.randint(0, 256, (4, PAGE), dtype=torch.uint8, device=cuda_device)
+    segs = [(arena, far, np.array([3, 9, (1 << 31) // PAGE - 1])),
+            (small, None, np.array([n - 2, n - 299, (1 << 31) // PAGE + 1, 5]))]
+    want = page_scatter_rows_ref(arena.clone(), segs)
+    page_scatter_rows(arena, segs)
+    torch.cuda.synchronize()
+    assert torch.equal(arena, want)
+    del want
+    back = arena.clone()
+    cs = fused_restore_rows(arena, segs)
+    torch.cuda.synchronize()
+    assert torch.equal(arena, back)
+    assert torch.equal(cs, fused_restore_rows_ref(None, segs))
+
+
+@pytest.mark.parametrize("width", [16, 1024, 4112, 8208, 65536])
+def test_page_scatter_kernel_other_widths(cuda_device, width):
+    """Rows narrower and wider than 4 KiB (moved in 4 KiB pieces), through
+    both forms: host indices and device-resident ones."""
+    rng = np.random.default_rng(width)
+    src = torch.randint(0, 256, (300, width), dtype=torch.uint8, device=cuda_device)
+    dest = torch.randint(0, 256, (500, width), dtype=torch.uint8, device=cuda_device)
+    dst = rng.permutation(500)[:257]
+    rows = rng.integers(0, 300, 257)
+    want = page_scatter_ref(dest.clone(), src, torch.from_numpy(dst).to(cuda_device),
+                            torch.from_numpy(rows).to(cuda_device))
+    got = page_scatter(dest.clone(), src, dst, src_indices=rows)
+    got_dev = page_scatter(dest.clone(), src, torch.from_numpy(dst).to(cuda_device),
+                           src_indices=torch.from_numpy(rows).to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_dev, want)
+
+
+def test_row_list_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    dest = torch.zeros((8, PAGE), dtype=torch.uint8, device=cuda_device)
+    raw = torch.zeros(3 * PAGE + 16, dtype=torch.uint8, device=cuda_device)
+    misaligned = raw[8 : 8 + 3 * PAGE].view(3, PAGE)
+    for fn in (page_scatter_rows, fused_restore_rows):
+        with pytest.raises(ValueError):
+            fn(dest, [(misaligned, None, np.array([0, 1, 2]))])
+        with pytest.raises(IndexError):
+            fn(dest, [(dest[:2].clone(), None, np.array([0, 8]))])
+        with pytest.raises(ValueError):
+            fn(dest, [(torch.zeros((2, PAGE), dtype=torch.uint8), None, np.array([0, 1]))])
+    with pytest.raises(ValueError):
+        fused_restore_rows(None, [(dest, None, np.arange(8))], verify_only=True)
 
 
 # --------------------------------------------------------------------------
