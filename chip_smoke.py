@@ -13,8 +13,10 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              default instance) made on the card from ``--seed``: ~60% zero
              pages, ~5.5% hot pages in runs of mean ~5, the rest cold.
 4. kernels — each of the six kernels against its plain torch version on the
-             card, bit for bit (small, ragged, all-zero, none-zero, all-0xFF
-             cases; the full image for publish, zero_detect and
+             card, bit for bit (small, ragged, a partial fourth publish tile,
+             all-zero, none-zero, all-0xFF cases; the full image for publish
+             (its one-pass kernel's registers and spills read back by
+             ``cuobjdump -res-usage``), zero_detect and
              page_checksum; the image's hot and cold sets for page_gather;
              one-segment restores and a forced checksum mismatch; rows past
              2^31 bytes of a 3 GiB arena for page_gather and page_scatter).
@@ -208,6 +210,42 @@ def check_publish(torch, ops, ref, cases):
         log(f"  publish {name}: n={pages.shape[0]} hot={got.hot.shape[0]} "
             f"cold={got.cold.shape[0]} bit-equal")
     return err
+
+
+def publish_bound(n: int, nnz: int):
+    """The publish sweep's bound ``(ms, by, bytes)`` at ``n`` pages of which
+    ``nnz`` are non-zero: the pages read once, the non-zero pages written
+    once, 6 bytes a page of flags and checksums, the weights and the counts."""
+    nbytes = n * PAGE + n + PAGE + n + 4 * n + nnz * PAGE + 8
+    return (*bound_ms(nbytes, 3 * n * (PAGE // 4)), nbytes)
+
+
+def time_publish(torch, ops, ref, pm, ws, nnz: int) -> dict:
+    """The publish kernel's own time (memset and kernel, launched back to
+    back on preallocated outputs), the wrapper's (the working set's size read
+    before the launch, the counts after), the plain version's, and the bound
+    (``publish_bound``)."""
+    from repro_torch.kernels.page_checksum.ops import weights_on
+    from repro_torch.kernels.snapshot_fuse import kernel
+
+    n = pm.shape[0]
+    n_ws = int(ws.sum())
+    t = ops.PUBLISH_TILE_PAGES
+    zero = torch.empty(n, dtype=torch.bool, device=pm.device)
+    csum = torch.empty(n, dtype=torch.int32, device=pm.device)
+    out, counts = torch.empty_like(pm), torch.empty(2, dtype=torch.int32, device=pm.device)
+    scratch = torch.empty(1 + -(-n // t), dtype=torch.int64, device=pm.device)
+    w = weights_on(pm.device, PAGE // 4)
+
+    def launch():
+        kernel.publish(pm, ws, w, n_ws, t, zero, csum, out, counts, scratch)
+
+    ms = cuda_ms(launch, iters=20)
+    del out
+    bound, by, nbytes = publish_bound(n, nnz)
+    return {"ms": ms, "wrapper_ms": cuda_ms(lambda: ops.fused_publish(pm, ws), iters=10),
+            "plain_ms": cuda_ms(lambda: ref.fused_publish_ref(pm, ws), iters=3, warmup=1),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes, "tile_pages": t}
 
 
 def check_restore(torch, np, ops, ref, dest_rows: int, device):
@@ -969,18 +1007,39 @@ def flash_bound_ms(q, k, v, causal: bool):
     return t, by, ops, nbytes
 
 
-def sass_counts(lib_path: Path) -> dict:
-    """How many HGMMA (wgmma) and UTMALDG (TMA load) instructions the
-    library's SASS holds, where the toolkit has ``cuobjdump``."""
+def _cuobjdump():
     import shutil
 
     tool = Path("/usr/local/cuda/bin/cuobjdump")
-    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    return str(tool) if tool.exists() else shutil.which("cuobjdump")
+
+
+def sass_counts(lib_path: Path) -> dict:
+    """How many HGMMA (wgmma) and UTMALDG (TMA load) instructions the
+    library's SASS holds, where the toolkit has ``cuobjdump``."""
+    tool = _cuobjdump()
     if tool is None:
         return {"cuobjdump": None}
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=120).stdout
     return {"cuobjdump": tool, "HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
+
+
+def res_usage(lib_path: Path, function: str) -> dict:
+    """Registers, stack, local (spill) and shared bytes of the kernel whose
+    mangled name holds ``function``, as ``cuobjdump -res-usage`` reads them."""
+    import re
+
+    tool = _cuobjdump()
+    if tool is None:
+        return {"cuobjdump": None}
+    text = subprocess.run([tool, "-res-usage", str(lib_path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    at = text.find(function)
+    m = re.search(r"REG:\d+[^\n]*", text[at:]) if at >= 0 else None
+    if m is None:
+        raise AssertionError(f"cuobjdump -res-usage lists no kernel named {function}")
+    return {k: int(v) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", m.group(0))}
 
 
 def check_flash(torch, device, seed: int) -> dict:
@@ -1395,6 +1454,7 @@ def main() -> int:
     small = []
     for name, rows, zero_every, ws_all in (("N=0", 0, 3, False), ("ragged N=37", 37, 3, False),
                                            ("N=1000", 1000, 3, False),
+                                           ("N=3T+5", 3 * ops.PUBLISH_TILE_PAGES + 5, 3, False),
                                            ("all-zero", 64, 1, False),
                                            ("all-hot", 64, 0, True)):
         p = torch.from_numpy(rng.integers(0, 256, (rows, PAGE), dtype=np.uint8)).to(device)
@@ -1413,12 +1473,13 @@ def main() -> int:
 
     # timings at the main path's shapes
     nnz = int((~zero_np).sum())
-    pub_ms = cuda_ms(lambda: ops.fused_publish(pm, ws_full), iters=10)
-    pub_plain_ms = cuda_ms(lambda: ref.fused_publish_ref(pm, ws_full), iters=3, warmup=1)
-    pub_bytes = n * PAGE + n + PAGE + n + 4 * n + nnz * PAGE + 8
-    pub_bound, pub_by = bound_ms(pub_bytes, 3 * n * (PAGE // 4))
-    log(f"  fused_publish  {pub_ms:.4f} ms (plain {pub_plain_ms:.4f} ms, bound "
-        f"{pub_bound:.4f} ms by {pub_by}) at {n} pages")
+    pub = time_publish(torch, ops, ref, pm, ws_full, nnz)
+    pub["resources"] = res_usage(build.lib_path("fused_publish"), "publish_kernel")
+    report["publish"] = pub
+    log(f"  fused_publish  {pub['ms']:.4f} ms a launch ({pub['bound_ms'] / pub['ms']:.3f} of the "
+        f"bound {pub['bound_ms']:.4f} ms by {pub['bound_by']}); through the wrapper "
+        f"{pub['wrapper_ms']:.4f} ms; plain {pub['plain_ms']:.4f} ms; at {n} pages; "
+        f"publish_kernel {pub['resources']}")
     table = ops.fused_publish(pm, ws_full).checksums      # guest-indexed, as a snapshot's
     walks = {"hot": walk_segments(torch, np, pm, working_set, RestoreEngine.HOT_CHUNK_PAGES),
              "cold": walk_segments(torch, np, pm, cold_idx)}
@@ -1533,8 +1594,10 @@ def main() -> int:
          "replaces": PUBLISH_TPU, "launches": launches["fused_publish"],
          "launches_by_path": {"private": launches["fused_publish"],
                               "dedup": dedup_launches["fused_publish"]},
-         "bit_equal": True, "max_abs_err": pub_err, "ms": pub_ms, "plain_ms": pub_plain_ms,
-         "bound_ms": pub_bound, "bound_by": pub_by, "library_ms": None},
+         "bit_equal": True, "max_abs_err": pub_err, "ms": pub["ms"], "plain_ms": pub["plain_ms"],
+         "bound_ms": pub["bound_ms"], "bound_by": pub["bound_by"], "library_ms": None,
+         "wrapper_ms": pub["wrapper_ms"], "resources": pub["resources"],
+         "shape": f"{n} pages, {nnz} non-zero, one launch"},
         {"name": "fused_restore", "route": "cuda", "source": f"{CSRC}/fused_restore.cu",
          "replaces": RESTORE_TPU, "launches": launches["fused_restore"],
          "launches_by_path": {"private": launches["fused_restore"],

@@ -29,20 +29,6 @@ constexpr int kThreads = 128;
 constexpr int kUnroll = 2;                  // 16-byte words in flight a thread
 constexpr int kChunk = kThreads * kUnroll;  // words a block moves per step: 4 KiB
 
-__device__ __forceinline__ uint4 load_stream(const uint4* p) {
-  uint4 r;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-               : "l"(p));
-  return r;
-}
-
-__device__ __forceinline__ void store_stream(uint4* p, const uint4 v) {
-  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
-}
-
 __global__ void __launch_bounds__(kThreads)
 page_gather_kernel(const uint4* __restrict__ rows, const int64_t* __restrict__ idx,
                    int64_t row_u4, uint4* __restrict__ out) {
@@ -53,10 +39,10 @@ page_gather_kernel(const uint4* __restrict__ rows, const int64_t* __restrict__ i
     uint4 w[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (j + u * kThreads < row_u4) w[u] = load_stream(src + j + u * kThreads);
+      if (j + u * kThreads < row_u4) w[u] = aq::load_stream(src + j + u * kThreads);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (j + u * kThreads < row_u4) store_stream(dst + j + u * kThreads, w[u]);
+      if (j + u * kThreads < row_u4) aq::store_stream(dst + j + u * kThreads, w[u]);
   }
 }
 

@@ -30,6 +30,22 @@ __device__ __forceinline__ uint32_t warp_or(uint32_t x) {
   return x;
 }
 
+// A 16-byte load that skips L1 (each byte is read once) and a 16-byte
+// store marked streaming (evict first).
+__device__ __forceinline__ uint4 load_stream(const void* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ void store_stream(void* p, const uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
 }  // namespace aq
 
 extern "C" const char* aq_error_string(int code) {

@@ -82,22 +82,6 @@ __device__ __forceinline__ uint32_t record_sum(const RowArgs& a, int64_t i, uint
   return b;
 }
 
-// ------------------------------------------------------------ PTX helpers
-
-__device__ __forceinline__ uint4 load_stream(const void* p) {
-  uint4 r;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-               : "l"(p));
-  return r;
-}
-
-__device__ __forceinline__ void store_stream(void* p, const uint4 v) {
-  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
-}
-
 // ------------------------------------------------------------ kernel
 
 template <bool kSum>

@@ -1,7 +1,7 @@
 """ctypes bindings of the hand-written CUDA snapshot kernels (``csrc/*.cu``).
 
-``publish_classify`` + ``publish_compact`` are the fused publish sweep
-(replacing ``fused_publish_pallas``), ``restore_rows`` the fused
+``publish`` is the fused publish sweep, one launch (replacing
+``fused_publish_pallas``), ``restore_rows`` the fused
 gather→checksum→scatter over a row list (replacing ``fused_restore_pallas``).  These take
 CUDA tensors that ``ops.py`` has already checked and allocated, launch on
 PyTorch's current stream without synchronising, and raise when the launch
@@ -14,12 +14,13 @@ from typing import Optional
 import torch
 
 from .. import build
+from ..build import I32 as _I32
 from ..build import I64 as _I64
 from ..build import PTR as _P
 
 _SIGNATURES = {
-    ("fused_publish", "aq_publish_classify"): (_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P),
-    ("fused_publish", "aq_publish_compact"): (_P, _P, _P, _I64, _P, _P, _P),
+    ("fused_publish", "aq_fused_publish"): (_P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _P,
+                                            _P),
     ("fused_restore", "aq_fused_restore_rows"): (_P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P,
                                                  _P, _P),
 }
@@ -37,21 +38,16 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def publish_classify(pages: torch.Tensor, ws: torch.Tensor, weights: torch.Tensor,
-                     zero: torch.Tensor, csum: torch.Tensor, cls: torch.Tensor,
-                     pos: torch.Tensor, counts: torch.Tensor) -> None:
-    """Steps (A)+(B): per-page zero flag, checksum and class, then the
-    destination row of each page and ``counts = [n_hot, n_cold]``."""
-    _call("fused_publish", "aq_publish_classify", _ptr(pages), _ptr(ws), _ptr(weights),
-          pages.shape[0], _ptr(zero), _ptr(csum), _ptr(cls), _ptr(pos), _ptr(counts),
-          _stream(pages))
-
-
-def publish_compact(pages: torch.Tensor, cls: torch.Tensor, pos: torch.Tensor,
-                    hot: torch.Tensor, cold: torch.Tensor) -> None:
-    """Step (C): copy each non-zero page to its row of ``hot`` or ``cold``."""
-    _call("fused_publish", "aq_publish_compact", _ptr(pages), _ptr(cls), _ptr(pos),
-          pages.shape[0], _ptr(hot), _ptr(cold), _stream(pages))
+def publish(pages: torch.Tensor, ws: torch.Tensor, weights: torch.Tensor, cold_base: int,
+            tile_pages: int, zero: torch.Tensor, csum: torch.Tensor, out: torch.Tensor,
+            counts: torch.Tensor, scratch: torch.Tensor) -> None:
+    """The whole sweep in one pass: per-page zero flag and checksum, each
+    non-zero page stored once at its row of ``out`` (hot rows from 0, cold
+    rows from ``cold_base``) and ``counts = [n_hot, n_cold]``.  ``scratch``
+    holds ``1 + ceil(n / tile_pages)`` 64-bit words, zeroed by the call."""
+    _call("fused_publish", "aq_fused_publish", _ptr(pages), _ptr(ws), _ptr(weights),
+          pages.shape[0], cold_base, tile_pages, _ptr(zero), _ptr(csum), _ptr(out),
+          _ptr(counts), _ptr(scratch), _stream(pages))
 
 
 def restore_rows(dest: Optional[torch.Tensor], src_base: int, src_stride: int,

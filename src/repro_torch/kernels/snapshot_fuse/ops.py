@@ -1,8 +1,8 @@
 """Dispatch wrappers for the fused snapshot data plane.
 
-``fused_publish``   — one sweep: zero bitmap + poly32 checksum + hot/cold
-                      compaction.  Plugs into ``build_snapshot`` via the
-                      ``publish_fn`` seam (``make_fused_publish_fn``).
+``fused_publish``   — one sweep, one launch: zero bitmap + poly32 checksum
+                      + hot/cold compaction.  Plugs into ``build_snapshot``
+                      via the ``publish_fn`` seam (``make_fused_publish_fn``).
 ``fused_restore_rows`` — one kernel over a row list (``rows.py``): gather
                       rows from any number of source tensors → checksum →
                       verify against a guest-indexed table → scatter into
@@ -36,6 +36,8 @@ from . import kernel
 from .ref import fused_publish_ref, fused_restore_rows_ref
 
 PAGE_BYTES = 4096  # the kernels' row width: one 4 KiB guest page
+PUBLISH_TILE_PAGES = 64  # pages a tile of the publish kernel (csrc/fused_publish.cu kTilePages)
+PUBLISH_MAX_PAGES = 2**31 - 1  # the kernel's tile status words count pages in 31 bits
 
 
 class ChecksumMismatchError(RuntimeError):
@@ -83,34 +85,48 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
     rows.check_rows(name, t)
 
 
+def publish_rows(buf: torch.Tensor, n_ws: int, n_hot: int, n_cold: int):
+    """``(hot, cold)`` as views of the publish kernel's one output ``buf``:
+    hot rows start at row 0, cold rows at row ``n_ws`` (the working set's
+    size, which bounds ``n_hot``)."""
+    return buf[:n_hot], buf[n_ws:n_ws + n_cold]
+
+
 def fused_publish(pages: torch.Tensor, ws_mask: torch.Tensor) -> FusedPublishResult:
-    """pages: (N, page_bytes) uint8; ws_mask: bool[N] working set (same device)."""
+    """pages: (N, page_bytes) uint8; ws_mask: bool[N] working set (same device).
+
+    On the card: one launch of the one-pass kernel.  The working set's size
+    is read before it, the two counts after it; ``hot`` and ``cold`` are
+    views of one ``(N, page_bytes)`` buffer, ``zero_bitmap`` and
+    ``checksums`` allocations of their own (a snapshot keeps the checksums
+    for its life, and must not pin the page buffer with them)."""
     if pages.device.type == "cpu":
         return FusedPublishResult(*fused_publish_ref(pages, ws_mask))
-    _check_rows("fused_publish pages", pages)
     n = pages.shape[0]
+    if n > PUBLISH_MAX_PAGES:
+        raise ValueError(f"fused_publish: {n} pages, the kernel takes at most "
+                         f"{PUBLISH_MAX_PAGES}")
+    _check_rows("fused_publish pages", pages)
     dev = pages.device
     ws = ws_mask.to(device=dev, dtype=torch.bool).contiguous()
     if ws.shape != (n,):
         raise ValueError(f"fused_publish: ws_mask shape {tuple(ws.shape)} != ({n},)")
-    if n == 0:
-        empty = torch.empty((0, PAGE_BYTES), dtype=torch.uint8, device=dev)
-        return FusedPublishResult(torch.empty(0, dtype=torch.bool, device=dev),
-                                  torch.empty(0, dtype=torch.int32, device=dev),
-                                  empty, empty.clone())
     zero = torch.empty(n, dtype=torch.bool, device=dev)
     csum = torch.empty(n, dtype=torch.int32, device=dev)
-    cls = torch.empty(n, dtype=torch.uint8, device=dev)
-    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        empty = torch.empty((0, PAGE_BYTES), dtype=torch.uint8, device=dev)
+        return FusedPublishResult(zero, csum, empty, empty.clone())
+    n_ws = int(ws.sum())                    # sizes the cold rows' base, before the launch
+    buf = torch.empty((n, PAGE_BYTES), dtype=torch.uint8, device=dev)
     counts = torch.empty(2, dtype=torch.int32, device=dev)
+    tiles = -(-n // PUBLISH_TILE_PAGES)
+    scratch = torch.empty(1 + tiles, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        kernel.publish_classify(pages, ws, _weights(dev), zero, csum, cls, pos, counts)
-        fused_publish.launches += 1
-        n_hot, n_cold = counts.tolist()     # the one read-back: sizes the outputs
-        hot = torch.empty((n_hot, PAGE_BYTES), dtype=torch.uint8, device=dev)
-        cold = torch.empty((n_cold, PAGE_BYTES), dtype=torch.uint8, device=dev)
-        kernel.publish_compact(pages, cls, pos, hot, cold)
-    return FusedPublishResult(zero, csum, hot, cold)
+        kernel.publish(pages, ws, _weights(dev), n_ws, PUBLISH_TILE_PAGES, zero, csum, buf,
+                       counts, scratch)
+    fused_publish.launches += 1
+    n_hot, n_cold = counts.tolist()         # after the launch: the views' lengths
+    return FusedPublishResult(zero, csum, *publish_rows(buf, n_ws, n_hot, n_cold))
 
 
 fused_publish.launches = 0

@@ -24,9 +24,12 @@ from repro_torch.kernels import (
     page_scatter_rows,
     zero_detect,
 )
+from repro_torch.kernels.page_checksum.ops import weights_on
 from repro_torch.kernels.page_checksum.ref import page_checksum_ref
 from repro_torch.kernels.page_gather.ref import page_gather_ref
 from repro_torch.kernels.page_scatter.ref import page_scatter_ref, page_scatter_rows_ref
+from repro_torch.kernels.snapshot_fuse import kernel as snapshot_kernel
+from repro_torch.kernels.snapshot_fuse.ops import PUBLISH_TILE_PAGES, publish_rows
 from repro_torch.kernels.snapshot_fuse.ref import (
     fused_publish_ref,
     fused_restore_ref,
@@ -35,6 +38,7 @@ from repro_torch.kernels.snapshot_fuse.ref import (
 from repro_torch.kernels.zero_detect.ref import zero_detect_ref
 
 PAGE = 4096
+T = PUBLISH_TILE_PAGES
 pytestmark = pytest.mark.gpu
 
 
@@ -55,18 +59,79 @@ def _pages(n, seed, zero_every):
     return pages, rng.random(n) < 0.4
 
 
-@pytest.mark.parametrize("n,zero_every", [(0, 3), (37, 3), (1000, 3), (64, 1), (64, 0)])
-def test_publish_kernel_matches_plain(cuda_device, n, zero_every):
-    pages, ws = _pages(n, n + 1, zero_every)
-    p = torch.from_numpy(pages).to(cuda_device)
-    w = torch.from_numpy(ws).to(cuda_device)
+def _publish_inputs(n, seed, zero_every, ws_kind, device):
+    """Pages (every ``zero_every``-th one zero, every 7th from 1 all 0xFF when
+    it is 3) and a working set (``rand``: 40%, ``all``, ``none``), made on
+    the card from ``seed``: the largest cases are gigabytes."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    pages = torch.randint(0, 256, (n, PAGE), dtype=torch.uint8, generator=g, device=device)
+    if zero_every:
+        pages[::zero_every] = 0
+    if zero_every == 3:
+        pages[1::7] = 0xFF                    # all-ones lanes: the wrap case
+    ws = {"rand": lambda: torch.rand(n, generator=g, device=device) < 0.4,
+          "all": lambda: torch.ones(n, dtype=torch.bool, device=device),
+          "none": lambda: torch.zeros(n, dtype=torch.bool, device=device)}[ws_kind]()
+    return pages, ws
+
+
+def _assert_publish_matches_plain(got, pages, ws):
+    for a, b in zip((got.zero_bitmap, got.checksums, got.hot, got.cold),
+                    fused_publish_ref(pages, ws)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,zero_every,ws_kind", [
+    (0, 3, "rand"), (1, 0, "rand"), (37, 3, "rand"), (1000, 3, "rand"),
+    (T - 1, 3, "rand"), (T, 3, "rand"), (T + 1, 3, "rand"), (3 * T + 5, 3, "rand"),
+    (64, 1, "rand"),                          # all zero
+    (64, 0, "rand"), (3 * T + 5, 3, "all"), (64, 0, "all"), (64, 0, "none"),
+    (393_216, 3, "rand"),                     # the 1.5 GiB image's page count
+    (600_000, 3, "rand"),                     # rows past 2^31 bytes, in and out
+])
+def test_publish_kernel_matches_plain(cuda_device, n, zero_every, ws_kind):
+    p, w = _publish_inputs(n, n + 1, zero_every, ws_kind, cuda_device)
     before = fused_publish.launches
     got = fused_publish(p, w)
     torch.cuda.synchronize()
-    for a, b in zip((got.zero_bitmap, got.checksums, got.hot, got.cold),
-                    fused_publish_ref(p, w)):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    _assert_publish_matches_plain(got, p, w)
     assert fused_publish.launches == before + (1 if n else 0)
+    if n:   # the kept columns never pin the page buffer
+        rows = got.hot.untyped_storage().data_ptr()
+        assert got.cold.untyped_storage().data_ptr() == rows
+        for col in (got.checksums, got.zero_bitmap):
+            assert col.untyped_storage().data_ptr() != rows
+
+
+def test_publish_kernel_back_to_back_launches(cuda_device):
+    """50 launches queued on one stream with no sync between them, sharing
+    one status scratch and alternating two images of other sizes and
+    contents, each into outputs of its own: no tile status or tile count
+    carries over from the launch before."""
+    images = [_publish_inputs(5 * T * 100 + 3, 7, 3, "rand", cuda_device),
+              _publish_inputs(4 * T * 100 + 1, 8, 2, "all", cuda_device)]
+    wants = [fused_publish_ref(*im) for im in images]
+    weights = weights_on(cuda_device, PAGE // 4)
+    scratch = torch.empty(1 + -(-images[0][0].shape[0] // T), dtype=torch.int64,
+                          device=cuda_device)
+    outs = []
+    for i in range(50):
+        pages, ws = images[i % 2]
+        n, n_ws = pages.shape[0], int(ws.sum())
+        out = (torch.empty(n, dtype=torch.bool, device=cuda_device),
+               torch.empty(n, dtype=torch.int32, device=cuda_device),
+               torch.empty_like(pages), torch.empty(2, dtype=torch.int32, device=cuda_device))
+        outs.append((n_ws, out))
+    for i, (n_ws, (zero, csum, buf, counts)) in enumerate(outs):
+        pages, ws = images[i % 2]
+        snapshot_kernel.publish(pages, ws, weights, n_ws, T, zero, csum, buf, counts, scratch)
+    torch.cuda.synchronize()
+    for i, (n_ws, (zero, csum, buf, counts)) in enumerate(outs):
+        n_hot, n_cold = counts.tolist()
+        got = (zero, csum, *publish_rows(buf, n_ws, n_hot, n_cold))
+        for a, b in zip(got, wants[i % 2]):
+            assert a.dtype == b.dtype and torch.equal(a, b), f"launch {i}"
 
 
 @pytest.mark.parametrize("m", [1, 37, 256])

@@ -17,9 +17,15 @@ from repro_torch.kernels import (
     fused_restore,
 )
 from repro_torch.kernels.page_checksum.ref import page_checksum_ref, poly_weights
+from repro_torch.kernels.snapshot_fuse.ops import (
+    PUBLISH_MAX_PAGES,
+    PUBLISH_TILE_PAGES,
+    publish_rows,
+)
 
 PAGE = 4096
 INTERP = {"use_pallas": True, "interpret": True}
+T = PUBLISH_TILE_PAGES
 
 
 def _pages(n, seed=0, zero_every=3):
@@ -48,7 +54,9 @@ def _assert_publish_equal(pages, ws):
 
 
 class TestPublishParity:
-    @pytest.mark.parametrize("n", [0, 1, 7, 8, 37, 64])
+    # with the CUDA kernel's tile edges: a partial tile, one, one and a page,
+    # and a partial fourth tile
+    @pytest.mark.parametrize("n", sorted({0, 1, 7, 8, 37, 64, T - 1, T, T + 1, 3 * T + 5}))
     def test_matches_pallas_interpret(self, n):
         pages, ws = _pages(n, seed=n)
         _assert_publish_equal(pages, ws)
@@ -67,6 +75,27 @@ class TestPublishParity:
         pages = np.full((9, PAGE), 0xFF, np.uint8)
         pages[4] = 0
         _assert_publish_equal(pages, np.arange(9) % 2 == 0)
+
+
+class TestPublishRows:
+    """The CUDA wrapper's split of its one output buffer into hot and cold."""
+
+    @pytest.mark.parametrize("n_ws,n_hot,n_cold", [(0, 0, 9), (12, 12, 0), (5, 3, 4)])
+    def test_views_of_one_buffer(self, n_ws, n_hot, n_cold):
+        buf = torch.arange(12, dtype=torch.uint8).repeat_interleave(16).reshape(12, 16)
+        hot, cold = publish_rows(buf, n_ws, n_hot, n_cold)
+        assert hot.shape == (n_hot, 16) and cold.shape == (n_cold, 16)
+        assert hot[:, 0].tolist() == list(range(n_hot))
+        assert cold[:, 0].tolist() == list(range(n_ws, n_ws + n_cold))
+        for t in (hot, cold):
+            assert t.is_contiguous() and t.untyped_storage().data_ptr() == buf.data_ptr()
+
+    def test_wrapper_refuses_past_its_page_cap(self):
+        """Checked before anything is read or allocated: meta tensors."""
+        pages = torch.empty((PUBLISH_MAX_PAGES + 1, PAGE), dtype=torch.uint8, device="meta")
+        ws = torch.empty(PUBLISH_MAX_PAGES + 1, dtype=torch.bool, device="meta")
+        with pytest.raises(ValueError, match="at most"):
+            fused_publish(pages, ws)
 
 
 class TestRestoreParity:
