@@ -58,7 +58,28 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              more variant is published and restored on both routes under
              ``torch.profiler``.
 
-8. model   — flash attention against its plain versions on the card, each
+8. pod     — the pod's control plane at the same 1.5 GiB image:
+             ``PoolMaster(publish_fn=fused).publish``; host a, a
+             ``NodePageServer`` behind an ``Orchestrator``, attaches 8
+             restores of the snapshot (one fan-out group) and each session's
+             own thread pre-installs the hot set, installs the zero runs,
+             starts the prefetcher and touches 1,024 cold pages in seeded
+             order through ``access``; host b restores once through
+             ``Orchestrator(prefetch_cold=True).restore`` beside them.  Once
+             the nine borrows are out, an update (4,096 pages rewritten,
+             driven through ``PoolMaster.publish_steps`` with a 1 ms poll)
+             starts and must stay draining until the last
+             ``RestoredInstance.shutdown``; version 1 is then restored on
+             host b.  Every image bit-identical and every page verified, one
+             CXL read per hot chunk for the group (7 fan-out hits each), two
+             publish launches, every fused_restore launch accounted; delete and gc
+             return the pool to its start, the servers park and no thread
+             is left.  Prints time to hot and to full per instance, the
+             fault-service latency of absent pages, the phase wall, the
+             device idle share over a 3 s window under ``torch.profiler``
+             once the nine borrows are out, and the peak memory.
+
+9. model   — flash attention against its plain versions on the card, each
              case on the route ``ops.route`` gives it and asserted so: bf16
              with Dk == Dv in {64, 128} on the tensor-core kernel
              (``flash_attention_sm90.cu``), float32 and Dk != Dv on the SIMT
@@ -113,6 +134,10 @@ ROW_KERNELS = {   # name -> the TPU kernel it replaces
 }
 ARENA_BYTES = 3 << 30          # the dedup pool's RDMA arena: rows pass 2^31 bytes
 N_VARIANTS = 4
+POD_SESSIONS = 8     # co-located restores on host a: concurrency_bench.py's level 8
+POD_TOUCHES = 1024   # guest touches an instance makes, cold pages in seeded order
+POD_DELTA = 4096     # non-zero pages the update rewrites
+POD_PROFILE_S = 3.0  # the profiled window of the group restore, once all borrows are out
 BF16_FLOPS_PER_S = 989e12                      # H100 SXM data sheet, dense tensor cores
 F32_FLOPS_PER_S = 67e12                        # float32 outside the tensor cores
 MODEL_ARCH = "phi4-mini-3.8b"
@@ -702,16 +727,16 @@ class PerExtentScatter:
         return self.inner(*args, **kwargs)
 
 
-def check_routes(where: str, routes: dict, per_extent: str = "") -> None:
-    """Every walk with rows took the batched route (``per_extent`` given:
-    every walk stayed per extent for that reason)."""
+def check_routes(where: str, routes: dict, per_extent: str = "", walks: int = 2) -> None:
+    """Every one of the ``walks`` walks with rows took the batched route
+    (``per_extent`` given: every walk stayed per extent for that reason)."""
     total = routes["batched"] + sum(routes["per_extent"].values())
     want = ({"batched": total, "per_extent": dict.fromkeys(routes["per_extent"], 0)}
             if not per_extent else
             {"batched": 0, "per_extent": {k: (total if k == per_extent else 0)
                                           for k in routes["per_extent"]}})
-    if routes != want or total != 2:
-        raise AssertionError(f"{where}: walk routes {routes}, want {want} over 2 walks")
+    if routes != want or total != walks:
+        raise AssertionError(f"{where}: walk routes {routes}, want {want} over {walks} walks")
 
 
 def restore_once(torch, pool, regions, src_buf, manifest, scatter) -> dict:
@@ -978,6 +1003,340 @@ def profile_dedup(torch, core, pool, base_buf, hot_t, cold_t, d, seed, working_s
         for r in row["top"][:4]:
             log(f"    {r['device_ms']:.3f} ms x{r['count']} {r['name'][:70]}")
     return out
+
+
+def _guest(engine, trace, lat: list) -> None:
+    """The guest thread: touch ``trace`` through ``engine.access``; the
+    service time of every page absent at its touch goes to ``lat``."""
+    present = engine.instance.present
+    for p in trace.tolist():
+        if present[p]:
+            engine.access(p)
+            continue
+        t0 = time.perf_counter()
+        engine.access(p, timeout_s=120.0)
+        lat.append(time.perf_counter() - t0)
+
+
+def _pod_restores(np, ops, orch_a, orch_b, name: str, seed: int, on_borrowed=None):
+    """Restore ``name`` ``POD_SESSIONS`` times on host a through its node
+    server: every session attaches first (one fan-out group), then each
+    session's own thread pre-installs the hot set, installs the zero runs,
+    starts the prefetcher, runs its guest trace and waits for the last cold
+    page.  With ``orch_b``, one more restore through host b's plain entry
+    point runs beside them in a thread of its own, and ``on_borrowed`` runs
+    once all the borrows are out.  Every restore gets its own FusedScatter,
+    so its verified pages are its own.  Returns ``(restored, records)``."""
+    import threading
+
+    ris, recs, errs = [], [], []
+    for _ in range(POD_SESSIONS):
+        orch_a.scatter_fn = ops.FusedScatter()
+        t0 = time.perf_counter()
+        ri = orch_a.restore(name, pre_install=False, prefetch_cold=False)
+        if ri is None:
+            raise AssertionError(f"host a: the borrow of {name} failed")
+        ris.append(ri)
+        recs.append({"host": "a", "attach_s": time.perf_counter() - t0, "fault_s": [],
+                     "scatter": ri.instance.scatter_fn.stats})
+
+    def trace(ri, k):
+        cold = ri.engine.reader.cold_page_indices()
+        return np.random.default_rng(seed + k).permutation(cold)[:POD_TOUCHES]
+
+    def finish(ri, rec, k, t0):
+        ri.engine.install_zero_runs()
+        if rec["host"] == "a":                # host b's restore() started its prefetcher
+            ri.engine.start_prefetcher()
+        _guest(ri.engine, trace(ri, k), rec["fault_s"])
+        if not ri.engine.wait_prefetch_idle(300.0):
+            raise AssertionError(f"{rec['host']}: cold pages still absent after 300 s")
+        if not ri.instance.all_present():
+            raise AssertionError(f"{rec['host']}: pages absent after the restore")
+        rec["to_full_s"] = rec.get("attach_s", 0.0) + time.perf_counter() - t0
+
+    def run_a(k):
+        ri, rec = ris[k], recs[k]
+        try:
+            t0 = time.perf_counter()
+            ri.engine.pre_install_hot()
+            rec["to_hot_s"] = rec["attach_s"] + time.perf_counter() - t0
+            finish(ri, rec, k, t0)
+        except BaseException as e:           # re-raised by the main thread
+            errs.append(e)
+
+    b_in = threading.Event()
+
+    def run_b():
+        try:
+            orch_b.scatter_fn = ops.FusedScatter()
+            t0 = time.perf_counter()
+            ri = orch_b.restore(name)         # borrow, flush, pre-install, prefetch
+            if ri is None:
+                raise AssertionError(f"host b: the borrow of {name} failed")
+            rec = {"host": "b", "to_hot_s": time.perf_counter() - t0, "fault_s": [],
+                   "scatter": ri.instance.scatter_fn.stats}
+            ris.append(ri)
+            recs.append(rec)
+            b_in.set()
+            finish(ri, rec, POD_SESSIONS, t0)
+        except BaseException as e:
+            errs.append(e)
+        finally:
+            b_in.set()
+
+    # daemon threads: a failed run exits at once, never waiting on a restore
+    threads = [threading.Thread(target=run_a, args=(k,), daemon=True)
+               for k in range(POD_SESSIONS)]
+    if orch_b is not None:
+        threads.append(threading.Thread(target=run_b, daemon=True))
+    for t in threads:
+        t.start()
+    if orch_b is not None:
+        b_in.wait(timeout=300.0)
+        if on_borrowed is not None and not errs:
+            on_borrowed()
+    for t in threads:
+        t.join(timeout=600.0)
+    if errs:
+        raise errs[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a restore thread did not finish within 600 s")
+    return ris, recs
+
+
+def _pct(np, xs, q):
+    return float(np.percentile(xs, q)) * 1e3 if len(xs) else None
+
+
+def pod_phase(torch, np, image, working_set, cold_idx, seed: int, out_dir: Path) -> dict:
+    """The pod's control plane at the paper's instance size (see the module
+    docstring): PoolMaster.publish, 8 + 1 co-located demand-paged restores
+    through Orchestrator with a profiled window once their borrows are out,
+    an update that drains under them, the update restored as version 1,
+    delete and gc."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as kmod
+    from repro_torch.core import (STATE_TOMBSTONE, HierarchicalPool, NodePageServer,
+                                  Orchestrator, PoolMaster, RestoreEngine, StateImage)
+    from repro_torch.kernels.snapshot_fuse import ops
+
+    device = image.buf.device
+    name = "inst"
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 17)
+    nonzero = torch.from_numpy(np.concatenate([working_set, cold_idx])).to(device)
+    delta = nonzero[torch.randperm(nonzero.numel(), generator=g, device=device)[:POD_DELTA]]
+    image2 = StateImage(image.manifest, image.buf.clone())
+    image2.pages_matrix()[delta] = torch.randint(1, 256, (delta.numel(), PAGE),
+                                                 dtype=torch.uint8, generator=g, device=device)
+    counted = {"fused_publish": ops.fused_publish, "fused_restore": ops.fused_restore,
+               **{n: getattr(kmod, n) for n in ROW_KERNELS}}
+    threads_before = set(threading.enumerate())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counted.values():
+        k.launches = 0
+    t_phase = time.perf_counter()
+
+    pool = HierarchicalPool(device=device)
+    free0 = (pool.cxl.free_list(), pool.rdma.free_list())
+    master = PoolMaster(pool, publish_fn=ops.make_fused_publish_fn())
+    t0 = time.perf_counter()
+    v0 = master.publish(name, image, working_set)
+    torch.cuda.synchronize()
+    rep = {"publish_s": time.perf_counter() - t0, "n_hot": v0.n_hot, "n_cold": v0.n_cold,
+           "n_zero": v0.n_zero, "sessions": POD_SESSIONS, "touches": POD_TOUCHES,
+           "delta_pages": POD_DELTA}
+    server_a = NodePageServer("a", pool)
+    orch_a = Orchestrator("a", pool, master.catalog, node_server=server_a)
+    orch_b = Orchestrator("b", pool, master.catalog, prefetch_cold=True)
+    entry = master.catalog.find(name)
+    in_use0 = (pool.cxl.bytes_in_use, pool.rdma.bytes_in_use)
+    upd = {}
+
+    def update():
+        """The owner's update through ``publish_steps``, polling the entry's
+        refcount once a millisecond while it drains.  A pod's master runs on
+        a host of its own; in this one process, ``publish``'s 10 µs poll
+        would take the interpreter lock from the restores thousands of times
+        a second."""
+        try:
+            for label, value in master.publish_steps(name, image2, working_set):
+                upd["label"] = label
+                if label == "draining":
+                    upd["polls"] = upd.get("polls", 0) + 1
+                    time.sleep(1e-3)
+                elif label == "done":
+                    upd["regions"] = value
+        except BaseException as e:           # re-raised by the main thread
+            upd["error"] = e
+
+    updater = threading.Thread(target=update, daemon=True)
+
+    def on_borrowed():
+        """All nine borrows are out: start the update, and profile a window
+        of the restores (the profiler traces every thread's launches)."""
+        updater.start()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            time.sleep(POD_PROFILE_S)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rep["profile_window"] = _device_summary(torch, prof, wall)
+        (out_dir / "profile_pod_window.txt").write_text(
+            prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+
+    # 1. the measured run: 8 sessions on host a, one on host b, the update
+    # started once all nine borrows are out
+    t0 = time.perf_counter()
+    ris, recs = _pod_restores(np, ops, orch_a, orch_b, name, seed, on_borrowed=on_borrowed)
+    torch.cuda.synchronize()
+    rep["restores_wall_s"] = time.perf_counter() - t0
+    chunks_a, server_stats_a = dict(server_a.chunks.stats), dict(server_a.stats)
+    srv_b = orch_b._owned_server
+    for ri in ris:
+        if not torch.equal(ri.instance.image.buf, image.buf):
+            raise AssertionError(f"pod: a restore on host {ri.engine.reader.view.host} "
+                                 "differs from the published image")
+        verified = ri.instance.scatter_fn.stats["pages_verified"]
+        if verified != v0.n_hot + v0.n_cold:
+            raise AssertionError(f"pod: {verified} pages verified, want {v0.n_hot + v0.n_cold}")
+        check_routes("pod restore", ri.engine.walk_routes, walks=1)
+    n_chunks = -(-v0.n_hot // RestoreEngine.HOT_CHUNK_PAGES)
+    if (chunks_a["reads"], chunks_a["fanout_hits"]) != (n_chunks, (POD_SESSIONS - 1) * n_chunks):
+        raise AssertionError(f"pod: group a chunk stats {chunks_a}, want {n_chunks} reads and "
+                             f"{(POD_SESSIONS - 1) * n_chunks} fan-out hits")
+    if server_stats_a["fanout_installs"] <= 0:
+        raise AssertionError(f"pod: no fan-out install on host a: {server_stats_a}")
+
+    # 2. the update drains until the last borrow goes
+    def draining() -> bool:
+        return (updater.is_alive() and upd.get("label") == "draining"
+                and entry.state.load() == STATE_TOMBSTONE and entry.regions is v0
+                and (pool.cxl.bytes_in_use, pool.rdma.bytes_in_use) == in_use0)
+
+    ledger_a, ledger_b = dict(ris[0].ledger.seconds), dict(ris[-1].ledger.seconds)
+    drained_checks = 0
+    for ri in ris:
+        if not draining():
+            raise AssertionError(f"pod: the update is not draining with {ri.borrow.entry.refcount.load()}"
+                                 f" borrows out ({upd})")
+        drained_checks += 1
+        ri.shutdown()
+    updater.join(timeout=120.0)
+    if updater.is_alive() or "regions" not in upd:
+        raise AssertionError(f"pod: the update did not finish after the last release: {upd}")
+    v1 = upd["regions"]
+    if v1.version != 1:
+        raise AssertionError(f"pod: the update published version {v1.version}, want 1")
+    del ris
+    # host b restores the new version: borrow, clflushopt, walks
+    orch_b.scatter_fn = ops.FusedScatter()
+    ri = orch_b.restore(name, prefetch_cold=False)
+    ri.engine.install_all_sync()
+    torch.cuda.synchronize()
+    if ri.borrow.version != 1 or not torch.equal(ri.instance.image.buf, image2.buf):
+        raise AssertionError("pod: the restore of version 1 differs from the updated image")
+    if ri.instance.scatter_fn.stats["pages_verified"] != v1.n_hot + v1.n_cold:
+        raise AssertionError("pod: not every page of version 1 was verified")
+    check_routes("pod version-1 restore", ri.engine.walk_routes)
+    b2 = {"scatter": ri.instance.scatter_fn.stats, "walks": ri.engine.walk_routes["batched"],
+          "cold_extents": sum(1 for _ in ri.engine.reader.iter_cold_extents(
+              max_extent_pages=1 << 30, largest_first=False))}
+    ri.shutdown()
+    del ri
+    launches = {n: k.launches for n, k in counted.items()}
+    if launches["fused_publish"] != 2:
+        raise AssertionError(f"pod: fused_publish launched {launches['fused_publish']} times, "
+                             "want 2 (the publish and the update)")
+    # every fused_restore launch accounted: a direct install a batch not
+    # queued, and a verify-only launch and an install a batched walk
+    queued = len(recs) * n_chunks + (-(-v1.n_hot // RestoreEngine.HOT_CHUNK_PAGES)
+                                     + b2["cold_extents"])
+    batches = sum(r["scatter"]["batches"] for r in recs) + b2["scatter"]["batches"]
+    walks = len(recs) + b2["walks"]
+    want_restore = batches - queued + 2 * walks
+    if launches["fused_restore"] != want_restore:
+        raise AssertionError(f"pod: fused_restore launched {launches['fused_restore']} times, "
+                             f"want {want_restore}")
+    others = {n: c for n, c in launches.items() if n in ROW_KERNELS and c}
+    if others:
+        raise AssertionError(f"pod: launches of kernels off the pod's path: {others}")
+    rep["launches"] = launches
+    rep["launch_parts"] = {"direct_installs": batches - queued, "batched_walks": walks}
+    rep["wall_to_update_s"] = time.perf_counter() - t_phase
+
+    # 3. delete and gc: every byte back, servers parked, no thread left
+    if not master.delete(name) or master.gc() != 0:
+        raise AssertionError("pod: delete did not reclaim the snapshot at once")
+    if (pool.cxl.free_list(), pool.rdma.free_list()) != free0 or pool.cxl.bytes_in_use \
+            or pool.rdma.bytes_in_use:
+        raise AssertionError(f"pod: pool not back to its start: cxl {pool.cxl.free_list()} "
+                             f"rdma {pool.rdma.free_list()}")
+    for srv in (server_a, srv_b):
+        if srv._pump_thread is not None or srv._completion_thread is not None \
+                or srv.engine._worker.is_alive() or srv.buffers.outstanding:
+            raise AssertionError(f"pod: node server {srv.host} not parked "
+                                 f"(outstanding buffers {srv.buffers.outstanding})")
+    orch_a.close()
+    orch_b.close()
+    left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+    if left:
+        raise AssertionError(f"pod: threads left after the phase: {left}")
+    torch.cuda.synchronize()
+    rep["phase_wall_s"] = time.perf_counter() - t_phase
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+
+    faults = [x for r in recs for x in r["fault_s"]]
+    rep["instances"] = [{k: v for k, v in r.items() if k not in ("fault_s", "scatter")}
+                        | {"faults": len(r["fault_s"])} for r in recs]
+    rep["fault_ms"] = {"n": len(faults), "p50": _pct(np, faults, 50), "p99": _pct(np, faults, 99),
+                       "max": max(faults) * 1e3 if faults else None}
+    rep["chunks_a"], rep["server_a"] = chunks_a, server_stats_a
+    rep["server_b"] = dict(srv_b.stats)
+    rep["longest_install_ms"] = {"a": server_a.longest_install_s * 1e3,
+                                 "b": srv_b.longest_install_s * 1e3}
+    rep["install_share"] = {"a": server_a.install_s / rep["restores_wall_s"],
+                            "b": srv_b.install_s / rep["restores_wall_s"]}
+    rep["engines"] = {"a": dict(server_a.engine.stats), "b": dict(srv_b.engine.stats)}
+    rep["drain_checks"], rep["drain_polls"] = drained_checks, upd["polls"]
+    rep["modeled_ledger_s"] = {"a0": ledger_a, "b": ledger_b}
+    rep["modeled_total_s"] = {"a0": sum(ledger_a.values()), "b": sum(ledger_b.values())}
+    return rep
+
+
+def log_pod(rep: dict, card: str) -> None:
+    ms = {k: v * 1e3 for k, v in rep.items() if k.endswith("_s") and isinstance(v, float)}
+    log(f"  [{card}] publish {ms['publish_s']:.2f} ms; n_hot={rep['n_hot']} "
+        f"n_cold={rep['n_cold']} n_zero={rep['n_zero']}; {rep['sessions']} + 1 restores "
+        f"{ms['restores_wall_s']:.1f} ms wall; phase {ms['phase_wall_s']:.1f} ms wall")
+    for i, r in enumerate(rep["instances"]):
+        log(f"  [{card}] instance {i} host {r['host']}: time to hot "
+            f"{r['to_hot_s'] * 1e3:.2f} ms, to full {r['to_full_s'] * 1e3:.2f} ms, "
+            f"{r['faults']} pages absent at the touch")
+    f = rep["fault_ms"]
+    log(f"  [{card}] fault service of access() on absent pages: n={f['n']} "
+        f"p50 {f['p50']} ms p99 {f['p99']} ms max {f['max']} ms; longest install by a "
+        f"completion worker {rep['longest_install_ms']} ms; its installs' share of the "
+        f"restores' wall {rep['install_share']}")
+    p = rep["profile_window"]
+    log(f"  [{card}] profiled {p['wall_ms']:.1f} ms window of the 8 + 1 restores: device "
+        f"busy {p['device_busy_ms']:.3f} ms, idle share {p['device_idle_share']:.4f}")
+    for r in p["top"][:4]:
+        log(f"    {r['device_ms']:.3f} ms x{r['count']} {r['name'][:70]}")
+    log(f"  [{card}] peak device memory {rep['peak_mem_bytes'] / 2**30:.3f} GiB")
+    log(f"  [{card}] group a chunks {rep['chunks_a']}; fan-out installs "
+        f"{rep['server_a']['fanout_installs']}, demand reads {rep['server_a']['demand_reads']}; "
+        f"update drained ({rep['drain_polls']} polls) under {rep['drain_checks']} borrows, "
+        f"then version 1 restored "
+        f"bit-identically; launches {rep['launches']} ({rep['launch_parts']})")
+    log(f"  [{card}] modeled (paper cost model, not device time): instance a0 "
+        f"{rep['modeled_total_s']['a0'] * 1e3:.4f} ms, b {rep['modeled_total_s']['b'] * 1e3:.4f} "
+        f"ms {json.dumps(rep['modeled_ledger_s']['a0'])}")
 
 
 def flash_pairs(b: int, hq: int, sq: int, skv: int, causal: bool) -> int:
@@ -1578,7 +1937,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("dedup")
 
-    # 8. the model: the flash kernel's checks and timings, then Phi-4-mini's
+    # 8. the pod's control plane, counts reset inside just before it
+    log("pod:")
+    report["pod"] = pod_phase(torch, np, image, working_set, cold_idx, args.seed, out.parent)
+    log_pod(report["pod"], card)
+    torch.cuda.empty_cache()
+    phase_done("pod")
+
+    # 9. the model: the flash kernel's checks and timings, then Phi-4-mini's
     # prefill forward (counts reset inside just before it), serving and parity
     log("model:")
     del pm, image, buf
@@ -1588,12 +1954,14 @@ def main() -> int:
     phase_done("model")
 
     dedup_launches = report["dedup"]["launches"]
+    pod_launches = report["pod"]["launches"]
     cold, hot, store = row_lists["cold"], row_lists["hot"], row_lists["store_write"]
     kernels = [
         {"name": "fused_publish", "route": "cuda", "source": f"{CSRC}/fused_publish.cu",
          "replaces": PUBLISH_TPU, "launches": launches["fused_publish"],
          "launches_by_path": {"private": launches["fused_publish"],
-                              "dedup": dedup_launches["fused_publish"]},
+                              "dedup": dedup_launches["fused_publish"],
+                              "pod": pod_launches["fused_publish"]},
          "bit_equal": True, "max_abs_err": pub_err, "ms": pub["ms"], "plain_ms": pub["plain_ms"],
          "bound_ms": pub["bound_ms"], "bound_by": pub["bound_by"], "library_ms": None,
          "wrapper_ms": pub["wrapper_ms"], "resources": pub["resources"],
@@ -1601,7 +1969,8 @@ def main() -> int:
         {"name": "fused_restore", "route": "cuda", "source": f"{CSRC}/fused_restore.cu",
          "replaces": RESTORE_TPU, "launches": launches["fused_restore"],
          "launches_by_path": {"private": launches["fused_restore"],
-                              "dedup": dedup_launches["fused_restore"]},
+                              "dedup": dedup_launches["fused_restore"],
+                              "pod": pod_launches["fused_restore"]},
          "bit_equal": True, "max_abs_err": res_err,
          "ms": cold["install"]["ms"], "plain_ms": cold["plain_ms"],
          "bound_ms": cold["install"]["bound_ms"], "bound_by": cold["install"]["bound_by"],
@@ -1624,7 +1993,7 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu", "replaces": tpu,
             "launches": dedup_launches[name],
             "launches_by_path": {"private": launches_private_row[name],
-                                 "dedup": dedup_launches[name]},
+                                 "dedup": dedup_launches[name], "pod": pod_launches[name]},
             "bit_equal": True, "max_abs_err": row_err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],

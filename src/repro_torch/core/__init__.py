@@ -1,4 +1,4 @@
-"""Aquifer core on PyTorch: the publish→restore main path on one host.
+"""Aquifer core on PyTorch: the publish→restore path and the pod control plane.
 
 - :mod:`pagestore`  — paged flat address space over a device byte buffer
 - :mod:`pool`       — two-tier pool on device arenas, cost models, incoherent
@@ -10,9 +10,15 @@
 - :mod:`profiler`   — TouchEvent telemetry and decayed heat maps
 - :mod:`prefetch_model` — learned first-touch ordering behind PrefetchPolicy
 - :mod:`faults`     — deterministic fault injection, retry policy, tier health
+- :mod:`coherence`  — ownership-based coherence protocol (§3.3)
+- :mod:`master`     — pool master: publish/update/delete, eviction (§3.6)
+- :mod:`nodeserver` — host-wide page-serving runtime: shared RDMA engine,
+  cross-instance DRR prefetch + doorbell batching, hot-chunk fan-out (§3.5)
+- :mod:`orchestrator` — node agent: borrow → flush → pre-install → resume
+- :mod:`failover`   — pool-master heartbeat lease and election (§3.6)
 
-Coherence, pool master, node server, orchestrator and re-curation are not
-ported yet (ROADMAP §A).
+Re-curation (``PoolMaster.recurate``, ``plan_recuration``) and the zstd cold
+tier raise ``NotImplementedError`` naming their ROADMAP items.
 """
 from .clock import REAL_CLOCK, Clock, RealClock
 from .faults import (
@@ -73,6 +79,19 @@ from .dedup import (
     poly32_hash_fn,
 )
 from .serving import AsyncRDMAEngine, BufferPool, Instance, RestoreEngine
+from .coherence import (
+    STATE_FREE,
+    STATE_PUBLISHED,
+    STATE_TOMBSTONE,
+    AtomicU64,
+    Borrow,
+    Catalog,
+    CatalogEntry,
+    LeaseFallback,
+)
+from .master import CXLCapacityManager, PoolMaster
+from .nodeserver import FanoutGroup, HotChunkCache, NodePageServer
+from .orchestrator import Orchestrator, RestoredInstance
 from .profiler import RUN_PAGES, START_RUN, HeatMap, HeatRegistry, TouchEvent
 from .prefetch_model import (
     LayoutOrderPolicy,

@@ -93,8 +93,8 @@ class AllocError(RuntimeError):
 
 class CXLBudget:
     """Per-pod byte budget over snapshot CXL regions (Pond-style capacity
-    management).  The accounting substrate only: the eviction policy that
-    syncs the gauge via :meth:`set_usage` is not part of this package yet.
+    management): the gauge :class:`~repro_torch.core.master.CXLCapacityManager`
+    syncs via :meth:`set_usage`, and its admission and eviction counters.
     """
 
     def __init__(self, budget_bytes: int):

@@ -27,8 +27,14 @@ its rows.  ``RestoreEngine.walk_routes`` counts the walks by route.
 
 Async RDMA fault handling mirrors the paper: the fault handler grabs a free
 buffer page, posts a one-sided read, and returns immediately; a completion
-thread drains the CQ and installs fetched pages.  The engine and completion
-threads launch their copies and kernels on the device's current stream.
+thread drains the CQ and installs fetched pages.  Under a host-wide
+:class:`~repro_torch.core.nodeserver.NodePageServer` (``server=``) the engine,
+buffers, completion worker and prefetch pump are the host's, shared by every
+restore on it, and a session of a fan-out group reads each hot chunk through
+the server's cache: the batched walk then queues rows of the cached chunk
+tensors, so the group's one read per chunk holds on either route.  The
+engine, completion and guest threads launch their copies and kernels on the
+device's current stream.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ import queue
 import random
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -422,6 +428,7 @@ class RestoreEngine:
         buffer_pool: Optional[BufferPool] = None,
         scatter_fn: Optional[ScatterFn] = None,
         clock: Optional[Clock] = None,
+        server=None,
         retry_policy: Optional[RetryPolicy] = None,
         retry_seed: int = 0,
         policy: Optional[PrefetchPolicy] = None,
@@ -432,8 +439,9 @@ class RestoreEngine:
             # fused restore: bind the snapshot's publish-time checksum table
             # (when the publish recorded one) so the scatter that installs
             # each batch also verifies it — covers pre_install_hot,
-            # install_all_sync and demand/prefetch installs, all of which
-            # land in Instance.uffd_copy_batch
+            # install_all_sync, demand/prefetch installs AND the
+            # NodePageServer fan-out installs, all of which land in
+            # Instance.uffd_copy_batch
             table = (reader.page_checksums()
                      if hasattr(scatter_fn, "bind_checksums") else None)
             if table is not None:
@@ -446,6 +454,11 @@ class RestoreEngine:
         self.clock = clock or instance.clock
         self.ledger = instance.ledger
         self.rdma_engine = rdma_engine
+        # host-wide page-serving runtime (core/nodeserver): when set, demand
+        # reads / prefetch / completions are multiplexed through the shared
+        # per-host engine instead of private threads
+        self.server = server
+        self._group = None          # FanoutGroup, set by NodePageServer.attach
         # online hotness feedback: when set, demand faults / prefetch hits /
         # guest touches are recorded into the snapshot's HeatMap as
         # TouchEvents carrying this engine as the sequence stream
@@ -454,6 +467,7 @@ class RestoreEngine:
         self.policy = policy
         self.buffers = buffer_pool or BufferPool(device=instance.image.device)
         self._rdma_arbiter = reader.rdma.arbiter_for(reader.view.host)
+        self.link_keys: List[Tuple[object, object]] = []   # (arbiter, key)
         self._inflight: Dict[int, bool] = {}
         self._inflight_lock = threading.Lock()
         self._completion_thread: Optional[threading.Thread] = None
@@ -498,7 +512,9 @@ class RestoreEngine:
         `chunk_pages` sequential reads and installs each chunk with one
         `uffd_copy_batch` (one scatter call; one uffd.copy ioctl charged per
         guest-contiguous run).  ``use_batch=False`` keeps the strictly
-        page-at-a-time path for modeled-time comparison.
+        page-at-a-time path for modeled-time comparison.  Under a node
+        server each chunk comes from :meth:`NodePageServer.hot_chunk`:
+        co-located restores of one snapshot share one physical read.
         """
         if not use_batch:
             hot = self.reader.hot_page_indices()
@@ -524,11 +540,16 @@ class RestoreEngine:
                     n_hot += int(pages.size)
                     continue    # already installed (e.g. repeated pre-install)
                 try:
-                    raw = call_with_retries(
-                        lambda o=pool_off, n=nbytes: self.reader.view.read(o, n),
-                        policy=self.retry, rng=self._retry_rng,
-                        ledger=self.ledger, clock=self.clock,
-                        trace=self.retry_trace)
+                    if self.server is not None:
+                        # hot-chunk fan-out: one CXL read, k scatters (dedup
+                        # chunks are content-keyed, so variants share too)
+                        raw = self.server.hot_chunk(self, pool_off, nbytes)
+                    else:
+                        raw = call_with_retries(
+                            lambda o=pool_off, n=nbytes: self.reader.view.read(o, n),
+                            policy=self.retry, rng=self._retry_rng,
+                            ledger=self.ledger, clock=self.clock,
+                            trace=self.retry_trace)
                 except TierFaultError as e:
                     if ht is None:
                         raise
@@ -693,8 +714,15 @@ class RestoreEngine:
         engine's policy, else
         :class:`~repro_torch.core.prefetch_model.LayoutOrderPolicy`).  Demand
         faults for pages not yet in flight still take priority on the RDMA
-        engine's submit queue."""
+        engine's submit queue.
+
+        Under a node server the extents are enqueued ONCE per fan-out group
+        on the host-wide pump, which drains them round-robin across all
+        co-located restores instead of spawning a private thread."""
         policy = resolve_policy(policy if policy is not None else self.policy)
+        if self.server is not None:
+            self.server.enqueue_prefetch(self, policy=policy)
+            return
         if self.rdma_engine is None or self._prefetch_thread is not None:
             return
         inflight = max(1, self.rdma_engine.tier.cost.max_inflight)
@@ -706,10 +734,15 @@ class RestoreEngine:
     def stop(self) -> None:
         """Stop serving and leave no residue: in-flight completions are
         drained (their demand-read buffers go back to the BufferPool, their
-        pages install normally) and stale ``_inflight`` entries are cleared."""
+        pages install normally) and stale ``_inflight`` entries are cleared.
+        Node-server sessions detach from the shared runtime instead."""
         self._stop.set()
         if self.heat is not None:
             self.heat.end_stream(id(self))
+        if self.server is not None:
+            self.server.detach(self)
+            self._unregister_links()
+            return
         if self._prefetch_thread is not None:
             self._prefetch_thread.join(timeout=1.0)
         if self.rdma_engine is not None:
@@ -725,6 +758,12 @@ class RestoreEngine:
                 self._install_completion(*item)
         with self._inflight_lock:
             self._inflight.clear()
+        self._unregister_links()
+
+    def _unregister_links(self) -> None:
+        for arbiter, key in self.link_keys:
+            arbiter.unregister(key)
+        self.link_keys = []
 
     def handle_fault(self, page: int) -> None:
         """userfaultfd fault for `page`; never blocks on RDMA (§3.4)."""
@@ -762,7 +801,7 @@ class RestoreEngine:
             return
         # cold page → async RDMA read
         self.instance.stats["fault_rdma"] += 1
-        if self.rdma_engine is None:
+        if self.rdma_engine is None and self.server is None:
             self._record_heat([page], "demand_fault")
             payload = call_with_retries(
                 lambda: self.reader.rdma.read(off, PAGE_SIZE),
@@ -782,7 +821,10 @@ class RestoreEngine:
         if covered:
             return     # already in flight (demand or prefetch extent)
         buf = self.buffers.acquire()
-        self.rdma_engine.submit_read(off, PAGE_SIZE, buf, ("page", page), urgent=True)
+        if self.server is not None:
+            self.server.submit_demand(self, off, PAGE_SIZE, buf, (page,))
+        else:
+            self.rdma_engine.submit_read(off, PAGE_SIZE, buf, ("page", page), urgent=True)
 
     def access(self, page: int, timeout_s: float = 30.0) -> None:
         """Guest touch: fault if needed and wait for install (test/replay API)."""
@@ -912,11 +954,15 @@ class RestoreEngine:
         """Block until the prefetch walk posted everything and all cold pages
         are installed: ONE condition-variable wait on a predicate over the
         `present` bitmap sliced by the cold page index."""
-        if self._prefetch_thread is None:
+        if self.server is not None:
+            if self._group is None or not self._group.enqueued:
+                return True
+        elif self._prefetch_thread is None:
             return True
-        self._prefetch_thread.join(timeout=timeout_s)
-        if self._prefetch_thread.is_alive():
-            return False
+        else:
+            self._prefetch_thread.join(timeout=timeout_s)
+            if self._prefetch_thread.is_alive():
+                return False
         cold = self.reader.cold_page_indices()
         if cold.size == 0:
             return True

@@ -1,11 +1,11 @@
-"""Carry images, pools, snapshot records and model parameters across from
-plain host data.
+"""Carry images, pools, snapshot records, catalogs and model parameters
+across from plain host data.
 
 These functions take and return plain dicts and numpy arrays, so a snapshot
 that another implementation of the same format published (its manifest
-dict, image bytes, tier arenas, free lists, dedup store states and region
-record) can be restored and freed here, and the other way round; and a
-model's parameter tree (nested dicts of arrays under the same names and
+dict, image bytes, tier arenas, free lists, dedup store states, region
+record and the pod's catalog) can be restored and freed here, and the other
+way round; and a model's parameter tree (nested dicts of arrays under the same names and
 shapes) can be loaded here or written out.  They import nothing but this
 package.
 """
@@ -16,6 +16,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .core.coherence import STATE_FREE, Catalog
 from .core.dedup import DedupStore
 from .core.pagestore import Manifest, StateImage
 from .core.pool import HierarchicalPool, MemoryTier
@@ -111,6 +112,38 @@ def regions_to_dict(regions: SnapshotRegions) -> Tuple[dict, Optional[np.ndarray
     """Inverse of :func:`regions_from_dict`: ``(dict, page_checksums uint32 or None)``."""
     cs = getattr(regions, "page_checksums", None)
     return regions.to_dict(), (None if cs is None else cs.cpu().numpy().view(np.uint32))
+
+
+def catalog_state(catalog: Catalog) -> dict:
+    """A catalog's shared words as plain data: ``capacity`` and, for every
+    entry that is not a never-used FREE slot, its ``index``, ``name``,
+    ``state`` word, ``refcount``, ``version`` and ``regions`` (the pair
+    :func:`regions_to_dict` gives, or None)."""
+    entries = []
+    for e in catalog.entries:
+        state, refcount = e.state.load(), e.refcount.load()
+        if state == STATE_FREE and not refcount and not e.name and e.regions is None:
+            continue
+        entries.append({"index": e.index, "name": e.name, "state": state,
+                        "refcount": refcount, "version": e.version,
+                        "regions": None if e.regions is None else regions_to_dict(e.regions)})
+    return {"capacity": len(catalog.entries), "entries": entries}
+
+
+def catalog_from_state(state: dict, clock=None) -> Catalog:
+    """A catalog holding what :func:`catalog_state` describes: the same
+    entries at the same indices, named entries bound for lookup."""
+    catalog = Catalog(capacity=int(state["capacity"]), clock=clock)
+    for d in state["entries"]:
+        e = catalog.entries[int(d["index"])]
+        e.name, e.version = d["name"], int(d["version"])
+        e.state.store(int(d["state"]))
+        e.refcount.store(int(d["refcount"]))
+        if d["regions"] is not None:
+            e.regions = regions_from_dict(*d["regions"])
+        if e.name:
+            catalog._bind(e.name, e.index)
+    return catalog
 
 
 def params_from_numpy(tree, device="cuda"):

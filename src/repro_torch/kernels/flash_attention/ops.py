@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from .. import launch_count
 from . import kernel
 from .ref import attention_ref, chunked_attention_ref
 
@@ -97,9 +98,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         launch = kernel.flash_attention_sm90 if which == "sm90" else kernel.flash_attention
         with torch.cuda.device(q.device):
             launch(q, k, v, out, float(scale), causal)
-        flash_attention.launches += 1
-        setattr(flash_attention, f"launches_{which}",
-                getattr(flash_attention, f"launches_{which}") + 1)
+        launch_count.count(flash_attention)
+        launch_count.count(flash_attention, f"launches_{which}")
     return out
 
 

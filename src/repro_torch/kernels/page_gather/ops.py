@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import rows
+from .. import launch_count, rows
 from . import kernel
 from .ref import page_gather_ref
 
@@ -27,7 +27,7 @@ def page_gather(pages: torch.Tensor, indices) -> torch.Tensor:
     if idx.shape[0]:
         with torch.cuda.device(pages.device):
             kernel.page_gather(pages, idx, out)
-        page_gather.launches += 1
+        launch_count.count(page_gather)
     return out
 
 

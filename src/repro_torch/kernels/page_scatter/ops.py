@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import rows
+from .. import launch_count, rows
 from . import kernel
 from .ref import page_scatter_rows_ref
 
@@ -51,7 +51,7 @@ def page_scatter(dest: torch.Tensor, compact: torch.Tensor, indices,
     rows.check_rows("page_scatter compact", compact)
     with torch.cuda.device(dest.device):
         kernel.scatter_rows(dest, compact.data_ptr(), _row_bytes(compact), src, dst)
-    page_scatter.launches += 1
+    launch_count.count(page_scatter)
     return dest
 
 
@@ -75,7 +75,7 @@ def page_scatter_rows(dest: torch.Tensor, segments) -> torch.Tensor:
     idx = rows.upload([addr, dst], dest.device)
     with torch.cuda.device(dest.device):
         kernel.scatter_rows(dest, 0, 1, idx[0], idx[1])
-    page_scatter.launches += 1
+    launch_count.count(page_scatter)
     return dest
 
 

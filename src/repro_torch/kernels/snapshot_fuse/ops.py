@@ -25,12 +25,13 @@ launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from .. import rows
+from .. import launch_count, rows
 from ..page_checksum.ops import weights_on
 from . import kernel
 from .ref import fused_publish_ref, fused_restore_rows_ref
@@ -124,7 +125,7 @@ def fused_publish(pages: torch.Tensor, ws_mask: torch.Tensor) -> FusedPublishRes
     with torch.cuda.device(dev):
         kernel.publish(pages, ws, _weights(dev), n_ws, PUBLISH_TILE_PAGES, zero, csum, buf,
                        counts, scratch)
-    fused_publish.launches += 1
+    launch_count.count(fused_publish)
     n_hot, n_cold = counts.tolist()         # after the launch: the views' lengths
     return FusedPublishResult(zero, csum, *publish_rows(buf, n_ws, n_hot, n_cold))
 
@@ -195,7 +196,7 @@ def fused_restore_rows(dest: Optional[torch.Tensor], segments,
     with torch.cuda.device(device):
         kernel.restore_rows(dest, 0, 1, idx[0], idx[1], _weights(device), expected_table, csum,
                             bad, n_bad)
-    fused_restore.launches += 1
+    launch_count.count(fused_restore)
     if n_bad is not None and int(n_bad.item()) > 0:   # bad indices cross only on a mismatch
         raise ChecksumMismatchError(dst[bad.cpu().numpy().astype(bool)])
     return csum
@@ -222,6 +223,9 @@ def fused_restore(dest: torch.Tensor, compact: torch.Tensor, indices,
 
 
 fused_restore.launches = 0
+
+
+_STATS_LOCK = threading.Lock()
 
 
 class FusedScatter:
@@ -259,11 +263,14 @@ class FusedScatter:
         return self.expected
 
     def count_batch(self, n: int) -> None:
-        """Account one logical batch of ``n`` pages (installed or queued)."""
-        self.stats["batches"] += 1
-        self.stats["pages"] += int(n)
-        if self.expected is not None:
-            self.stats["pages_verified"] += int(n)
+        """Account one logical batch of ``n`` pages (installed or queued).
+        Restores of one orchestrator share a template's ``stats`` and
+        install from several threads, so the counts take a lock."""
+        with _STATS_LOCK:
+            self.stats["batches"] += 1
+            self.stats["pages"] += int(n)
+            if self.expected is not None:
+                self.stats["pages_verified"] += int(n)
 
     def __call__(self, dest: torch.Tensor, compact: torch.Tensor, indices,
                  src_indices=None) -> None:

@@ -11,7 +11,7 @@ from typing import Tuple
 
 import torch
 
-from .. import rows
+from .. import launch_count, rows
 from . import kernel
 from .ref import zero_detect_ref
 
@@ -53,7 +53,7 @@ def zero_detect(pages: torch.Tensor) -> torch.Tensor:
     if pages.shape[0]:
         with torch.cuda.device(pages.device):
             kernel.zero_detect(pages, mask, out)
-        zero_detect.launches += 1
+        launch_count.count(zero_detect)
     return out
 
 

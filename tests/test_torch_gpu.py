@@ -7,6 +7,9 @@ with PyTorch alone:
         tests/test_torch_gpu.py
 """
 
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -233,6 +236,110 @@ def test_demand_faults_and_prefetch_threads_on_card(cuda_device):
     assert inst.all_present() and torch.equal(inst.image.buf, image.buf)
     assert eng.buffers.outstanding == 0 and eng.repair_error is None
     assert not rdma._worker.is_alive() and not eng._prefetch_thread.is_alive()
+
+
+def _pod(device, n=2048, seed=2):
+    """A CUDA pod: a 2048-page image (60% zero, 10% hot) published by a
+    PoolMaster through the fused publish kernel."""
+    rng = np.random.default_rng(seed)
+    pages = rng.integers(0, 256, (n, PAGE), dtype=np.uint8)
+    pages[rng.random(n) < 0.6] = 0
+    ws = np.flatnonzero(rng.random(n) < 0.1)
+    manifest = core.Manifest([core.ArrayExtent("guest", 0, n * PAGE, (n * PAGE,), "uint8")], n)
+    image = core.StateImage(manifest, torch.from_numpy(pages.reshape(-1)).to(device))
+    pool = core.HierarchicalPool(16 << 20, 32 << 20, device=device)
+    from repro_torch.kernels import make_fused_publish_fn
+
+    master = core.PoolMaster(pool, publish_fn=make_fused_publish_fn())
+    return pool, master, image, ws
+
+
+def test_pod_fanout_demand_faults_delete_and_gc_on_card(cuda_device):
+    """Four co-located restores of one snapshot through one node server on a
+    CUDA pool: one read per hot chunk, demand faults through the server,
+    bit-identical verified images; delete + gc return every byte, the server
+    parks and leaves no thread."""
+    before = set(threading.enumerate())
+    pool, master, image, ws = _pod(cuda_device)
+    free0 = (pool.cxl.free_list(), pool.rdma.free_list())
+    fused_publish.launches = 0
+    regions = master.publish("p", image, ws)
+    assert fused_publish.launches == 1
+    server = core.NodePageServer("h", pool)
+    orch = core.Orchestrator("h", pool, master.catalog, node_server=server)
+    ris = []
+    for _ in range(4):
+        orch.scatter_fn = FusedScatter()
+        ris.append(orch.restore("p", pre_install=False, prefetch_cold=False))
+    errs = []
+
+    def drive(ri, k):
+        try:
+            ri.engine.pre_install_hot()
+            ri.engine.install_zero_runs()
+            for p in ri.engine.reader.cold_page_indices()[k::7][:16]:
+                ri.engine.access(int(p), timeout_s=30.0)   # demand faults, no prefetch yet
+            ri.engine.start_prefetcher()
+            assert ri.engine.wait_prefetch_idle(60.0)
+        except Exception as exc:             # pragma: no cover - reported below
+            errs.append(exc)
+
+    threads = [threading.Thread(target=drive, args=(ri, k)) for k, ri in enumerate(ris)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errs and not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    n_chunks = -(-regions.n_hot // core.RestoreEngine.HOT_CHUNK_PAGES)
+    assert server.chunks.stats["reads"] == n_chunks
+    assert server.chunks.stats["fanout_hits"] == 3 * n_chunks
+    assert server.stats["fanout_installs"] > 0 and server.stats["demand_reads"] > 0
+    for ri in ris:
+        assert torch.equal(ri.instance.image.buf, image.buf)
+        assert ri.instance.scatter_fn.stats["pages_verified"] == regions.n_hot + regions.n_cold
+        assert ri.engine.walk_routes["batched"] == 1
+        ri.shutdown()
+    assert server.buffers.outstanding == 0
+    assert master.delete("p") and master.gc() == 0
+    assert (pool.cxl.free_list(), pool.rdma.free_list()) == free0
+    assert pool.cxl.bytes_in_use == pool.rdma.bytes_in_use == 0
+    orch.close()
+    assert server._pump_thread is None and server._completion_thread is None
+    assert not (set(threading.enumerate()) - before)
+
+
+def test_pod_update_while_borrowed_on_card(cuda_device):
+    """An update during a borrowed restore drains until shutdown; the
+    borrowed restore stays bit-identical to version 0, the next is version 1."""
+    pool, master, image, ws = _pod(cuda_device)
+    master.publish("p", image, ws)
+    image2 = core.StateImage(image.manifest, image.buf.clone())
+    image2.pages_matrix()[ws[::3]] ^= 0x5A
+    orch = core.Orchestrator("h", pool, master.catalog, scatter_fn=FusedScatter())
+    ri = orch.restore("p", pre_install=False)
+    entry = master.catalog.find("p")
+    old = entry.regions
+    t = threading.Thread(target=master.publish, args=("p", image2, ws), daemon=True)
+    t.start()
+    while entry.state.load() != core.STATE_TOMBSTONE:
+        time.sleep(0.001)
+    ri.engine.pre_install_hot()
+    ri.engine.install_all_sync()
+    torch.cuda.synchronize()
+    assert torch.equal(ri.instance.image.buf, image.buf)
+    assert t.is_alive() and entry.regions is old
+    ri.shutdown()
+    t.join(timeout=30)
+    assert not t.is_alive()
+    ri2 = orch.restore("p")
+    ri2.engine.install_all_sync()
+    torch.cuda.synchronize()
+    assert ri2.borrow.version == 1 and torch.equal(ri2.instance.image.buf, image2.buf)
+    ri2.shutdown()
+    orch.close()
+    assert master.delete("p")
+    assert pool.cxl.bytes_in_use == pool.rdma.bytes_in_use == 0
 
 
 ROW_CASES = [(0, None), (1, None), (7, None), (37, None), (1000, None),
