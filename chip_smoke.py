@@ -79,7 +79,38 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              device idle share over a 3 s window under ``torch.profiler``
              once the nine borrows are out, and the peak memory.
 
-9. model   — flash attention against its plain versions on the card, each
+9. recurate — heat-driven re-curation at the same 1.5 GiB image: a
+             ``PoolMaster`` with a ``HeatRegistry`` publishes it, two restores
+             through ``Orchestrator`` touch the same seeded half of the hot
+             set through ``touch_pages`` and the same 1,024 seeded cold pages
+             through ``access``, ``PoolMaster.recurate_steps`` rebuilds
+             version 1 (one fused publish launch; the plan it yields must
+             promote the traced pages whose heat is >= 1 and demote exactly
+             the untouched hot pages), version 1 restores bit-identically
+             with every page verified; launch counts exact, delete and gc
+             return every byte.
+
+10. coldstart — Phi-4-mini 3.8B's serverless cold start from the pool at
+             full width and depth, float32 weights from the seed (17.8 GB,
+             ~4.35 M pages): reference tokens from the original parameters
+             (4 prompts of 16 tokens, 8 new tokens); the working set from 16
+             profiled invocations of the compression workload's shape (every
+             array whole, the token table's Zipf(1.4) prompt rows only);
+             ``save_checkpoint`` into a pool sized to the composition (one
+             fused publish); the five restore strategies, modeled; the
+             publish's zero flags and checksums and a ``zero_page_bitmap``
+             launch held against the plain versions at the full image; a
+             ``SkeletonPool`` claim; ``restore_server`` through an
+             ``Orchestrator`` that prefetches the cold tail (batched hot walk,
+             a fused_restore launch a cold extent); the restored server
+             serving the same tokens; a second restore under torch.profiler
+             (device activity) for the idle share; every restored array
+             bit-equal to the parameters regenerated from the seed; the
+             skeleton pool closed, no thread left, delete and gc.  Prints
+             time to hot and to full, the publish, claim, prefill and decode
+             walls, the modeled ledger and the peak device memory.
+
+11. model   — flash attention against its plain versions on the card, each
              case on the route ``ops.route`` gives it and asserted so: bf16
              with Dk == Dv in {64, 128} on the tensor-core kernel
              (``flash_attention_sm90.cu``), float32 and Dk != Dv on the SIMT
@@ -141,6 +172,13 @@ POD_PROFILE_S = 3.0  # the profiled window of the group restore, once all borrow
 BF16_FLOPS_PER_S = 989e12                      # H100 SXM data sheet, dense tensor cores
 F32_FLOPS_PER_S = 67e12                        # float32 outside the tensor cores
 MODEL_ARCH = "phi4-mini-3.8b"
+RECURATE_TOUCHES = 1024     # seeded cold pages each of the two re-curation restores touches
+COLDSTART_NAME = "phi4-mini"
+COLDSTART_INVOCATIONS = 16  # the paper's replay count (§3.2)
+COLDSTART_PROMPT = 96       # the compression workload's prompt (benchmarks/workloads.py:55)
+COLDSTART_COMPUTE_S = 0.25  # and its modeled compute
+COLDSTART_CONC = 32         # co-located restores in examples/serve_coldstart.py
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 16, 8   # the cold-started server's requests
 PREFILL_SEQ = 8192          # prefill_32k cut to one 8,192-token sequence
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:91"
 FLASH_CSRC = "src/repro_torch/kernels/flash_attention/csrc"
@@ -243,6 +281,16 @@ def publish_bound(n: int, nnz: int):
     once, 6 bytes a page of flags and checksums, the weights and the counts."""
     nbytes = n * PAGE + n + PAGE + n + 4 * n + nnz * PAGE + 8
     return (*bound_ms(nbytes, 3 * n * (PAGE // 4)), nbytes)
+
+
+def restore_rows_bytes(m: int, op: str = "install") -> int:
+    """Bytes a row-list launch of ``m`` rows moves: each row read (and, but
+    for a verify-only launch, written) once, its 16-byte address and
+    destination, its expected and computed checksums and its bad flag, and
+    the mismatch count; a scatter moves rows and addresses only."""
+    if op == "scatter":
+        return m * (2 * PAGE + 16)
+    return m * ((PAGE if op == "verify_only" else 2 * PAGE) + 16 + 4 + 4 + 1) + 4
 
 
 def time_publish(torch, ops, ref, pm, ws, nnz: int) -> dict:
@@ -651,10 +699,9 @@ def time_row_lists(torch, np, pm, table, walks, cold_idx, device) -> dict:
                                                         table, csum, bad, n_bad),
             "scatter": lambda: skernel.scatter_rows(dest, 0, 1, idx[0], idx[1])}
         row = {"rows": m, "segments": len(segs)}
-        for op, nbytes in (("install", m * (2 * PAGE + 16 + 4 + 4 + 1) + 4),
-                           ("verify_only", m * (PAGE + 16 + 4 + 4 + 1) + 4),
-                           ("scatter", m * (2 * PAGE + 16))):
-            b, by = bound_ms(nbytes, 3 * m * (PAGE // 4) if op != "scatter" else 0)
+        for op in ("install", "verify_only", "scatter"):
+            b, by = bound_ms(restore_rows_bytes(m, op),
+                             3 * m * (PAGE // 4) if op != "scatter" else 0)
             row[op] = {"ms": cuda_ms(fns[op], iters=20), "bound_ms": b, "bound_by": by}
             torch.cuda.synchronize()
             if op != "scatter" and (int(n_bad.item()) != 0 or not torch.equal(
@@ -1339,6 +1386,461 @@ def log_pod(rep: dict, card: str) -> None:
         f"ms {json.dumps(rep['modeled_ledger_s']['a0'])}")
 
 
+def restore_launches(scatter_stats: dict, queued: int, walks: int, flushes: int) -> int:
+    """``fused_restore`` launches of one restore: a direct install a batch
+    that was not queued, a verify-only launch a batched walk, a launch a
+    flush of its queued rows."""
+    return scatter_stats["batches"] - queued + walks + flushes
+
+
+def recurate_phase(torch, np, image, working_set, cold_idx, seed: int) -> dict:
+    """Heat-driven re-curation at the 1.5 GiB image on the card: publish, two
+    restores that each touch the same seeded half of the hot set through
+    ``touch_pages`` and the same seeded cold pages through ``access``,
+    ``PoolMaster.recurate`` (one fused publish of version 1), version 1
+    restored bit-identically, delete and gc."""
+    import threading
+
+    from repro_torch import kernels as kmod
+    from repro_torch.core import HeatRegistry, HierarchicalPool, Orchestrator, PoolMaster, \
+        RestoreEngine
+    from repro_torch.kernels.snapshot_fuse import ops
+
+    name = "recurate"
+    counted = {"fused_publish": ops.fused_publish, "fused_restore": ops.fused_restore,
+               **{n: getattr(kmod, n) for n in ROW_KERNELS}}
+    rng = np.random.default_rng(seed + 31)
+    traced = rng.choice(cold_idx, RECURATE_TOUCHES, replace=False)
+    used = np.sort(rng.choice(working_set, working_set.size // 2, replace=False))
+    threads_before = set(threading.enumerate())
+    torch.cuda.synchronize()
+    for k in counted.values():
+        k.launches = 0
+    t_phase = time.perf_counter()
+    pool = HierarchicalPool(device=image.buf.device)
+    free0 = (pool.cxl.free_list(), pool.rdma.free_list())
+    heat = HeatRegistry(clock=pool.clock, half_life_s=1e6)
+    master = PoolMaster(pool, heat=heat, publish_fn=ops.make_fused_publish_fn())
+    v0 = master.publish(name, image, working_set)
+    orch = Orchestrator("recurate-host", pool, master.catalog, heat=heat)
+    want_restore, restores = 0, []
+    n_chunks0 = -(-v0.n_hot // RestoreEngine.HOT_CHUNK_PAGES)
+    for _ in range(2):
+        orch.scatter_fn = ops.FusedScatter()
+        t0 = time.perf_counter()
+        ri = orch.restore(name)
+        touched = ri.engine.touch_pages(used)
+        for p in traced.tolist():
+            ri.engine.access(p, timeout_s=120.0)
+        restores.append({"wall_s": time.perf_counter() - t0,
+                         "fault_rdma": ri.instance.stats["fault_rdma"]})
+        if touched != {"present": used.size, "faulted": 0}:
+            raise AssertionError(f"recurate: touches of the hot set {touched}")
+        check_routes("recurate restore", ri.engine.walk_routes, walks=1)
+        want_restore += restore_launches(ri.instance.scatter_fn.stats, n_chunks0, 1,
+                                         ri.instance.flushes)
+        ri.shutdown()
+    counts = heat.find(name, 0).counts()
+    want_promote = np.sort(traced[counts[traced] >= 1.0])
+    want_demote = np.setdiff1d(working_set, used)
+
+    # recurate, with the plan it applies taken from its own "planned" step
+    planned = {}
+
+    def steps():
+        for kind, val in master.recurate_steps(name):
+            if kind == "planned":
+                planned["plan"], planned["econ"] = val
+                planned["s"] = time.perf_counter() - t0
+            yield kind, val
+
+    t0 = time.perf_counter()
+    v1 = master._drive_steps(steps(), name, 30.0)
+    torch.cuda.synchronize()
+    recurate_s = time.perf_counter() - t0
+    plan, econ = planned["plan"], planned["econ"]
+    if not np.array_equal(np.sort(plan.promote), want_promote):
+        raise AssertionError(f"recurate: promote {plan.promote.size} pages, want the "
+                             f"{want_promote.size} traced cold pages at heat >= 1")
+    if not np.array_equal(plan.demote, want_demote):
+        raise AssertionError(f"recurate: demote {plan.demote.size} pages, want the "
+                             f"{want_demote.size} hot pages no restore touched")
+    if not np.array_equal(plan.new_working_set, np.union1d(used, want_promote)):
+        raise AssertionError(f"recurate: the new hot set {plan.summary()} is not the touched "
+                             "hot pages and the promoted ones")
+    if v1 is None or v1.version != 1 or v1.n_hot != plan.n_hot_after:
+        raise AssertionError(f"recurate: rebuilt {v1 and v1.to_dict()}, want version 1 with "
+                             f"{plan.n_hot_after} hot pages ({econ})")
+    orch.scatter_fn = ops.FusedScatter()
+    ri = orch.restore(name)
+    ri.engine.install_all_sync()
+    torch.cuda.synchronize()
+    if ri.borrow.version != 1 or not torch.equal(ri.instance.image.buf, image.buf):
+        raise AssertionError("recurate: the restore of version 1 differs from the image")
+    verified = ri.instance.scatter_fn.stats["pages_verified"]
+    if verified != v1.n_hot + v1.n_cold:
+        raise AssertionError(f"recurate: {verified} pages of version 1 verified")
+    check_routes("recurate version-1 restore", ri.engine.walk_routes)
+    cold_ext = sum(1 for _ in ri.engine.reader.iter_cold_extents(max_extent_pages=1 << 30))
+    want_restore += restore_launches(
+        ri.instance.scatter_fn.stats, -(-v1.n_hot // RestoreEngine.HOT_CHUNK_PAGES) + cold_ext,
+        2, ri.instance.flushes)
+    ri.shutdown()
+    del ri
+    launches = {n: k.launches for n, k in counted.items()}
+    want = {"fused_publish": 2, "fused_restore": want_restore,
+            **dict.fromkeys(ROW_KERNELS, 0)}
+    if launches != want:
+        raise AssertionError(f"recurate: launches {launches}, want {want}")
+    if not master.delete(name) or master.gc() != 0 or \
+            (pool.cxl.free_list(), pool.rdma.free_list()) != free0:
+        raise AssertionError("recurate: delete + gc did not return the pool to its start")
+    orch.close()
+    left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+    if left:
+        raise AssertionError(f"recurate: threads left after the phase: {left}")
+    rep = {"n_hot_v0": v0.n_hot, "n_cold_v0": v0.n_cold, "n_hot_v1": v1.n_hot,
+           "n_cold_v1": v1.n_cold, "hot_touched": int(used.size),
+           "traced": RECURATE_TOUCHES, "restores": restores, "plan": plan.summary(),
+           "economics": econ, "recurate_s": recurate_s, "planned_s": planned["s"],
+           "launches": launches, "phase_wall_s": time.perf_counter() - t_phase}
+    log(f"  two restores touching {used.size} seeded hot pages and {RECURATE_TOUCHES} seeded "
+        "cold pages each: "
+        + ", ".join(f"{r['wall_s']:.3f} s ({r['fault_rdma']} cold faults)" for r in restores))
+    log(f"  plan {rep['plan']}; promote = the traced pages at heat >= 1, demote = the "
+        "untouched hot pages")
+    log(f"  recuration_economics (paper cost model, not device time): {json.dumps(econ)}")
+    log(f"  recurate: planned in {planned['s']:.3f} s (fit_prefetch_model, plan, reconstruct; "
+        f"host), version 1 in {recurate_s * 1e3:.1f} ms wall, n_hot {v0.n_hot} -> {v1.n_hot}; "
+        f"version 1 restored bit-identically, every page verified; launches {launches}; "
+        f"pool back to its start; phase {rep['phase_wall_s']:.2f} s")
+    return rep
+
+
+def serve_timed(torch, np, inst, prompts, n_new: int):
+    """Greedy serving as ``ServerInstance.generate`` does it, prefill and
+    decode timed apart: ``(tokens (B, n_new), prefill logits, last logits,
+    prefill_s, decode_s)``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre_logits = inst.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    logits = pre_logits
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    out = []
+    t0 = time.perf_counter()
+    for _ in range(n_new):
+        out.append(tok[:, 0].cpu().numpy())
+        logits = inst.decode(tok)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    return np.stack(out, axis=1), pre_logits, logits, prefill_s, time.perf_counter() - t0
+
+
+def check_sweep(torch, pm, zero, checksums, where: str, chunk: int = 1 << 18) -> int:
+    """A kernel's zero flags (``zero``, bool[N]) and poly32 checksums
+    (``checksums``, int32[N], or None) of the pages ``pm`` against the plain
+    versions, ``chunk`` pages at a time so the plain versions' temporaries
+    stay near a GiB on a full-size image; returns the largest absolute
+    difference (0) and raises on any."""
+    from repro_torch.kernels.page_checksum.ref import page_checksum_ref
+    from repro_torch.kernels.zero_detect.ref import zero_detect_ref
+
+    err = 0
+    for r0 in range(0, pm.shape[0], chunk):
+        rows = pm[r0:r0 + chunk]
+        pairs = [(zero[r0:r0 + chunk].to(torch.int32), zero_detect_ref(rows))]
+        if checksums is not None:
+            pairs.append((checksums[r0:r0 + chunk], page_checksum_ref(rows)))
+        for got, want in pairs:
+            _require_equal(f"{where} (pages {r0}..{r0 + rows.shape[0]})", got, want)
+        err = max(err, max_abs_err(pairs))
+    return err
+
+
+def meta_like(torch, tree):
+    """``tree``'s structure with meta tensors of its leaves' shapes and
+    dtypes: a restore template that holds no memory."""
+    if isinstance(tree, dict):
+        return {k: meta_like(torch, v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+
+def check_regenerated(torch, cfg, seed: int, device, restored: dict, where: str) -> None:
+    """Every restored array bit-equal to the parameters regenerated from
+    ``seed`` (``restored``: ``flatten_state`` of the restored tree)."""
+    from repro_torch.checkpoint.ckpt import flatten_state
+    from repro_torch.models import build
+
+    again = flatten_state({"params": build(cfg, device=device).init(seed)})
+    bad = [n for n, t in again.items() if not torch.equal(restored[n], t)]
+    if list(restored) != list(again) or bad:
+        raise AssertionError(f"coldstart: the {where}'s arrays differ from the originals: "
+                             f"{bad or list(restored)}")
+
+
+def coldstart_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
+    """Serverless cold start of Phi-4-mini 3.8B from the pool (see the module
+    docstring): reference tokens, publish through ``save_checkpoint``, the
+    five modeled strategies, ``SkeletonPool`` claim, ``restore_server`` with
+    the cold tail prefetched, serving, a profiled second restore, bit
+    identity against parameters regenerated from the seed, delete and gc."""
+    import gc
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as kmod
+    from repro_torch.checkpoint.ckpt import (flatten_state, restore_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import (AccessRecorder, HierarchicalPool, Orchestrator, PoolMaster,
+                                  RestoreEngine, StateImage, profile_invocations)
+    from repro_torch.kernels.snapshot_fuse import ops
+    from repro_torch.models import build
+    from repro_torch.serve import new_instance
+    from repro_torch.serve.coldstart import SkeletonPool, restore_server
+    from repro_torch.serve.strategies import STRATEGIES, WorkloadSpec, run_strategy
+
+    cfg = get_config(MODEL_ARCH)
+    table = "params/embed/table"
+    counted = {"fused_publish": ops.fused_publish, "fused_restore": ops.fused_restore,
+               **{n: getattr(kmod, n) for n in ROW_KERNELS}}
+    rep = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "param_count": cfg.param_count()}
+    threads_before = set(threading.enumerate())
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    for k in counted.values():
+        k.launches = 0
+    t_phase = time.perf_counter()
+
+    # 1. the reference: tokens served from the original parameters
+    params = build(cfg, device=device).init(seed)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 29)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+                            device=device)
+    want_tokens, _pre, want_logits, _p, _d = serve_timed(
+        torch, np, new_instance(cfg, params, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW,
+                                device=device), prompts, SERVE_NEW)
+    gc.collect()
+
+    # 2. the working set: 16 profiled invocations of the compression workload's
+    # shape, and one more invocation's touches for the modeled strategies
+    t0 = time.perf_counter()
+    manifest = StateImage.layout(flatten_state({"params": params}))
+
+    def invocation(rec, i):
+        r = np.random.default_rng((seed, i))
+        toks = np.minimum(r.zipf(1.4, size=COLDSTART_PROMPT) - 1, cfg.vocab - 1)
+        rec.touch_rows(table, np.unique(toks))
+        for e in manifest.extents:
+            if e.name != table:
+                rec.touch_array(e.name)
+
+    ws = profile_invocations(manifest, invocation, COLDSTART_INVOCATIONS,
+                             name="compression").working_set
+    rec = AccessRecorder(manifest)
+    invocation(rec, COLDSTART_INVOCATIONS + 1)
+    touched = rec.working_set()
+    rep["profile_s"] = time.perf_counter() - t0
+
+    template = meta_like(torch, {"params": params})
+
+    # 3. publish through save_checkpoint into a pool sized to the composition
+    slack = 256 << 20
+    pool = HierarchicalPool(cxl_capacity=ws.size * PAGE + 8 * manifest.total_pages + slack,
+                            rdma_capacity=(manifest.total_pages - ws.size) * PAGE + slack,
+                            device=device)
+    free0 = (pool.cxl.free_list(), pool.rdma.free_list())
+    fused = ops.make_fused_publish_fn()
+    swept = {}
+
+    def publish_fn(pages, ws_mask):
+        out = fused(pages, ws_mask)
+        swept["zero"], swept["checksums"] = out.zero_bitmap.clone(), out.checksums.clone()
+        return out
+
+    master = PoolMaster(pool, publish_fn=publish_fn)
+    image, pub = save_checkpoint(master, COLDSTART_NAME, {"params": params}, step=0,
+                                 working_set=ws, metadata={"arch": cfg.name})
+    torch.cuda.synchronize()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_hot, n_cold, n_zero = pub["hot"], pub["cold"], pub["zero"]
+    rep["composition"] = {"total_pages": pub["total_pages"], "hot": n_hot, "cold": n_cold,
+                          "zero": n_zero, "hot_GiB": n_hot * PAGE / 2**30,
+                          "cold_GiB": n_cold * PAGE / 2**30,
+                          "image_GiB": pub["total_pages"] * PAGE / 2**30}
+    rep["publish_s"] = pub["publish_s"]
+    rep["tiers_GiB"] = {"cxl": pool.cxl.capacity / 2**30, "rdma": pool.rdma.capacity / 2**30}
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+        f"{cfg.param_count():,} float32 parameters; image {pub['total_pages']} pages "
+        f"({rep['composition']['image_GiB']:.3f} GiB): hot {n_hot} "
+        f"({rep['composition']['hot_GiB']:.3f} GiB), cold {n_cold} "
+        f"({rep['composition']['cold_GiB']:.3f} GiB), zero {n_zero}; profiled in "
+        f"{rep['profile_s']:.2f} s; save_checkpoint publish {pub['publish_s'] * 1e3:.1f} ms wall")
+    if n_zero != 0 or n_hot != ws.size or n_cold != pub["total_pages"] - ws.size:
+        raise AssertionError(f"coldstart: composition {pub} for a working set of {ws.size}")
+
+    # 4. the paper's five restore configurations, modeled (not device time)
+    spec = WorkloadSpec("compression", image, ws, touched, COLDSTART_COMPUTE_S)
+    rep["strategies"] = {}
+    for sname in STRATEGIES:
+        b = run_strategy(sname, spec, concurrency=COLDSTART_CONC).breakdown()
+        rep["strategies"][sname] = b
+        log(f"  modeled {sname:11s} setup {b['setup']:.4f} s prefetch {b['prefetch']:.4f} s "
+            f"install {b['exec_install']:.4f} s total {b['total']:.4f} s "
+            f"(paper cost model at concurrency {COLDSTART_CONC}, not device time)")
+
+    # the path's two sweeps of the full image against their plain versions:
+    # the publish's zero flags and checksums, and the zero scan the
+    # strategies classify by (one more launch, not counted as the path's)
+    pm = image.pages_matrix()
+    err = {"fused_publish": check_sweep(torch, pm, swept["zero"], swept["checksums"],
+                                        "coldstart fused_publish zero flags and checksums")}
+    n_zero_detect = kmod.zero_detect.launches
+    zero = torch.from_numpy(image.zero_page_bitmap()).to(device)
+    kmod.zero_detect.launches = n_zero_detect
+    err["zero_detect"] = check_sweep(torch, pm, zero, None,
+                                     "coldstart zero_page_bitmap (zero_detect)")
+    rep["max_abs_err"] = err
+    log(f"  at the image's {pm.shape[0]} pages: the publish's zero flags and checksums and "
+        "zero_page_bitmap's zero_detect launch bit-equal to the plain versions")
+    del spec, image, pm, swept, zero
+    gc.collect()
+    torch.cuda.empty_cache()
+    peaks = {"publish": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+
+    # 5.-7. claim a skeleton, warm-restore into it with the cold tail
+    # prefetched, serve the same prompts
+    sp = SkeletonPool(cfg, batch=SERVE_BATCH, max_len=SERVE_PROMPT + SERVE_NEW,
+                      target_size=1, background=True, device=device)
+    t0 = time.perf_counter()
+    skeleton = sp.claim()
+    rep["claim_s"] = time.perf_counter() - t0
+    orch = Orchestrator("serve-host", pool, master.catalog, prefetch_cold=True,
+                        scatter_fn=ops.FusedScatter())
+    n_chunks = -(-n_hot // RestoreEngine.HOT_CHUNK_PAGES)
+    t0 = time.perf_counter()
+    out = restore_server(orch, COLDSTART_NAME, skeleton, template)
+    torch.cuda.synchronize()
+    rep["restore_server_s"] = time.perf_counter() - t0
+    st = out["stats"]
+    verified = orch.scatter_fn.stats["pages_verified"]
+    check_routes("coldstart restore", st["walk_routes"], walks=1)
+    if verified != n_hot + n_cold:
+        raise AssertionError(f"coldstart: {verified} pages verified, want {n_hot + n_cold}")
+    want_restore = restore_launches(orch.scatter_fn.stats, n_chunks, 1, st["flushes"])
+    inst = out["instance"]
+    tokens, _pre, logits, prefill_s, decode_s = serve_timed(torch, np, inst, prompts,
+                                                            SERVE_NEW)
+    logit_err = float((logits - want_logits).abs().max())
+    if not np.array_equal(tokens, want_tokens):
+        raise AssertionError(f"coldstart: the restored server gave other tokens "
+                             f"(logits max abs difference {logit_err})")
+    rep["restore"] = {"time_to_hot_s": st["time_to_hot_s"], "time_to_full_s": st["time_to_full_s"],
+                      "instance": st["instance"], "flushes": st["flushes"],
+                      "walk_routes": st["walk_routes"], "pages_verified": verified}
+    rep["modeled_ledger_s"] = st["modeled"]
+    rep["modeled_total_s"] = sum(st["modeled"].values())
+    rep["serve"] = {"batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+                    "prefill_s": prefill_s, "decode_s": decode_s,
+                    "decode_tokens_per_s": SERVE_BATCH * SERVE_NEW / decode_s,
+                    "logits_max_abs_diff": logit_err, "tokens": tokens[:, :4].tolist()}
+    log(f"  restore_server: time to hot {st['time_to_hot_s']:.3f} s, to full "
+        f"{st['time_to_full_s']:.3f} s ({st['instance']['fault_rdma']} cold faults, "
+        f"{st['flushes']} flushes of the hot walk); SkeletonPool claim "
+        f"{rep['claim_s'] * 1e3:.3f} ms; pages verified {verified}")
+    log(f"  served {SERVE_BATCH} x {SERVE_PROMPT}-token prompts, {SERVE_NEW} new tokens: "
+        f"prefill {prefill_s:.3f} s, decode {decode_s:.3f} s "
+        f"({rep['serve']['decode_tokens_per_s']:.1f} tokens/s); the same tokens as before the "
+        f"publish; last logits max abs difference {logit_err}")
+    log(f"  modeled ledger of the restore (paper cost model, not device time): "
+        f"{rep['modeled_total_s'] * 1e3:.4f} ms {json.dumps(st['modeled'])}")
+
+    peaks["restore_and_serve"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 8.-9. every restored array against the parameters regenerated from the seed
+    restored = flatten_state(out["state"])
+    del out, inst, skeleton
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_regenerated(torch, cfg, seed, device, restored, "restore")
+    del restored
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a second restore of the same snapshot under torch.profiler (device
+    # activity only): the device's idle share over a restore
+    orch.scatter_fn = ops.FusedScatter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state2, st2 = restore_checkpoint(orch, COLDSTART_NAME, template)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep["profile_restore"] = _device_summary(torch, prof, wall2)
+    rep["profile_restore"]["post_processing_s"] = time.perf_counter() - t0
+    (out_dir / "profile_coldstart_restore.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+    del prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_regenerated(torch, cfg, seed, device, flatten_state(state2), "profiled restore")
+    check_routes("coldstart profiled restore", st2["walk_routes"], walks=1)
+    want_restore += restore_launches(orch.scatter_fn.stats, n_chunks, 1, st2["flushes"])
+    rep["restore_profiled"] = {"time_to_hot_s": st2["time_to_hot_s"],
+                               "time_to_full_s": st2["time_to_full_s"]}
+    p = rep["profile_restore"]
+    log(f"  profiled second restore: time to hot {st2['time_to_hot_s']:.3f} s, to full "
+        f"{st2['time_to_full_s']:.3f} s; device busy {p['device_busy_ms']:.3f} ms of "
+        f"{p['wall_ms']:.1f} ms, idle share {p['device_idle_share']:.4f} "
+        f"(profiler post-processing {p['post_processing_s']:.1f} s)")
+    for r in p["top"][:4]:
+        log(f"    {r['device_ms']:.3f} ms x{r['count']} {r['name'][:70]}")
+    del state2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = {n: k.launches for n, k in counted.items()}
+    want = {"fused_publish": 1, "fused_restore": want_restore,
+            "zero_detect": len(STRATEGIES), "page_checksum": 0, "page_gather": 0,
+            "page_scatter": 0}
+    if launches != want:
+        raise AssertionError(f"coldstart: launches {launches}, want {want}")
+    rep["launches"] = launches
+
+    # close the skeleton pool and the node server; delete: every byte back
+    sp.close()
+    orch.close()
+    if not master.delete(COLDSTART_NAME) or master.gc() != 0 or \
+            (pool.cxl.free_list(), pool.rdma.free_list()) != free0:
+        raise AssertionError("coldstart: delete + gc did not return the pool to its start")
+    left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+    if left:
+        raise AssertionError(f"coldstart: threads left after the phase: {left}")
+    peaks["checks_and_profiled_restore"] = torch.cuda.max_memory_allocated()
+    rep["peak_mem_bytes_by_part"] = peaks
+    rep["peak_mem_bytes"] = max(peaks.values())
+    rep["peak_mem_above_start_bytes"] = rep["peak_mem_bytes"] - base_mem
+    rep["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"  peak device memory {rep['peak_mem_bytes'] / 2**30:.3f} GiB "
+        f"({rep['peak_mem_above_start_bytes'] / 2**30:.3f} above the phase's start; by part "
+        + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in peaks.items()) + " GiB); "
+        f"launches {launches}; skeleton pool closed, no thread left, pool back to its start")
+    return rep
+
+
 def flash_pairs(b: int, hq: int, sq: int, skv: int, causal: bool) -> int:
     """(query, key) pairs the attention computes: suffix-aligned causal rows
     see i + Skv - Sq + 1 keys."""
@@ -1648,20 +2150,8 @@ def model_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
         raise AssertionError("the serving engine launched flash_attention")
     # the same requests once more, prefill and decode timed apart
     inst2 = new_instance(cfg, params, batch=batch, max_len=prompt_len + n_new, device=device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pre_logits = inst2.prefill(prompts)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    tok = torch.argmax(pre_logits, dim=-1)[:, None].to(torch.int32)
-    again = []
-    t0 = time.perf_counter()
-    for _ in range(n_new):
-        again.append(tok[:, 0].cpu().numpy())
-        tok = torch.argmax(inst2.decode(tok), dim=-1)[:, None].to(torch.int32)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    if not np.array_equal(np.stack(again, axis=1), answer):
+    again, pre_logits, _last, prefill_s, decode_s = serve_timed(torch, np, inst2, prompts, n_new)
+    if not np.array_equal(again, answer):
         raise AssertionError("a second serving of the same requests gave other tokens")
     rep["serve"] = {"batch": batch, "prompt_len": prompt_len, "new_tokens": n_new,
                     "generate_s": gen_s, "prefill_s": prefill_s, "decode_s": decode_s,
@@ -1686,7 +2176,7 @@ def model_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
     rep["bf16_forward_vs_prefill"] = {"rel_max_err": rel, "argmax_agreement": agree}
     log(f"  full depth bf16: forward last-position logits vs engine prefill logits: "
         f"relative max error {rel:.4g}, argmax agreement {agree:.2f} (not asserted)")
-    del inst2, last, pre_logits
+    del inst2, last, pre_logits, _last
 
     # four decode steps of a fresh instance under the profiler (after two)
     inst3 = new_instance(cfg, params, batch=batch, max_len=8, device=device)
@@ -1944,25 +2434,43 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("pod")
 
-    # 9. the model: the flash kernel's checks and timings, then Phi-4-mini's
-    # prefill forward (counts reset inside just before it), serving and parity
-    log("model:")
+    # 9. re-curation at the 1.5 GiB image, counts reset inside just before it
+    log("recurate:")
+    report["recurate"] = recurate_phase(torch, np, image, working_set, cold_idx, args.seed)
+    torch.cuda.empty_cache()
+    phase_done("recurate")
+
+    # 10. Phi-4-mini's cold start from the pool, counts reset inside just before it
+    log("coldstart:")
     del pm, image, buf
     torch.cuda.empty_cache()
+    report["coldstart"] = coldstart_phase(torch, np, args.seed, device, out.parent)
+    phase_done("coldstart")
+
+    # 11. the model: the flash kernel's checks and timings, then Phi-4-mini's
+    # prefill forward (counts reset inside just before it), serving and parity
+    log("model:")
     report["flash"] = check_flash(torch, device, args.seed)
     report["model"] = model_phase(torch, np, args.seed, device, out.parent)
     phase_done("model")
 
     dedup_launches = report["dedup"]["launches"]
     pod_launches = report["pod"]["launches"]
+    recurate_launches = report["recurate"]["launches"]
+    coldstart_launches = report["coldstart"]["launches"]
+    coldstart_err = report["coldstart"]["max_abs_err"]
     cold, hot, store = row_lists["cold"], row_lists["hot"], row_lists["store_write"]
     kernels = [
         {"name": "fused_publish", "route": "cuda", "source": f"{CSRC}/fused_publish.cu",
          "replaces": PUBLISH_TPU, "launches": launches["fused_publish"],
          "launches_by_path": {"private": launches["fused_publish"],
                               "dedup": dedup_launches["fused_publish"],
-                              "pod": pod_launches["fused_publish"]},
-         "bit_equal": True, "max_abs_err": pub_err, "ms": pub["ms"], "plain_ms": pub["plain_ms"],
+                              "pod": pod_launches["fused_publish"],
+                              "recurate": recurate_launches["fused_publish"],
+                              "coldstart": coldstart_launches["fused_publish"]},
+         "bit_equal": True,
+         "max_abs_err": max(pub_err, coldstart_err["fused_publish"]), "ms": pub["ms"],
+         "plain_ms": pub["plain_ms"],
          "bound_ms": pub["bound_ms"], "bound_by": pub["bound_by"], "library_ms": None,
          "wrapper_ms": pub["wrapper_ms"], "resources": pub["resources"],
          "shape": f"{n} pages, {nnz} non-zero, one launch"},
@@ -1970,7 +2478,9 @@ def main() -> int:
          "replaces": RESTORE_TPU, "launches": launches["fused_restore"],
          "launches_by_path": {"private": launches["fused_restore"],
                               "dedup": dedup_launches["fused_restore"],
-                              "pod": pod_launches["fused_restore"]},
+                              "pod": pod_launches["fused_restore"],
+                              "recurate": recurate_launches["fused_restore"],
+                              "coldstart": coldstart_launches["fused_restore"]},
          "bit_equal": True, "max_abs_err": res_err,
          "ms": cold["install"]["ms"], "plain_ms": cold["plain_ms"],
          "bound_ms": cold["install"]["bound_ms"], "bound_by": cold["install"]["bound_by"],
@@ -1993,8 +2503,11 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu", "replaces": tpu,
             "launches": dedup_launches[name],
             "launches_by_path": {"private": launches_private_row[name],
-                                 "dedup": dedup_launches[name], "pod": pod_launches[name]},
-            "bit_equal": True, "max_abs_err": row_err[name], "ms": r["ms"],
+                                 "dedup": dedup_launches[name], "pod": pod_launches[name],
+                                 "recurate": recurate_launches[name],
+                                 "coldstart": coldstart_launches[name]},
+            "bit_equal": True,
+            "max_abs_err": max(row_err[name], coldstart_err.get(name, 0)), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             **({} if name != "page_scatter" else

@@ -7,7 +7,8 @@
   content-addressed layouts (§3.2, §3.6)
 - :mod:`dedup`      — content-addressed, refcounted page stores (§3.6)
 - :mod:`serving`    — copy-based page serving, async RDMA demand paging (§3.4)
-- :mod:`profiler`   — TouchEvent telemetry and decayed heat maps
+- :mod:`profiler`   — offline hotness profiling (AccessRecorder) and online
+  TouchEvent telemetry with decayed heat maps
 - :mod:`prefetch_model` — learned first-touch ordering behind PrefetchPolicy
 - :mod:`faults`     — deterministic fault injection, retry policy, tier health
 - :mod:`coherence`  — ownership-based coherence protocol (§3.3)
@@ -17,8 +18,7 @@
 - :mod:`orchestrator` — node agent: borrow → flush → pre-install → resume
 - :mod:`failover`   — pool-master heartbeat lease and election (§3.6)
 
-Re-curation (``PoolMaster.recurate``, ``plan_recuration``) and the zstd cold
-tier raise ``NotImplementedError`` naming their ROADMAP items.
+The zstd cold tier raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from .clock import REAL_CLOCK, Clock, RealClock
 from .faults import (
@@ -57,6 +57,7 @@ from .pool import (
 from .snapshot import (
     ZERO_SENTINEL,
     PageClasses,
+    RecurationPlan,
     SnapshotReader,
     SnapshotRegions,
     build_snapshot,
@@ -67,6 +68,7 @@ from .snapshot import (
     estimate_snapshot_cxl_size,
     exclusive_cxl_bytes,
     free_snapshot,
+    plan_recuration,
     reconstruct_image,
     runs_of_indices,
 )
@@ -78,7 +80,14 @@ from .dedup import (
     fnv1a_pages,
     poly32_hash_fn,
 )
-from .serving import AsyncRDMAEngine, BufferPool, Instance, RestoreEngine
+from .serving import (
+    AsyncRDMAEngine,
+    BufferPool,
+    Instance,
+    RestoreEngine,
+    RestoreSession,
+    mmap_install_cost,
+)
 from .coherence import (
     STATE_FREE,
     STATE_PUBLISHED,
@@ -92,7 +101,16 @@ from .coherence import (
 from .master import CXLCapacityManager, PoolMaster
 from .nodeserver import FanoutGroup, HotChunkCache, NodePageServer
 from .orchestrator import Orchestrator, RestoredInstance
-from .profiler import RUN_PAGES, START_RUN, HeatMap, HeatRegistry, TouchEvent
+from .profiler import (
+    RUN_PAGES,
+    START_RUN,
+    AccessRecorder,
+    HeatMap,
+    HeatRegistry,
+    TouchEvent,
+    WorkloadProfile,
+    profile_invocations,
+)
 from .prefetch_model import (
     LayoutOrderPolicy,
     PredictedOrderPolicy,

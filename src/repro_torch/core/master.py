@@ -6,10 +6,11 @@ borrow-counter based CXL eviction policy (§3.6).  Content-hash deduplication
 (§3.6) is an optional layer applied at publish time.
 
 Beyond the paper: a per-pod CXL capacity manager (clock eviction over
-snapshot hot regions, degrade-to-RDMA on over-subscription).  The
-heat-feedback re-curation pipeline (``recurate``) raises
-``NotImplementedError``: it needs ``plan_recuration`` (ROADMAP A4c) and the
-break-even model ``recuration_economics`` (ROADMAP A8).
+snapshot hot regions, degrade-to-RDMA on over-subscription) and the
+heat-feedback re-curation pipeline (``recurate``), which rebuilds a
+published snapshot with a corrected hot set and republishes it through the
+same ownership protocol — so the coherence invariants cover re-curation
+with no new protocol states.
 
 The publish sweep enters through ``publish_fn``: with a CUDA pool, pass
 ``kernels.make_fused_publish_fn()`` and every publish this master drives is
@@ -26,18 +27,16 @@ from .clock import Clock, REAL_CLOCK
 from .coherence import STATE_PUBLISHED, STATE_TOMBSTONE, Catalog, CatalogEntry
 from .pagestore import StateImage
 from .pool import AllocError, CXLBudget, HierarchicalPool
+from .prefetch_model import fit_prefetch_model
 from .snapshot import (
     SnapshotRegions,
     build_snapshot,
     estimate_snapshot_cxl_size,
     exclusive_cxl_bytes,
     free_snapshot,
+    plan_recuration,
     reconstruct_image,
 )
-
-_RECURATE_TODO = ("PoolMaster.recurate is not ported yet: it needs plan_recuration "
-                  "(ROADMAP A4c) and recuration_economics (ROADMAP A8)")
-
 
 class CXLCapacityManager:
     """Per-pod CXL budget enforcement with clock eviction (§3.6 grown up).
@@ -462,15 +461,93 @@ class PoolMaster:
             return build_snapshot(self.pool, image, [], name, **build_kw)
 
     # -- online re-curation (heat feedback → snapshot rebuild) -----------------
-    def recurate_steps(self, name: str, heat=None, **_kw) -> Iterator[Tuple[str, object]]:
-        """Generator form of :meth:`recurate` (reference
-        ``PoolMaster.recurate_steps``): a re-curation plan and its
-        break-even economics republished through :meth:`publish_steps`."""
-        raise NotImplementedError(_RECURATE_TODO)
+    def recurate_steps(
+        self,
+        name: str,
+        heat=None,
+        min_promote_heat: float = 1.0,
+        demote_max_heat: float = 1e-3,
+        min_restores: int = 2,
+        expected_restores: int = 64,
+        force: bool = False,
+    ) -> Iterator[Tuple[str, object]]:
+        """Generator form of :meth:`recurate` (simulator-steppable).
+
+        Phases: ``("planned", (plan, economics))`` → either
+        ``("skipped", economics)`` (benefit below break-even and not
+        forced) or the full :meth:`publish_steps` update sequence —
+        re-curation IS an owner update, so tombstone/drain/republish and
+        the I1–I5 invariants cover it unchanged.  The rebuilt image is
+        reconstructed from the stored snapshot itself, so restores of the
+        new version remain bit-identical to the original publish.
+        """
+        from ..serve.strategies import recuration_economics
+
+        # pin the published regions for the whole read phase (plan +
+        # reconstruction): a concurrent owner update/delete of this name
+        # frees the old regions only after borrows drain, so the bytes we
+        # materialize can never be reused under us.  The pin is released
+        # before the republish below — our own borrow would deadlock its
+        # drain.  (A legitimate update landing between release and our
+        # tombstone is overwritten last-writer-wins, same as delete-vs-
+        # update; it cannot corrupt data.)
+        pin = self.catalog.borrow(name)
+        if pin is None or pin.regions is None:
+            if pin is not None:
+                pin.release()
+            yield ("missing", name)
+            return
+        image = None
+        try:
+            # NO yields while pinned: the pin must not outlive this block
+            # (a paused generator would hold the refcount indefinitely, and
+            # our own borrow would deadlock the republish drain below)
+            regions = pin.regions
+            if heat is None and self.heat is not None:
+                heat = self.heat.find(name, regions.version)
+            if heat is not None:
+                # the same first-touch model the prefetch pump schedules
+                # by: the promote set tracks observed touch ORDER, not just
+                # decayed heat (None with no sequence telemetry — pure
+                # heat-ranked recuration, the pre-§17 behaviour)
+                model = fit_prefetch_model(heat)
+                plan = plan_recuration(self.pool, regions, heat,
+                                       min_promote_heat=min_promote_heat,
+                                       demote_max_heat=demote_max_heat,
+                                       min_restores=min_restores,
+                                       model=model)
+                econ = recuration_economics(regions, plan, expected_restores)
+                if force or (plan.changed and econ["worthwhile"]):
+                    image = reconstruct_image(self.pool, regions)
+        finally:
+            pin.release()
+        if heat is None:
+            yield ("missing", name)
+            return
+        yield ("planned", (plan, econ))
+        if image is None:
+            yield ("skipped", econ)
+            return
+        yield ("reconstructed", image)
+        # expect_version: if a legitimate owner update raced in after the
+        # pin was released, our reconstructed (now stale) bytes must NOT
+        # overwrite it — the republish aborts with ("stale", ...) instead.
+        # dedup=regions.dedup: re-curation preserves the snapshot's layout
+        # (a content-addressed snapshot republishes content-addressed)
+        yield from self.publish_steps(
+            name, image, plan.new_working_set,
+            metadata={"recurated_from": regions.version,
+                      "promoted": int(plan.promote.size),
+                      "demoted": int(plan.demote.size)},
+            expect_version=regions.version,
+            dedup=regions.dedup,
+        )
 
     def recurate(self, name: str, heat=None, drain_timeout_s: float = 30.0,
                  **kw) -> Optional[SnapshotRegions]:
-        """Blocking driver over :meth:`recurate_steps`."""
+        """Blocking driver over :meth:`recurate_steps`.  Returns the new
+        regions, or None when re-curation was skipped (below break-even,
+        no change, or no heat recorded for the published version)."""
         return self._drive_steps(self.recurate_steps(name, heat=heat, **kw),
                                  name, drain_timeout_s)
 

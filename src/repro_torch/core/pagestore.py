@@ -4,8 +4,12 @@ A *StateImage* lays out a collection of named arrays into a single
 page-aligned byte address space (the guest memory of a MicroVM snapshot).
 The bytes live in one 1-D ``torch.uint8`` buffer on ``device``; every Aquifer
 mechanism (zero-page elimination, hot/cold partitioning, the offset array,
-page serving) operates on page indices of this address space.  Host arrays
-enter and leave through numpy (``write_array`` / ``read_array``).
+page serving) operates on page indices of this address space.  Arrays enter
+as numpy arrays or as tensors (``write_array``; a tensor on the image's
+device is copied there, never through the host) and leave as host numpy
+(``read_array``) or as tensors on the image's device (``read_tensor``).
+Manifest dtypes are numpy's names (``"float32"``, ``"bfloat16"``), as the
+JAX package writes them.
 """
 from __future__ import annotations
 
@@ -63,6 +67,37 @@ def num_pages(nbytes: int) -> int:
     return -(-nbytes // PAGE_SIZE)
 
 
+def dtype_name(dtype) -> str:
+    """The manifest's name of a numpy or torch dtype: ``"float32"``,
+    ``"bfloat16"``, ``"int32"``, ..."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return str(np.dtype(dtype))
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a manifest dtype name."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"no torch dtype named {name!r}")
+    return dt
+
+
+def itemsize(name: str) -> int:
+    """Bytes per element of a manifest dtype name (``"bfloat16"`` included,
+    which numpy knows only through an extension)."""
+    dt = getattr(torch, name, None)
+    return dt.itemsize if isinstance(dt, torch.dtype) else np.dtype(name).itemsize
+
+
+def _raw_bytes(arr) -> torch.Tensor:
+    """A 1-D uint8 tensor over an array's bytes: a view of a contiguous
+    tensor (any device), or of a numpy array's host memory."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().contiguous().reshape(-1).view(torch.uint8)
+    return torch.from_numpy(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+
+
 @dataclasses.dataclass(frozen=True)
 class ArrayExtent:
     """Placement of one named array inside the flat address space."""
@@ -86,9 +121,9 @@ class ArrayExtent:
 
     def element_pages(self, start_elem: int, stop_elem: int) -> range:
         """Pages covering elements [start, stop) of the flattened array."""
-        itemsize = np.dtype(self.dtype).itemsize
-        lo = self.byte_offset + start_elem * itemsize
-        hi = self.byte_offset + stop_elem * itemsize
+        size = itemsize(self.dtype)
+        lo = self.byte_offset + start_elem * size
+        hi = self.byte_offset + stop_elem * size
         return range(lo // PAGE_SIZE, num_pages(hi) if hi % PAGE_SIZE else hi // PAGE_SIZE)
 
     def row_pages(self, row: int, row_elems: int) -> range:
@@ -141,17 +176,27 @@ class StateImage:
 
     # -- construction -----------------------------------------------------
     @staticmethod
-    def build(arrays: Mapping[str, np.ndarray], device="cuda") -> "StateImage":
+    def layout(arrays: Mapping[str, object]) -> Manifest:
+        """The manifest :meth:`build` lays ``arrays`` (numpy arrays or
+        tensors) out by, without allocating the image."""
         extents: List[ArrayExtent] = []
         offset = 0
         for name, arr in arrays.items():
-            arr = np.ascontiguousarray(arr)
-            extents.append(
-                ArrayExtent(name, offset, arr.nbytes, tuple(arr.shape), str(arr.dtype))
-            )
-            offset += num_pages(arr.nbytes) * PAGE_SIZE
-        img = StateImage.empty_like(Manifest(extents, offset // PAGE_SIZE),
-                                    device=device)
+            if isinstance(arr, torch.Tensor):     # a 0-d array takes one element, as numpy's
+                shape = tuple(arr.shape) or (1,)
+                nbytes, dtype = arr.numel() * arr.element_size(), arr.dtype
+            else:
+                arr = np.ascontiguousarray(arr)
+                shape, nbytes, dtype = tuple(arr.shape), arr.nbytes, arr.dtype
+            extents.append(ArrayExtent(name, offset, nbytes, shape, dtype_name(dtype)))
+            offset += num_pages(nbytes) * PAGE_SIZE
+        return Manifest(extents, offset // PAGE_SIZE)
+
+    @staticmethod
+    def build(arrays: Mapping[str, object], device="cuda") -> "StateImage":
+        """An image of ``arrays`` (numpy arrays or tensors) on ``device``;
+        tensors already there are copied on the device."""
+        img = StateImage.empty_like(StateImage.layout(arrays), device=device)
         for name, arr in arrays.items():
             img.write_array(name, arr)
         return img
@@ -163,12 +208,21 @@ class StateImage:
                                                 dtype=torch.uint8, device=dev))
 
     # -- array views ------------------------------------------------------
-    def write_array(self, name: str, arr: np.ndarray) -> None:
+    def write_array(self, name: str, arr) -> None:
+        """Copy ``arr`` (a numpy array, or a tensor on any device) into its
+        extent."""
         e = self.manifest.by_name()[name]
-        raw = np.ascontiguousarray(arr).view(np.uint8).reshape(-1)
-        if raw.nbytes != e.nbytes:
-            raise ValueError(f"{name}: {raw.nbytes} != {e.nbytes}")
-        self.buf[e.byte_offset : e.byte_offset + e.nbytes].copy_(torch.from_numpy(raw))
+        raw = _raw_bytes(arr)
+        if raw.numel() != e.nbytes:
+            raise ValueError(f"{name}: {raw.numel()} != {e.nbytes}")
+        self.buf[e.byte_offset : e.byte_offset + e.nbytes].copy_(raw)
+
+    def read_tensor(self, name: str) -> torch.Tensor:
+        """The array as a tensor of its dtype and shape on the image's
+        device: a view of the image's bytes, not a copy."""
+        e = self.manifest.by_name()[name]
+        raw = self.buf[e.byte_offset : e.byte_offset + e.nbytes]
+        return raw.view(torch_dtype(e.dtype)).reshape(e.shape)
 
     def read_array(self, name: str) -> np.ndarray:
         e = self.manifest.by_name()[name]

@@ -1,6 +1,12 @@
-"""Online hotness feedback: typed touch telemetry and decayed heat maps.
+"""Hotness profiling: offline replay (§3.2) and online feedback.
 
-Every restore exports per-``(name, version)`` access telemetry — demand
+Offline: the orchestrator replays sampled invocations against a freshly
+restored instance and records every page it serves into a *working-set
+array* (:class:`AccessRecorder`, :func:`profile_invocations`).  Read-only
+pages are negligible (0.05% of pages, §2.3.3), so reads and writes are not
+separated: only touched/untouched matters.
+
+Online: every restore exports per-``(name, version)`` access telemetry — demand
 faults, prefetch hits and guest touches — into a :class:`HeatMap`, a decayed
 per-page counter array.  Telemetry enters as typed :class:`TouchEvent`
 records through ``HeatRegistry.record``; events that carry a ``stream`` id
@@ -17,11 +23,109 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
 from .clock import Clock, REAL_CLOCK
+from .pagestore import PAGE_SIZE, Manifest, itemsize, runs_from_pages
+
+
+class AccessRecorder:
+    """Records page touches against a manifest to derive the working set.
+
+    Model code (embedding gathers, expert slices, cache writes, layer weight
+    reads) reports logical accesses; the recorder resolves them to page
+    indices of the image through the manifest.
+    """
+
+    def __init__(self, manifest: Manifest):
+        self.manifest = manifest
+        self._extents = manifest.by_name()
+        self.pages: set = set()
+
+    # -- logical access APIs ---------------------------------------------------
+    def touch_array(self, name: str) -> None:
+        self.pages.update(self._extents[name].pages())
+
+    def touch_rows(self, name: str, rows: Iterable[int]) -> None:
+        """Leading-axis rows (embedding rows, expert slices, cache slots).
+
+        Vectorized: the byte span of every requested row is computed in one
+        shot and expanded to page indices with a repeat/cumsum range
+        expansion + ``np.unique``, no per-row Python loop; equal to
+        ``extent.row_pages`` row by row.
+        """
+        e = self._extents[name]
+        rows_arr = np.asarray(list(rows) if not isinstance(rows, np.ndarray) else rows,
+                              dtype=np.int64).reshape(-1)
+        if rows_arr.size == 0:
+            return
+        row_elems = int(np.prod(e.shape[1:])) if len(e.shape) > 1 else 1
+        size = itemsize(e.dtype)
+        lo = e.byte_offset + rows_arr * row_elems * size
+        hi = e.byte_offset + (rows_arr + 1) * row_elems * size
+        first = lo // PAGE_SIZE
+        last = -(-hi // PAGE_SIZE)                       # exclusive page end
+        lens = last - first
+        offsets = np.cumsum(lens) - lens
+        pages = (np.repeat(first, lens)
+                 + np.arange(int(lens.sum()), dtype=np.int64)
+                 - np.repeat(offsets, lens))
+        self.pages.update(np.unique(pages).tolist())
+
+    def touch_elements(self, name: str, start: int, stop: int) -> None:
+        self.pages.update(self._extents[name].element_pages(start, stop))
+
+    def touch_pages(self, pages: Iterable[int]) -> None:
+        self.pages.update(int(p) for p in pages)
+
+    # -- results ---------------------------------------------------------------
+    def working_set(self) -> np.ndarray:
+        return np.asarray(sorted(self.pages), dtype=np.int64)
+
+    def run_lengths(self) -> List[int]:
+        return [n for _, n in runs_from_pages(sorted(self.pages))]
+
+
+@dataclasses.dataclass
+class WorkloadProfile:
+    """Result of replaying N invocations: the recorded working set + stats."""
+
+    name: str
+    invocations: int
+    working_set: np.ndarray
+
+    def fragment_stats(self) -> Dict[str, float]:
+        runs = runs_from_pages(self.working_set.tolist())
+        lens = np.asarray([n for _, n in runs], dtype=np.float64)
+        if lens.size == 0:
+            return {"n_runs": 0, "mean_run": 0.0, "p90_run": 0.0,
+                    "frac_runs_lt4": 0.0}
+        return {
+            "n_runs": int(lens.size),
+            "mean_run": float(lens.mean()),
+            "p90_run": float(np.percentile(lens, 90)),
+            "frac_runs_lt4": float((lens < 4).mean()),
+        }
+
+
+def profile_invocations(
+    manifest: Manifest,
+    invocation_fn,
+    n_invocations: int = 16,
+    name: str = "workload",
+) -> WorkloadProfile:
+    """Replay ``n_invocations`` calls of ``invocation_fn(recorder, i)`` (§3.2).
+
+    16 is the paper's default: 80% of production invocation streaks are ≤16
+    per keep-alive window (Fig. 2).
+    """
+    rec = AccessRecorder(manifest)
+    for i in range(n_invocations):
+        invocation_fn(rec, i)
+    return WorkloadProfile(name, n_invocations, rec.working_set())
+
 
 
 # --------------------------------------------------------------------------

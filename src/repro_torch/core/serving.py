@@ -23,7 +23,10 @@ observe it (no fault injector, a scatter with a batched form, and for a
 verified walk no cached HostView line over its rows and a clean verify-only
 launch over its source rows): every extent is read and accounted as before,
 but its scatter is queued, and the walk ends with ONE kernel launch over all
-its rows.  ``RestoreEngine.walk_routes`` counts the walks by route.
+its rows.  ``RestoreEngine.walk_routes`` counts the walks by route.  A row
+that mismatches at a batched walk's flush is repaired as the reference
+repairs a mismatch in the middle of a walk: the good rows install, and each
+bad page is re-read from its home tier under ``repair_budget``.
 
 Async RDMA fault handling mirrors the paper: the fault handler grabs a free
 buffer page, posts a one-sided read, and returns immediately; a completion
@@ -44,7 +47,7 @@ import queue
 import random
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,10 +60,12 @@ from .faults import (
     TierFaultError,
     call_with_retries,
 )
-from .pagestore import PAGE_SIZE, StateImage
+from .pagestore import PAGE_SIZE, StateImage, runs_from_pages
 from .prefetch_model import PrefetchPolicy, resolve_policy
 from .profiler import TouchEvent
 from .pool import (
+    MMAP_PER_PAGE_S,
+    MMAP_SYSCALL_S,
     UFFD_COPY_PER_PAGE_S,
     UFFD_ZEROPAGE_PER_PAGE_S,
     MemoryTier,
@@ -122,6 +127,7 @@ class Instance:
         self._queue_bytes = 0
         self._queue_thread: Optional[int] = None     # the walk's thread
         self._launch_queue: Optional[Callable] = None
+        self.flushes = 0                             # batched launches of queued rows
 
     # -- uffd analogues ------------------------------------------------------
     def uffd_copy(self, page: int, src: torch.Tensor) -> bool:
@@ -207,12 +213,38 @@ class Instance:
             return
         segments, self._queue, self._queue_bytes = self._queue, [], 0
         try:
+            self.flushes += 1
             self._launch_queue(self.image.pages_matrix(), segments)
             for _mat, _src, sel in segments:
                 self.present[sel] = True
             self._cv.notify_all()
         finally:
             self._lock.release()
+
+    @contextlib.contextmanager
+    def direct_installs(self):
+        """Inside a flush (the caller holds the lock), install directly
+        instead of queueing: the flush's repair path re-installs rows."""
+        thread, self._queue_thread = self._queue_thread, None
+        try:
+            yield
+        finally:
+            self._queue_thread = thread
+
+    def unaccount_batch(self, scatter, sel: np.ndarray) -> None:
+        """Take back what queueing the batch ``sel`` accounted (stats, the
+        ledger's uffd.copy charge, the scatter's batch count), for a batch
+        that failed at its flush and is installed again by the repair path.
+        The caller holds the lock."""
+        n = int(sel.size)
+        n_ranges = int(1 + np.count_nonzero(np.diff(sel) != 1))
+        self.stats["uffd_copies"] -= n
+        self.stats["uffd_batches"] -= 1
+        self.stats["bytes_installed"] -= n * PAGE_SIZE
+        self.ledger.add("uffd_copy", -uffd_copy_batch_cost(n, n_ranges))
+        uncount = getattr(scatter, "uncount_batch", None)
+        if uncount is not None:
+            uncount(n)
 
     def uffd_zeropage(self, page: int) -> None:
         with self._cv:
@@ -1033,13 +1065,30 @@ class RestoreEngine:
                 bad = getattr(err, "bad_pages", None)
                 if bad is None:
                     raise
-                # the walk's source rows verified clean before it began: the
-                # arena changed under it, which no repair can answer
-                raise RuntimeError(
-                    f"batched restore walk: pre-verified rows changed before the install; "
-                    f"checksum mismatch on guest pages {bad.tolist()}") from err
+                self._repair_flush(segments, bad)
 
         return self.instance.queued_installs(launch)
+
+    def _repair_flush(self, segments, bad_pages) -> None:
+        """A batched walk's launch found rows that disagree with their
+        checksums (the pre-verify passed, so the bytes changed after it):
+        each segment holding a bad page takes the reference's repair path —
+        its queued accounting is taken back, its good rows install and each
+        bad page is re-read from its home tier under ``repair_budget``.  The
+        other segments were installed by the launch; the flush marks them
+        present.  The repair's charges land after the walk's, not between
+        its extents: the same charges, summed in another order."""
+        bad = np.asarray(bad_pages, dtype=np.int64)
+        inst = self.instance
+        scatter = inst.scatter_fn or page_scatter
+        with inst.direct_installs():
+            for mat, src, sel in segments:
+                hit = np.isin(sel, bad)
+                if not hit.any():
+                    continue
+                inst.unaccount_batch(scatter, sel)
+                rows = src if src is not None else np.arange(sel.size, dtype=np.int64)
+                self._repair_batch(sel, mat, sel[hit], rows)
 
     def _per_extent_reason(self, tier: str, pages: np.ndarray,
                            offs: np.ndarray) -> Optional[str]:
@@ -1070,3 +1119,16 @@ class RestoreEngine:
         if not scatter.verify_rows([(arena, offs // PAGE_SIZE, pages)]):
             return "preverify"
         return None
+
+
+# The restore engine IS the paper's per-instance "restore session"; the
+# simulator and some call sites use that name.
+RestoreSession = RestoreEngine
+
+
+def mmap_install_cost(pages: Sequence[int]) -> float:
+    """Modeled cost of installing `pages` via per-range mmap (the rejected
+    alternative, §2.3.4): one mmap syscall per contiguous run plus a per-page
+    cost 2.6x that of uffd.copy."""
+    runs = runs_from_pages(pages)
+    return sum(n * MMAP_PER_PAGE_S for _, n in runs) + len(runs) * MMAP_SYSCALL_S

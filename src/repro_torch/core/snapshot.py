@@ -21,8 +21,7 @@ offset array, and there is no private RDMA region.
 
 Page bytes stay on the pool's device; the offset array, page classes and run
 index are host numpy (read back from the device once).  The zstd-compressed
-cold tier and re-curation raise ``NotImplementedError`` naming their
-ROADMAP item.
+cold tier raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,7 +43,6 @@ TIER_SHIFT = np.uint64(62)
 OFFSET_MASK = np.uint64((1 << 62) - 1)
 
 _ZSTD_TODO = "compress_cold (zstd cold tier) is not ported yet (ROADMAP A4d)"
-_RECURATE_TODO = "plan_recuration is not ported yet (ROADMAP A4c)"
 
 
 def encode_slot(tier: int, offset: int) -> np.uint64:
@@ -557,9 +555,87 @@ def _gather_store_pages(tier: MemoryTier, mat: torch.Tensor, pages: np.ndarray,
     page_scatter(mat, rows, pages_o)
 
 
-def plan_recuration(*_args, **_kwargs):
-    """Heat-driven rebuild plan (reference ``snapshot.plan_recuration``)."""
-    raise NotImplementedError(_RECURATE_TODO)
+# --------------------------------------------------------------------------
+# Online re-curation (heat-feedback snapshot rebuild)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RecurationPlan:
+    """What a heat-driven rebuild of one snapshot would change.
+
+    ``promote`` — currently-cold pages whose decayed heat says they belong
+    in the CXL hot region; ``demote`` — currently-hot pages never touched
+    across enough restores; ``new_working_set`` — the hot set the rebuilt
+    snapshot will pre-install.
+    """
+
+    name: str
+    version: int
+    promote: np.ndarray
+    demote: np.ndarray
+    new_working_set: np.ndarray
+    n_hot_before: int
+    n_hot_after: int
+    # promote set ordered by the predicted-first-touch model
+    model_ordered: bool = False
+
+    @property
+    def changed(self) -> bool:
+        return bool(self.promote.size or self.demote.size)
+
+    def summary(self) -> Dict[str, int]:
+        return {
+            "promote": int(self.promote.size),
+            "demote": int(self.demote.size),
+            "hot_before": self.n_hot_before,
+            "hot_after": self.n_hot_after,
+            "model_ordered": int(self.model_ordered),
+        }
+
+
+def plan_recuration(
+    pool: HierarchicalPool,
+    regions: SnapshotRegions,
+    heat,
+    min_promote_heat: float = 1.0,
+    demote_max_heat: float = 1e-3,
+    min_restores: int = 2,
+    model=None,
+    max_promote: Optional[int] = None,
+) -> RecurationPlan:
+    """Derive promote/demote sets for one snapshot from its heat map.
+
+    Owner-side: the offset array is read straight from the CXL tier (the
+    owner wrote it; no HostView cache in the path), one device→host copy.
+    ``heat`` is the snapshot's :class:`~repro_torch.core.profiler.HeatMap`.
+
+    ``model`` (a :class:`~repro_torch.core.prefetch_model.PrefetchModel`,
+    usually fitted from the same heat map) re-ranks the promote set by
+    predicted first-touch order, so under a ``max_promote`` budget the
+    earliest-touched drifted pages make the cut.
+    """
+    oa = pool.cxl.read(regions.oa_off, regions.total_pages * 8).cpu().numpy().view(np.uint64)
+    nonzero = oa != ZERO_SENTINEL
+    tiers = oa >> TIER_SHIFT
+    hot = np.nonzero(nonzero & (tiers == np.uint64(TIER_CXL)))[0].astype(np.int64)
+    cold = np.nonzero(nonzero & (tiers == np.uint64(TIER_RDMA)))[0].astype(np.int64)
+    promote = heat.promotion_candidates(cold, min_heat=min_promote_heat)
+    model_ordered = False
+    if model is not None and promote.size:
+        promote = model.page_order(promote)
+        model_ordered = True
+    if max_promote is not None:
+        promote = promote[:int(max_promote)]
+    demote = heat.demotion_candidates(hot, max_heat=demote_max_heat,
+                                      min_restores=min_restores)
+    keep = hot[~np.isin(hot, demote)] if demote.size else hot
+    new_ws = np.union1d(keep, promote).astype(np.int64)
+    return RecurationPlan(
+        name=regions.name, version=regions.version,
+        promote=promote, demote=demote, new_working_set=new_ws,
+        n_hot_before=int(hot.size), n_hot_after=int(new_ws.size),
+        model_ordered=model_ordered,
+    )
 
 
 class SnapshotReader:

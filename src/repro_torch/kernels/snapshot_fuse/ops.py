@@ -239,7 +239,8 @@ class FusedScatter:
     copies share the template's ``stats`` dict.
 
     The batched form: :meth:`count_batch` accounts a logical batch whose
-    rows are queued, :meth:`scatter_rows` installs (and verifies) all the
+    rows are queued (:meth:`uncount_batch` takes it back when a flush
+    repairs it), :meth:`scatter_rows` installs (and verifies) all the
     queued rows in one launch, and :meth:`verify_rows` checks source rows
     against the table without installing them.
     """
@@ -271,6 +272,15 @@ class FusedScatter:
             self.stats["pages"] += int(n)
             if self.expected is not None:
                 self.stats["pages_verified"] += int(n)
+
+    def uncount_batch(self, n: int) -> None:
+        """Take back :meth:`count_batch` of a queued batch that is installed
+        again (a walk's flush repairing a mismatch)."""
+        with _STATS_LOCK:
+            self.stats["batches"] -= 1
+            self.stats["pages"] -= int(n)
+            if self.expected is not None:
+                self.stats["pages_verified"] -= int(n)
 
     def __call__(self, dest: torch.Tensor, compact: torch.Tensor, indices,
                  src_indices=None) -> None:

@@ -9,7 +9,8 @@ view, scatter and repair stats, ``retry_trace`` and the ``bad_pages`` of a
 raised error.  Each reason a walk stays per extent (an armed injector, a
 cached HostView line over the hot rows, a corrupted arena byte caught by the
 pre-verify, a scatter function with no batched form) is shown taking the
-reference's own path, and the plain row-list versions are held to the
+reference's own path, a mismatch at a batched walk's flush is repaired as
+the reference repairs it, and the plain row-list versions are held to the
 reference's restore kernel segment by segment."""
 import threading
 
@@ -298,18 +299,59 @@ def test_custom_scatter_fn_keeps_walks_per_extent(launches):
     np.testing.assert_array_equal(g[4].image.buf.numpy(), g[0].buf.numpy())
 
 
-def test_arena_changed_after_preverify_is_not_a_repair_case(monkeypatch):
-    """A pre-verified walk whose rows still disagree at the flush raises a
-    plain RuntimeError naming the pages (no ``bad_pages``: nothing repairs)."""
+def test_arena_changed_after_preverify_is_repaired_like_reference(monkeypatch, launches):
+    """A pre-verified walk whose row disagrees at the flush repairs it as the
+    reference repairs the same mismatch in the middle of its walk: one hot
+    arena byte is flipped (in the port, after the pre-verify) and flipped
+    back once the walk has read it, so the re-read from the home tier is
+    clean.  Bytes, ``present``, repair, instance, view and scatter stats are
+    equal.  The ledgers hold the same keys with values equal within 1e-12
+    relative: the same charges, the repair's summed after the walk's
+    instead of between its extents."""
     r, g = serving._restore_pair(seed=12)
-    monkeypatch.setattr(FusedScatter, "verify_rows", lambda self, segments: True)
     at = g[2].hot_off + 1 * PAGE
-    g[1].cxl.buf[at] ^= 0xFF
-    with pytest.raises(RuntimeError, match="pre-verified") as ei:
-        g[5].pre_install_hot()
-    assert getattr(ei.value, "bad_pages", None) is None
-    assert g[5].repair_stats["checksum_mismatches"] == 0
+
+    def heal_after_read(side):
+        pool, view = side[1], side[3].view
+        read = view.read
+
+        def wrapped(off, nbytes):
+            out = read(off, nbytes)
+            if off <= at < off + nbytes:
+                pool.cxl.buf[at] ^= 0xFF
+            return out
+
+        view.read = wrapped
+
+    verify = FusedScatter.verify_rows
+
+    def verify_then_corrupt(self, segments):
+        ok = verify(self, segments)
+        g[1].cxl.buf[at] ^= 0xFF
+        return ok
+
+    monkeypatch.setattr(FusedScatter, "verify_rows", verify_then_corrupt)
+    r[1].cxl.buf[at] ^= 0xFF
+    for side in (r, g):
+        heal_after_read(side)
+        side[5].pre_install_hot()
+    assert g[5].walk_routes == _routes(batched=1)
+    assert launches["rows"] == 1
+    assert g[5].repair_stats["checksum_mismatches"] == 1
+    assert g[5].repair_stats["checksum_repairs"] == 1
     assert g[4]._queue is None and _lock_free(g[4])
+    for side in (r, g):
+        side[5].install_all_sync()
+    np.testing.assert_array_equal(r[4].image.buf, g[4].image.buf.numpy())
+    np.testing.assert_array_equal(g[4].image.buf.numpy(), g[0].buf.numpy())
+    np.testing.assert_array_equal(r[4].present, g[4].present)
+    assert r[5].repair_stats == g[5].repair_stats
+    assert r[4].stats == g[4].stats
+    assert r[3].view.stats == g[3].view.stats
+    assert r[7].stats == g[7].stats
+    assert r[6].seconds.keys() == g[6].seconds.keys()
+    for key, want in r[6].seconds.items():
+        assert g[6].seconds[key] == pytest.approx(want, rel=1e-12, abs=0.0), key
 
 
 @pytest.mark.parametrize("dedup", [False, True])

@@ -513,9 +513,8 @@ def test_catalog_state_round_trip():
 
 
 def test_recurate_names_its_roadmap_items():
+    """Re-curation (ROADMAP A4c with A8's economics) is ported: a name the
+    catalog does not hold is reported missing, as in the reference."""
     master = port.PoolMaster(port.HierarchicalPool(8 << 20, 8 << 20, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A4c") as err:
-        master.recurate("any")
-    assert "A8" in str(err.value)
-    with pytest.raises(NotImplementedError, match="A4c"):
-        next(master.recurate_steps("any"))
+    assert master.recurate("any") is None
+    assert list(master.recurate_steps("any")) == [("missing", "any")]

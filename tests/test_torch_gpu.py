@@ -774,3 +774,128 @@ def test_reduced_model_on_card_matches_cpu(cuda_device):
     out_cpu = new_instance(cfg, p_cpu, 2, 48, device="cpu").generate(tokens[:, :32], 8)
     out_gpu = new_instance(cfg, p_gpu, 2, 48, device=cuda_device).generate(tokens[:, :32], 8)
     np.testing.assert_array_equal(out_gpu, out_cpu)
+
+
+def test_restore_server_on_card_serves_the_original_tokens(cuda_device):
+    """Serverless cold start of a reduced phi4-mini on the card: published
+    from device tensors by save_checkpoint (one fused publish), restored into
+    a claimed skeleton with the cold tail prefetched, serving the tokens of
+    an instance built on the original parameters; every restore launch
+    accounted and every pool byte back after delete."""
+    from repro_torch.checkpoint.ckpt import flatten_state, save_checkpoint
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import make_fused_publish_fn
+    from repro_torch.models import build
+    from repro_torch.serve import new_instance
+    from repro_torch.serve.coldstart import SkeletonPool, restore_server
+
+    before = set(threading.enumerate())
+    cfg = get_config("phi4-mini-3.8b").reduced(n_layers=3, vocab=4096,
+                                               name="phi4-mini-coldstart-card")
+    params = build(cfg, device=cuda_device).init(5)
+    prompts = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, (2, 12)))
+    want = new_instance(cfg, params, 2, 20, device=cuda_device).generate(prompts, 8)
+    pool = core.HierarchicalPool(16 << 20, 32 << 20, device=cuda_device)
+    free0 = (pool.cxl.free_list(), pool.rdma.free_list())
+    master = core.PoolMaster(pool, publish_fn=make_fused_publish_fn())
+    manifest = core.StateImage.layout(flatten_state({"params": params}))
+    table = manifest.by_name()["params/embed/table"]
+    ws = np.setdiff1d(np.arange(manifest.total_pages),
+                      np.arange(table.first_page + 3, table.first_page + table.page_count))
+    fused_publish.launches = fused_restore.launches = 0
+    image, stats = save_checkpoint(master, "m", {"params": params}, step=0, working_set=ws)
+    assert fused_publish.launches == 1 and image.device.type == "cuda"
+    assert stats["hot"] == ws.size and stats["cold"] == table.page_count - 3
+    sp = SkeletonPool(cfg, batch=2, max_len=20, target_size=1, device=cuda_device)
+    orch = core.Orchestrator("h", pool, master.catalog, prefetch_cold=True,
+                             scatter_fn=FusedScatter())
+    out = restore_server(orch, "m", sp.claim(), params)
+    torch.cuda.synchronize()
+    st = out["stats"]
+    assert st["walk_routes"]["batched"] == 1
+    scatter = orch.scatter_fn.stats
+    assert scatter["pages_verified"] == stats["hot"] + stats["cold"]
+    n_chunks = -(-stats["hot"] // core.RestoreEngine.HOT_CHUNK_PAGES)
+    assert fused_restore.launches == scatter["batches"] - n_chunks + 1 + st["flushes"]
+    for name, t in flatten_state(out["state"]).items():
+        assert t.device.type == "cuda" and torch.equal(t, flatten_state({"params": params})[name])
+    got = out["instance"].generate(prompts, 8)
+    np.testing.assert_array_equal(got, want)
+    sp.close()
+    orch.close()
+    assert master.delete("m") and (pool.cxl.free_list(), pool.rdma.free_list()) == free0
+    assert not (set(threading.enumerate()) - before)
+
+
+def test_recurate_on_card_publishes_once_and_restores_version_one(cuda_device):
+    pool, master, image, ws = _pod(cuda_device)
+    heat = core.HeatRegistry(clock=pool.clock, half_life_s=1e6)
+    master.heat = heat
+    regions = master.publish("p", image, ws)
+    orch = core.Orchestrator("h", pool, master.catalog, heat=heat, scatter_fn=FusedScatter())
+    traced = np.random.default_rng(3).choice(
+        np.flatnonzero(~np.isin(np.arange(regions.total_pages), ws)
+                       & image.pages_matrix().any(dim=1).cpu().numpy()), 40, replace=False)
+    for _ in range(2):
+        ri = orch.restore("p")
+        for p in traced.tolist():
+            ri.engine.access(p, timeout_s=30.0)
+        ri.shutdown()
+    fused_publish.launches = 0
+    v1 = master.recurate("p")
+    assert v1 is not None and v1.version == 1 and fused_publish.launches == 1
+    hot = core.SnapshotReader(v1, pool.host_view("x"), pool.rdma).hot_page_indices()
+    assert set(traced.tolist()) <= set(hot.tolist())
+    orch.scatter_fn = FusedScatter()
+    ri = orch.restore("p")
+    ri.engine.install_all_sync()
+    torch.cuda.synchronize()
+    assert ri.borrow.version == 1 and torch.equal(ri.instance.image.buf, image.buf)
+    assert ri.instance.scatter_fn.stats["pages_verified"] == v1.n_hot + v1.n_cold
+    ri.shutdown()
+    orch.close()
+    assert master.delete("p")
+
+
+def test_batched_walk_repairs_a_row_changed_after_the_preverify(cuda_device, monkeypatch):
+    """On the card, a hot row flipped after the walk's verify-only launch and
+    flipped back once the walk read it: the flush's launch names the page,
+    the repair re-reads it from the tier, the image ends bit-identical."""
+    rng = np.random.default_rng(4)
+    n = 1024
+    pages = rng.integers(0, 256, (n, PAGE), dtype=np.uint8)
+    manifest = core.Manifest([core.ArrayExtent("guest", 0, n * PAGE, (n * PAGE,), "uint8")], n)
+    image = core.StateImage(manifest, torch.from_numpy(pages.reshape(-1)).to(cuda_device))
+    pool = core.HierarchicalPool(8 << 20, 8 << 20, device=cuda_device)
+    from repro_torch.kernels import make_fused_publish_fn
+
+    regions = core.build_snapshot(pool, image, np.arange(0, n, 3), "r",
+                                  publish_fn=make_fused_publish_fn())
+    reader = core.SnapshotReader(regions, pool.host_view("h"), pool.rdma)
+    reader.invalidate_cxl()
+    inst = core.Instance(core.StateImage.empty_like(manifest, device=cuda_device))
+    eng = core.RestoreEngine(reader, inst, scatter_fn=FusedScatter())
+    at = regions.hot_off + 5 * PAGE + 100
+    verify, read = FusedScatter.verify_rows, reader.view.read
+
+    def verify_then_flip(self, segments):
+        ok = verify(self, segments)
+        pool.cxl.buf[at] ^= 0xFF
+        return ok
+
+    def read_then_heal(off, nbytes):
+        out = read(off, nbytes)
+        if off <= at < off + nbytes:
+            pool.cxl.buf[at] ^= 0xFF
+        return out
+
+    monkeypatch.setattr(FusedScatter, "verify_rows", verify_then_flip)
+    reader.view.read = read_then_heal
+    eng.pre_install_hot()
+    eng.install_all_sync()
+    torch.cuda.synchronize()
+    assert eng.walk_routes["batched"] == 2
+    assert eng.repair_stats["checksum_mismatches"] == 1
+    assert eng.repair_stats["checksum_repairs"] == 1
+    assert inst.all_present() and torch.equal(inst.image.buf, image.buf)
+    assert inst.scatter_fn.stats["pages_verified"] == regions.n_hot + regions.n_cold

@@ -18,7 +18,9 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.interop, repro_torch.kernels.build, repro_torch.configs, "
             "repro_torch.configs.base, repro_torch.configs.shapes, repro_torch.models, "
             "repro_torch.models.transformer, repro_torch.serve, "
-            "repro_torch.kernels.flash_attention, repro_torch.core.failover; "
+            "repro_torch.kernels.flash_attention, repro_torch.core.failover, "
+            "repro_torch.core.profiler, repro_torch.checkpoint, repro_torch.checkpoint.ckpt, "
+            "repro_torch.serve.strategies, repro_torch.serve.coldstart; "
             "repro_torch.configs.base.load_all(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad")

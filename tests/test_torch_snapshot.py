@@ -133,8 +133,6 @@ def test_unported_layouts_raise():
         port.build_snapshot(pool, img, ws, "m", compress_cold=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.estimate_snapshot_cxl_size(img, ws, compress_cold=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.snapshot.plan_recuration(pool, None, None)
     regions = port.build_snapshot(pool, img, ws, "m")
     compressed = dataclasses.replace(regions, cold_compressed=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
