@@ -79,7 +79,34 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              device idle share over a 3 s window under ``torch.profiler``
              once the nine borrows are out, and the peak memory.
 
-9. recurate — heat-driven re-curation at the same 1.5 GiB image: a
+9. topology — cell (6), the multi-pod topology at the same 1.5 GiB image:
+             ``SimCluster(n_pods=3, ports_per_pod=2, schedule="round_robin",
+             device="cuda")`` with I1–I8 checked after every step, arenas
+             for two versions a pod, every pod master publishing through the
+             fused sweep (``scripts/sim_scenarios.topology_cell``): a group
+             publish of v0 to pods 0 and 1; an update to v1 (4,096 pages
+             rewritten) racing 9 routed borrowers (3 homed on each pod, two
+             attempts of 1,024 hot pages each) and a full restore on pod 0
+             through ``FusedScatter``; a migration to pod 2 at 10x the
+             break-even reads that retires the least-demanded source; a
+             partition of pods 0 and 2 under a pod-0 borrower, which must
+             read from pod 1, and its heal, after which a second pod-0
+             borrower must read from pod 2; the loss of pod 1; a group
+             delete.  Every borrowed page, the
+             restore and the migrated replica bit-identical; local,
+             inter-pod and fall-through routing all taken; every pod's free
+             lists back to the start; launches exact: fused_publish 5 (one a
+             pod a group write), fused_restore 2 + the image's cold runs.
+
+10. sim    — every scenario of ``scripts/sim_scenarios.py`` (the single-pod
+             and the multi-pod matrix at the tests' seeds, the drift and
+             dedup sets at seed offsets 0–2, the dedup scenarios with
+             ``page_checksum`` as the stores' hash), each run on the CPU and
+             on the card in this process: traces, events, restored ledgers,
+             catalogs, free lists and fault stats must be equal, and each of
+             the six data-plane wrappers must have launched.
+
+11. recurate — heat-driven re-curation at the same 1.5 GiB image: a
              ``PoolMaster`` with a ``HeatRegistry`` publishes it, two restores
              through ``Orchestrator`` touch the same seeded half of the hot
              set through ``touch_pages`` and the same 1,024 seeded cold pages
@@ -90,7 +117,7 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              with every page verified; launch counts exact, delete and gc
              return every byte.
 
-10. coldstart — Phi-4-mini 3.8B's serverless cold start from the pool at
+12. coldstart — Phi-4-mini 3.8B's serverless cold start from the pool at
              full width and depth, float32 weights from the seed (17.8 GB,
              ~4.35 M pages): reference tokens from the original parameters
              (4 prompts of 16 tokens, 8 new tokens); the working set from 16
@@ -110,7 +137,7 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              time to hot and to full, the publish, claim, prefill and decode
              walls, the modeled ledger and the peak device memory.
 
-11. model   — flash attention against its plain versions on the card, each
+13. model   — flash attention against its plain versions on the card, each
              case on the route ``ops.route`` gives it and asserted so: bf16
              with Dk == Dv in {64, 128} on the tensor-core kernel
              (``flash_attention_sm90.cu``), float32 and Dk != Dv on the SIMT
@@ -149,6 +176,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "scripts"))      # sim_scenarios: the simulator's scenarios
 
 PAGE = 4096
 PAPER_INSTANCE_PAGES = (3 << 29) // PAGE       # 1.5 GiB (paper §2.3.3)
@@ -169,6 +197,8 @@ POD_SESSIONS = 8     # co-located restores on host a: concurrency_bench.py's lev
 POD_TOUCHES = 1024   # guest touches an instance makes, cold pages in seeded order
 POD_DELTA = 4096     # non-zero pages the update rewrites
 POD_PROFILE_S = 3.0  # the profiled window of the group restore, once all borrows are out
+TOPO_READ_PAGES = 1024   # hot pages each routed borrower reads and verifies an attempt
+DATA_PLANE = ("fused_publish", "fused_restore", *ROW_KERNELS)
 BF16_FLOPS_PER_S = 989e12                      # H100 SXM data sheet, dense tensor cores
 F32_FLOPS_PER_S = 67e12                        # float32 outside the tensor cores
 MODEL_ARCH = "phi4-mini-3.8b"
@@ -226,6 +256,13 @@ def max_abs_err(pairs) -> int:
         if a.numel():
             errs.append(int((a.to(b.dtype).long() - b.long()).abs().max()))
     return max(errs)
+
+
+def data_plane_wrappers() -> dict:
+    """The six data-plane kernel wrappers by name (their ``launches`` counts)."""
+    from repro_torch import kernels as kmod
+
+    return {name: getattr(kmod, name) for name in DATA_PLANE}
 
 
 def make_image(n_pages: int, seed: int, device):
@@ -1166,7 +1203,6 @@ def pod_phase(torch, np, image, working_set, cold_idx, seed: int, out_dir: Path)
 
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import kernels as kmod
     from repro_torch.core import (STATE_TOMBSTONE, HierarchicalPool, NodePageServer,
                                   Orchestrator, PoolMaster, RestoreEngine, StateImage)
     from repro_torch.kernels.snapshot_fuse import ops
@@ -1180,8 +1216,7 @@ def pod_phase(torch, np, image, working_set, cold_idx, seed: int, out_dir: Path)
     image2 = StateImage(image.manifest, image.buf.clone())
     image2.pages_matrix()[delta] = torch.randint(1, 256, (delta.numel(), PAGE),
                                                  dtype=torch.uint8, generator=g, device=device)
-    counted = {"fused_publish": ops.fused_publish, "fused_restore": ops.fused_restore,
-               **{n: getattr(kmod, n) for n in ROW_KERNELS}}
+    counted = data_plane_wrappers()
     threads_before = set(threading.enumerate())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1386,6 +1421,144 @@ def log_pod(rep: dict, card: str) -> None:
         f"ms {json.dumps(rep['modeled_ledger_s']['a0'])}")
 
 
+def topology_phase(torch, np, image, working_set, cold_idx, seed: int) -> dict:
+    """Cell (6), the multi-pod topology at the 1.5 GiB instance (see the
+    module docstring): ``sim_scenarios.topology_cell`` on three pods of two
+    MHD ports, every pod master publishing through the fused sweep and the
+    restore installing through ``FusedScatter``, I1–I8 after every step;
+    then the launch counts the path must make."""
+    import gc
+
+    import sim_scenarios as sims
+
+    from repro_torch.core import HostView, runs_of_indices
+    from repro_torch.kernels.snapshot_fuse import ops
+
+    device = image.buf.device
+    rng = np.random.default_rng(seed + 19)
+    nonzero = np.concatenate([working_set, cold_idx])
+    delta = np.sort(rng.choice(nonzero, POD_DELTA, replace=False))
+    v1 = sims.rewrite_pages(image, delta, seed + 19)
+    n = image.total_pages
+    mib = 1 << 20
+    # each tier sized for two versions of the snapshot; the owner protocol frees the
+    # old version before it rebuilds, so one version at a time is resident
+    cxl = -(-2 * (working_set.size * PAGE + n * 8 + mib) // mib) * mib
+    rdma = -(-2 * (cold_idx.size * PAGE + mib) // mib) * mib
+    n_cold_runs = int(runs_of_indices(cold_idx).shape[0])
+    want = {"fused_publish": 5, "fused_restore": 2 + n_cold_runs}
+    counted = data_plane_wrappers()
+    gc.collect()
+    views0 = sum(isinstance(o, HostView) for o in gc.get_objects())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    for k in counted.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    c, rep = sims.topology_cell(seed, device, (image, working_set), (v1, working_set),
+                                TOPO_READ_PAGES, cxl, rdma,
+                                publish_fn=ops.make_fused_publish_fn(),
+                                scatter_fn=ops.FusedScatter(), name="inst")
+    torch.cuda.synchronize()
+    rep["phase_wall_s"] = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counted.items()}
+    rep.update(launches=launches, expected_launches=want, n_cold_runs=n_cold_runs,
+               delta_pages=POD_DELTA, arena_bytes={"cxl": cxl, "rdma": rdma},
+               read_pages=TOPO_READ_PAGES,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               peak_mem_above_start_bytes=torch.cuda.max_memory_allocated() - base_mem)
+    del c, v1
+    gc.collect()
+    rep["host_views_left"] = sum(isinstance(o, HostView) for o in gc.get_objects()) - views0
+    if rep["host_views_left"]:
+        raise AssertionError(f"topology: {rep['host_views_left']} HostViews (each with a "
+                             f"shadow as large as its CXL tier) outlived the cluster")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"topology: launch counts {launches}, want {want} (one publish "
+                             f"a pod a group write; a verify-only launch and a flush for the "
+                             f"batched hot walk, one install a cold run)")
+    return rep
+
+
+def log_topology(rep: dict, card: str) -> None:
+    w = {k: v * 1e3 for k, v in rep["walls_s"].items()}
+    log(f"  [{card}] 3 pods x 2 ports, arenas cxl {rep['arena_bytes']['cxl'] / 2**20:.0f} MiB "
+        f"rdma {rep['arena_bytes']['rdma'] / 2**20:.0f} MiB a pod; {rep['steps']} steps, "
+        f"I1-I8 checked {rep['checks_run']} times; phase {rep['phase_wall_s']:.2f} s wall")
+    log(f"  [{card}] walls inside each program's own steps: group publish v0 "
+        f"{w['publish_v0']:.2f} ms, update v1 {w['update_v1']:.2f} ms "
+        f"({rep['update_drain_polls']} drain polls), restore {w['restore']:.2f} ms, "
+        f"migration (reconstruct + publish + retire) {w['migrate']:.2f} ms, the 9 borrowers "
+        f"{rep['borrowers_s'] * 1e3:.2f} ms, the I1-I8 checks {w['checks']:.2f} ms")
+    log(f"  [{card}] routing {rep['replica_stats']}; router {rep['router_stats']}; "
+        f"fallthrough by pod {rep['fallthrough_by_pod']}; migration {rep['migration']}; "
+        f"pod-0 borrower routed {rep['partition']}; "
+        f"pod 1 held a replica when lost: {rep['promoted_pod1_replica']}")
+    log(f"  [{card}] borrowers {rep['borrowers']}; restored {rep['restored']}; modeled "
+        f"inter-pod (paper cost model, not device time) {rep['modeled_interpod_s'] * 1e3:.4f} ms")
+    log(f"  [{card}] every borrowed page, the restore and the migrated replica bit-identical; "
+        f"free lists back to the start; launches {rep['launches']} (want "
+        f"{rep['expected_launches']}); peak device memory "
+        f"{rep['peak_mem_bytes'] / 2**30:.3f} GiB; no HostView left")
+
+
+def sim_phase(torch) -> dict:
+    """The simulator's scenario matrix on the card: every scenario of
+    ``scripts/sim_scenarios.py`` at the tests' seed, the drift and dedup sets
+    at seed offsets 0–2, and the dedup scenarios with ``page_checksum`` as
+    the stores' hash, each on the CPU and on the card in this process; the
+    two runs must agree (``sim_scenarios.cuda_parity``).  Every data-plane
+    wrapper must have launched."""
+    import sim_scenarios as sims
+
+    from repro_torch.core.dedup import poly32_hash_fn
+
+    runs = [(name, sims.SCENARIOS[name], sims.scenario_seed(name), {})
+            for name in sorted(sims.SCENARIOS)]
+    runs += [(name, sims.TOPOLOGY_SCENARIOS[name], sims.topology_seed(name), {})
+             for name in sorted(sims.TOPOLOGY_SCENARIOS)]
+    runs += [(f"{name}@{o}", sims.SCENARIOS[name], seed_of(o), {})
+             for pairs in sims.MULTI_SEED.values() for o in (0, 1, 2)
+             for name, seed_of in pairs]
+    runs += [(f"{name}+page_checksum", sims.SCENARIOS[name], sims.scenario_seed(name),
+              {"dedup_hash_fn": poly32_hash_fn}) for name in sims.DEDUP_SCENARIOS]
+    counted = data_plane_wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counted.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    rows = []
+    for label, fn, seed, kw in runs:
+        c, cpu_s, cuda_s = sims.cuda_parity(fn, seed, **kw)
+        rows.append({"scenario": label, "seed": seed, "steps": c.step_no,
+                     "checks_run": c.checker.checks_run, "cpu_s": cpu_s, "cuda_s": cuda_s})
+        del c
+    launches = {name: k.launches for name, k in counted.items()}
+    rep = {"runs": rows, "launches": launches, "phase_wall_s": time.perf_counter() - t0,
+           "cpu_s": sum(r["cpu_s"] for r in rows), "cuda_s": sum(r["cuda_s"] for r in rows),
+           "steps": sum(r["steps"] for r in rows),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"sim: {idle} never launched on the card; launches {launches}")
+    return rep
+
+
+def log_sim(rep: dict, card: str) -> None:
+    slow = sorted(rep["runs"], key=lambda r: -r["cuda_s"])[:3]
+    log(f"  [{card}] {len(rep['runs'])} scenario runs, each on the card and on the CPU with "
+        f"equal traces, events, restored ledgers, catalogs (checksum tables included), free "
+        f"lists and fault stats; "
+        f"{rep['steps']} steps on the card; walls cuda {rep['cuda_s']:.2f} s, cpu "
+        f"{rep['cpu_s']:.2f} s, phase {rep['phase_wall_s']:.2f} s")
+    log(f"  [{card}] slowest on the card: "
+        + ", ".join(f"{r['scenario']} {r['cuda_s']:.2f} s ({r['steps']} steps)" for r in slow))
+    log(f"  [{card}] launches {rep['launches']}; peak device memory "
+        f"{rep['peak_mem_bytes'] / 2**30:.3f} GiB")
+
+
 def restore_launches(scatter_stats: dict, queued: int, walks: int, flushes: int) -> int:
     """``fused_restore`` launches of one restore: a direct install a batch
     that was not queued, a verify-only launch a batched walk, a launch a
@@ -1401,14 +1574,12 @@ def recurate_phase(torch, np, image, working_set, cold_idx, seed: int) -> dict:
     restored bit-identically, delete and gc."""
     import threading
 
-    from repro_torch import kernels as kmod
     from repro_torch.core import HeatRegistry, HierarchicalPool, Orchestrator, PoolMaster, \
         RestoreEngine
     from repro_torch.kernels.snapshot_fuse import ops
 
     name = "recurate"
-    counted = {"fused_publish": ops.fused_publish, "fused_restore": ops.fused_restore,
-               **{n: getattr(kmod, n) for n in ROW_KERNELS}}
+    counted = data_plane_wrappers()
     rng = np.random.default_rng(seed + 31)
     traced = rng.choice(cold_idx, RECURATE_TOUCHES, replace=False)
     used = np.sort(rng.choice(working_set, working_set.size // 2, replace=False))
@@ -1605,8 +1776,7 @@ def coldstart_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
 
     cfg = get_config(MODEL_ARCH)
     table = "params/embed/table"
-    counted = {"fused_publish": ops.fused_publish, "fused_restore": ops.fused_restore,
-               **{n: getattr(kmod, n) for n in ROW_KERNELS}}
+    counted = data_plane_wrappers()
     rep = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab, "param_count": cfg.param_count()}
     threads_before = set(threading.enumerate())
@@ -2434,20 +2604,35 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("pod")
 
-    # 9. re-curation at the 1.5 GiB image, counts reset inside just before it
+    # 9. the multi-pod topology at the same image, counts reset inside just before it
+    log("topology:")
+    report["topology"] = topology_phase(torch, np, image, working_set, cold_idx, args.seed)
+    log_topology(report["topology"], card)
+    torch.cuda.empty_cache()
+    phase_done("topology")
+
+    # 10. the simulator's scenario matrix, on the card against the CPU
+    log("sim:")
+    report["sim"] = sim_phase(torch)
+    log_sim(report["sim"], card)
+    torch.cuda.empty_cache()
+    phase_done("sim")
+    log(f"phases topology + sim: {report['phase_s']['topology'] + report['phase_s']['sim']:.2f} s")
+
+    # 11. re-curation at the 1.5 GiB image, counts reset inside just before it
     log("recurate:")
     report["recurate"] = recurate_phase(torch, np, image, working_set, cold_idx, args.seed)
     torch.cuda.empty_cache()
     phase_done("recurate")
 
-    # 10. Phi-4-mini's cold start from the pool, counts reset inside just before it
+    # 12. Phi-4-mini's cold start from the pool, counts reset inside just before it
     log("coldstart:")
     del pm, image, buf
     torch.cuda.empty_cache()
     report["coldstart"] = coldstart_phase(torch, np, args.seed, device, out.parent)
     phase_done("coldstart")
 
-    # 11. the model: the flash kernel's checks and timings, then Phi-4-mini's
+    # 13. the model: the flash kernel's checks and timings, then Phi-4-mini's
     # prefill forward (counts reset inside just before it), serving and parity
     log("model:")
     report["flash"] = check_flash(torch, device, args.seed)
@@ -2456,6 +2641,8 @@ def main() -> int:
 
     dedup_launches = report["dedup"]["launches"]
     pod_launches = report["pod"]["launches"]
+    topo_launches = report["topology"]["launches"]
+    sim_launches = report["sim"]["launches"]
     recurate_launches = report["recurate"]["launches"]
     coldstart_launches = report["coldstart"]["launches"]
     coldstart_err = report["coldstart"]["max_abs_err"]
@@ -2466,6 +2653,8 @@ def main() -> int:
          "launches_by_path": {"private": launches["fused_publish"],
                               "dedup": dedup_launches["fused_publish"],
                               "pod": pod_launches["fused_publish"],
+                              "topology": topo_launches["fused_publish"],
+                              "sim": sim_launches["fused_publish"],
                               "recurate": recurate_launches["fused_publish"],
                               "coldstart": coldstart_launches["fused_publish"]},
          "bit_equal": True,
@@ -2479,6 +2668,8 @@ def main() -> int:
          "launches_by_path": {"private": launches["fused_restore"],
                               "dedup": dedup_launches["fused_restore"],
                               "pod": pod_launches["fused_restore"],
+                              "topology": topo_launches["fused_restore"],
+                              "sim": sim_launches["fused_restore"],
                               "recurate": recurate_launches["fused_restore"],
                               "coldstart": coldstart_launches["fused_restore"]},
          "bit_equal": True, "max_abs_err": res_err,
@@ -2504,6 +2695,7 @@ def main() -> int:
             "launches": dedup_launches[name],
             "launches_by_path": {"private": launches_private_row[name],
                                  "dedup": dedup_launches[name], "pod": pod_launches[name],
+                                 "topology": topo_launches[name], "sim": sim_launches[name],
                                  "recurate": recurate_launches[name],
                                  "coldstart": coldstart_launches[name]},
             "bit_equal": True,
@@ -2525,6 +2717,8 @@ def main() -> int:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "simt_ms": r["simt_ms"], "simt_source": FLASH_SRC["simt"], "shape": r["shape"]})
     report["kernels"] = kernels
+    report["smoke_s"] = sum(report["phase_s"].values())
+    log(f"smoke: {report['smoke_s']:.2f} s over {len(report['phase_s'])} phases on {card}")
     out.write_text(json.dumps(report, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

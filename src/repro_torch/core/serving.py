@@ -1095,8 +1095,10 @@ class RestoreEngine:
         """Why the walk over ``pages`` (read at pool ``offs``) must run per
         extent, or None when it can be batched:
 
-        * ``injector`` — a fault injector is armed on a tier, so a read could
-          fail, retry, sleep or be poisoned;
+        * ``injector`` — a fault injector is armed on a tier, or a tier is a
+          proxy whose reads inject faults (``injects_faults``, the
+          simulator's ``FlakyTier``), so a read could fail, retry, sleep or
+          be poisoned;
         * ``scatter_fn`` — the scatter function has no batched form;
         * ``cached_lines`` — (verified walks) a valid HostView line overlaps
           the CXL source rows, so a read may return other bytes than the
@@ -1106,6 +1108,7 @@ class RestoreEngine:
           walk takes the reference's repair path.
         """
         if any(getattr(t, "fault_injector", None) is not None
+               or getattr(t, "injects_faults", False)
                for t in (self.reader.view.tier, self.reader.rdma)):
             return "injector"
         scatter = self.instance.scatter_fn or page_scatter

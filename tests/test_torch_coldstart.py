@@ -21,7 +21,6 @@ from repro.configs.base import get_config as jax_get_config
 from repro.models.model_zoo import build as jax_build
 from repro.serve.coldstart import SkeletonPool as RefSkeletonPool
 from repro.serve.coldstart import restore_server as ref_restore_server
-from repro.sim.clock import VirtualClock
 from repro_torch import core as port
 from repro_torch.checkpoint.ckpt import save_checkpoint
 from repro_torch.configs.base import get_config
@@ -29,6 +28,7 @@ from repro_torch.core.clock import RealClock
 from repro_torch.interop import params_from_numpy
 from repro_torch.serve import new_instance
 from repro_torch.serve.coldstart import Skeleton, SkeletonPool, restore_server
+from repro_torch.sim.clock import VirtualClock
 
 TINY = get_config("qwen2.5-14b").reduced(
     n_layers=2, d_model=64, n_heads=2, n_kv_heads=2, d_ff=128, vocab=128,

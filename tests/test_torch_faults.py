@@ -9,13 +9,19 @@ from hypothesis import strategies as st
 
 from repro.core import faults as ref_faults
 from repro.core.pool import TimeLedger as RefLedger
-from repro.sim.clock import VirtualClock
+from repro.sim.clock import VirtualClock as RefVirtualClock
 from repro_torch.core import faults
 from repro_torch.core.pool import TimeLedger
+from repro_torch.sim.clock import VirtualClock
+
+
+def _clock(mod):
+    """Each package's own virtual clock."""
+    return RefVirtualClock() if mod is ref_faults else VirtualClock()
 
 
 def _run_once(mod, ledger_cls, seed, n_faults):
-    clock = VirtualClock()
+    clock = _clock(mod)
     ledger = ledger_cls()
     trace = []
     left = [n_faults]
@@ -90,7 +96,7 @@ def test_poison_filters_tensor_in_place():
 
 def test_tier_health_state_machine_matches():
     def walk(mod):
-        clock = VirtualClock()
+        clock = _clock(mod)
         h = mod.TierHealth("cxl", clock, failure_threshold=2, cooldown_s=1e-3)
         seen = []
         for step in ("f", "f", "a", "t", "a", "s", "f", "f", "t", "a", "f", "t", "a", "s"):

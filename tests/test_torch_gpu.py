@@ -899,3 +899,39 @@ def test_batched_walk_repairs_a_row_changed_after_the_preverify(cuda_device, mon
     assert eng.repair_stats["checksum_repairs"] == 1
     assert inst.all_present() and torch.equal(inst.image.buf, image.buf)
     assert inst.scatter_fn.stats["pages_verified"] == regions.n_hot + regions.n_cold
+
+
+def _sim_scenarios():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    import sim_scenarios
+
+    return sim_scenarios
+
+
+@pytest.mark.parametrize("name", ["cxl_poison_during_shared_restore",
+                                  "dedup_owner_crash_mid_republish"])
+def test_sim_scenario_on_card_equals_its_cpu_run(cuda_device, name):
+    """A chaos scenario (fused publish, verified fused restore, poison
+    repair) and a dedup one: trace, events, restored ledgers, catalogs,
+    free lists and fault stats on the card equal the CPU run's."""
+    sims = _sim_scenarios()
+    fn = sims.SCENARIOS[name]
+    launches_before = fused_restore.launches + page_scatter.launches
+    c, _cpu_s, _cuda_s = sims.cuda_parity(fn, sims.scenario_seed(name))
+    assert c.pool.cxl.buf.device.type == "cuda" and c.restored
+    assert fused_restore.launches + page_scatter.launches > launches_before
+
+
+def test_topology_scenario_on_card_equals_its_cpu_run(cuda_device):
+    """The replicated update under routed borrowers on three pods: the
+    card's run equals the CPU's, replica stats included."""
+    sims = _sim_scenarios()
+    fn = sims.TOPOLOGY_SCENARIOS["replicated_publish_and_update"]
+    seed = sims.topology_seed("replicated_publish_and_update")
+    c, _cpu_s, _cuda_s = sims.cuda_parity(fn, seed)
+    cpu = fn(seed, "cpu")
+    assert c.replicas.stats == cpu.replicas.stats and c.router.stats == cpu.router.stats
+    assert all(p.pool.rdma.buf.device.type == "cuda" for p in c.pods)

@@ -1,6 +1,7 @@
-"""The port stands alone: importing ``repro_torch`` loads neither ``jax`` nor
-the JAX package ``repro``, needs no card and no nvcc, and no file of the
-port (nor ``chip_smoke.py``) imports them."""
+"""The port stands alone: importing ``repro_torch`` (and the simulator's
+scenario library) loads neither ``jax`` nor the JAX package ``repro``, needs
+no card and no nvcc, and no file of the port (nor ``chip_smoke.py`` and the
+scripts it imports) imports them."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "sim_scenarios.py",
+    ROOT / "scripts" / "topology_phase.py"]
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -20,10 +23,12 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.models.transformer, repro_torch.serve, "
             "repro_torch.kernels.flash_attention, repro_torch.core.failover, "
             "repro_torch.core.profiler, repro_torch.checkpoint, repro_torch.checkpoint.ckpt, "
-            "repro_torch.serve.strategies, repro_torch.serve.coldstart; "
+            "repro_torch.serve.strategies, repro_torch.serve.coldstart, "
+            "repro_torch.sim, repro_torch.sim.cluster, repro_torch.topology; "
+            "sys.path.insert(0, %r); import sim_scenarios; "
             "repro_torch.configs.base.load_all(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
-            "assert not bad, bad")
+            "assert not bad, bad") % str(ROOT / "scripts")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
 

@@ -186,13 +186,14 @@ def test_instance_batch_skips_present_pages_via_src_indices():
 def test_cxl_brownout_degrades_to_rdma_like_reference():
     """A browned-out CXL link trips the breaker: the hot set is served over
     the RDMA path instead, bit-identically, at the same modeled cost."""
-    from repro.sim.clock import VirtualClock
+    from repro.sim.clock import VirtualClock as RefVirtualClock
+    from repro_torch.sim.clock import VirtualClock
 
     out = []
     for mod, fmod in ((ref, ref_faults), (port, faults)):
         arrays, ws = make_image(9)
         kw = {} if mod is ref else {"device": "cpu"}
-        clock = VirtualClock()
+        clock = RefVirtualClock() if mod is ref else VirtualClock()
         img = mod.StateImage.build(arrays, **kw)
         pool = mod.HierarchicalPool(CXL, RDMA, clock=clock, **kw)
         regions = mod.build_snapshot(pool, img, ws, "b")
