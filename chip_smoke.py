@@ -117,7 +117,29 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              with every page verified; launch counts exact, delete and gc
              return every byte.
 
-12. coldstart — Phi-4-mini 3.8B's serverless cold start from the pool at
+12. fleet   — fleet serving (``scripts/fleet_bench.py``, ``repro_torch.fleet``):
+             (a) the bench twin's ``run`` and ``run_multipod`` at the
+             reference's full configurations (200 function types over 16
+             base groups, 189,870 invocations; the multi-pod tiers) with
+             every pod on the card and every publish one fused launch, each
+             output ``==`` the committed ``experiments/fleet_bench.json`` /
+             ``fleet_bench_multipod.json`` key for key and every criterion
+             true; (b) the same fleet with each variant's pages x64 (16 MiB
+             hot, 8 MiB cold, 4 MiB zero, 384 delta pages) from seeded
+             generators on the card, published into one dedup pod, profiles
+             exact against ``modeled_concurrent_restore_s`` at conc 1 and
+             4, the 8 linspace variants restored verified and bit-identical
+             to images made again from the seed, I6, the locality drive over
+             the full trace (profiles extrapolated 16x to the bench's 256
+             MiB), then every variant deleted and every pool byte back;
+             (c) the 1.5 GiB image published with ``compress_cold=True``:
+             without ``zstandard`` the uncompressed publish, with it a
+             compressed one restored verified.  Launch counts exact in each
+             part; no thread left.  Prints p50 and p99 per policy and tier,
+             the keys compared, each step's wall, the publish wall per
+             variant and the host decision share, and the peak memory.
+
+13. coldstart — Phi-4-mini 3.8B's serverless cold start from the pool at
              full width and depth, float32 weights from the seed (17.8 GB,
              ~4.35 M pages): reference tokens from the original parameters
              (4 prompts of 16 tokens, 8 new tokens); the working set from 16
@@ -137,7 +159,7 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              time to hot and to full, the publish, claim, prefill and decode
              walls, the modeled ledger and the peak device memory.
 
-13. model   — flash attention against its plain versions on the card, each
+14. model   — flash attention against its plain versions on the card, each
              case on the route ``ops.route`` gives it and asserted so: bf16
              with Dk == Dv in {64, 128} on the tensor-core kernel
              (``flash_attention_sm90.cu``), float32 and Dk != Dv on the SIMT
@@ -210,6 +232,7 @@ COLDSTART_COMPUTE_S = 0.25  # and its modeled compute
 COLDSTART_CONC = 32         # co-located restores in examples/serve_coldstart.py
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 16, 8   # the cold-started server's requests
 PREFILL_SEQ = 8192          # prefill_32k cut to one 8,192-token sequence
+FLEET_SCALE_X = 64          # fleet (b): pages a variant over the bench's full configuration
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:91"
 FLASH_CSRC = "src/repro_torch/kernels/flash_attention/csrc"
 FLASH_SRC = {"sm90": f"{FLASH_CSRC}/flash_attention_sm90.cu",
@@ -1688,6 +1711,279 @@ def recurate_phase(torch, np, image, working_set, cold_idx, seed: int) -> dict:
     return rep
 
 
+def json_diff(a, b, path: str = "") -> list:
+    """Paths where two JSON values differ (``==``, floats included)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return [d for k in sorted(set(a) | set(b), key=str)
+                for d in json_diff(a.get(k), b.get(k), f"{path}/{k}")]
+    return [] if a == b else [f"{path}: {a!r} != {b!r}"]
+
+
+def json_leaves(d) -> int:
+    return sum(json_leaves(v) for v in d.values()) if isinstance(d, dict) else 1
+
+
+def check_launches(where: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{where}: launches {got}, want {want}")
+
+
+def fleet_reference(torch, fb, device) -> dict:
+    """(a): the bench twin's single-pod and multi-pod runs at the
+    reference's configurations with every pod on the card, each held key for
+    key against the JAX package's committed JSON file."""
+    wrappers = data_plane_wrappers()
+    for k in wrappers.values():
+        k.launches = 0
+    rep = {"walls_s": {}, "keys_compared": {}}
+    outs = {}
+    for fn, name in (("run", "fleet_bench.json"), ("run_multipod", "fleet_bench_multipod.json")):
+        walls = {}
+        t0 = time.perf_counter()
+        out = json.loads(json.dumps(getattr(fb, fn)(device=device, walls=walls)))
+        walls["total"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        want = json.loads((ROOT / "experiments" / name).read_text())
+        diff = json_diff(out, want)
+        if diff:
+            raise AssertionError(f"fleet {fn}: differs from experiments/{name}: {diff[:8]}")
+        if not all(out["criteria"].values()):
+            raise AssertionError(f"fleet {fn}: criteria {out['criteria']}")
+        rep["walls_s"][fn] = walls
+        rep["keys_compared"][name] = json_leaves(want)
+        outs[fn] = out
+    launches = {n: k.launches for n, k in wrappers.items()}
+    publishes = outs["run"]["fleet"]["n_types"] + outs["run_multipod"]["fleet"]["n_types"]
+    restores = (outs["run"]["pod"]["restores_verified"]
+                + outs["run_multipod"]["fleet"]["restores_verified"])
+    # a publish: the admission estimate's zero scan and hot gather, the fused
+    # sweep, one store write a tier; a restore: one batched walk a tier
+    want = {"fused_publish": publishes, "fused_restore": 0, "zero_detect": publishes,
+            "page_checksum": 0, "page_gather": publishes,
+            "page_scatter": 2 * publishes + 2 * restores}
+    check_launches("fleet (a)", launches, want)
+    rep["launches"] = launches
+    rep["policies"] = {p: {k: s[k] for k in ("p50_cold_start_s", "p99_cold_start_s")}
+                       for p, s in outs["run"]["policies"].items()}
+    rep["tiers"] = {t: {k: s[k] for k in ("p50_cold_start_s", "p99_cold_start_s")}
+                    for t, s in outs["run_multipod"]["tiers"].items()}
+    rep["invocations"] = {fn: o["fleet"]["invocations"] for fn, o in outs.items()}
+    for fn, walls in rep["walls_s"].items():
+        log(f"  (a) {fn}: {', '.join(f'{k} {v:.2f} s' for k, v in walls.items())}")
+    for p, s in rep["policies"].items():
+        log(f"  (a) {p:>12}: p50 {s['p50_cold_start_s'] * 1e3:.3f} ms, p99 "
+            f"{s['p99_cold_start_s'] * 1e3:.3f} ms (modeled)")
+    for t, s in rep["tiers"].items():
+        log(f"  (a) {t:>14}: p50 {s['p50_cold_start_s'] * 1e3:.3f} ms, p99 "
+            f"{s['p99_cold_start_s'] * 1e3:.3f} ms (modeled)")
+    log(f"  (a) every key equal to the committed files ({rep['keys_compared']}), all criteria "
+        f"true, {rep['invocations']} invocations; launches {launches}")
+    return rep
+
+
+def fleet_scale(torch, np, fb, device, seed: int) -> dict:
+    """(b): the full configuration's 200 function types with each variant's
+    pages ``FLEET_SCALE_X`` times the bench's, published into one dedup pod on the
+    card, profiled, 8 of them restored verified, I6, the locality drive over
+    the full trace, then every variant deleted and the pool back to zero."""
+    from repro_torch import core
+    from repro_torch.fleet import generate_trace, synthesize_fleet
+    from repro_torch.kernels import FusedScatter
+
+    c = fb.bench_config(quick=False)
+    hot, cold, zero, delta = (c[k] * FLEET_SCALE_X for k in ("hot", "cold", "zero", "delta"))
+    fleet = synthesize_fleet(c["n_types"], c["n_bases"], c["total_rps"], seed=fb.SEED,
+                             compute_mean_s=c["compute_mean"])
+    wrappers = data_plane_wrappers()
+    for k in wrappers.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    rep = {"scale_x": FLEET_SCALE_X, "n_variants": len(fleet),
+           "pages_per_variant": {"hot": hot, "cold": cold, "zero": zero, "delta": delta}}
+    t0 = time.perf_counter()
+    pool, master, pub = fb.build_scale_pod(fleet, hot, cold, zero, delta, seed=seed,
+                                           device=device)
+    rep["publish_s"] = time.perf_counter() - t0
+    decide = pool.dedup_cxl.decide_s + pool.dedup_rdma.decide_s
+    rep["publish_wall_ms"] = {"p50": _pct(np, pub, 50), "max": max(pub) * 1e3,
+                              "sum_s": sum(pub)}
+    rep["decide_s"] = decide
+    rep["decide_share"] = decide / sum(pub)
+    rep["pool_bytes"] = {"cxl": pool.cxl.bytes_in_use, "rdma": pool.rdma.bytes_in_use}
+    t0 = time.perf_counter()
+    profiles, err = fb.profile_pod(pool, master, fleet)    # isclose at conc 1 and 4
+    rep["profile_s"] = time.perf_counter() - t0
+    rep["restores"] = []
+    t0 = time.perf_counter()
+    for i in fb.sample_ids(fleet, c["n_sample"]):
+        f = fleet[i]
+        borrow = master.catalog.borrow(f.name)
+        try:
+            img = fb.scale_image(f, hot, cold, zero, delta, seed, device)
+            r = restore_once(torch, pool, borrow.regions, img.buf, img.manifest, FusedScatter())
+            check_routes(f"fleet (b) {f.name}", r["walk_routes"])
+            if r["pages_verified"] != borrow.regions.n_hot + borrow.regions.n_cold:
+                raise AssertionError(f"fleet (b) {f.name}: {r['pages_verified']} verified")
+            rep["restores"].append({"fn": f.name, "restore_s": r["restore_s"],
+                                    "pages_verified": r["pages_verified"]})
+            del img, r
+        finally:
+            borrow.release()
+    rep["restores_s"] = time.perf_counter() - t0
+    regions = [master.catalog.find(f.name).regions for f in fleet]
+    if not i6_holds(np, core, pool, regions):
+        raise AssertionError("fleet (b) I6: store refcounts differ from the live offset arrays")
+    torch.cuda.synchronize()
+    rep["peak_mem_above_start_bytes"] = torch.cuda.max_memory_allocated() - base_mem
+    launches = {n: k.launches for n, k in wrappers.items()}
+    n = len(fleet)
+    want = {"fused_publish": n, "fused_restore": 4 * c["n_sample"], "zero_detect": n,
+            "page_checksum": 0, "page_gather": n, "page_scatter": 2 * n}
+    check_launches("fleet (b)", launches, want)
+    rep["launches"] = launches
+    del regions
+    fb.free_pod(master)
+    if pool.cxl.bytes_in_use or pool.rdma.bytes_in_use or pool.dedup_cxl.refcounts() \
+            or pool.dedup_rdma.refcounts():
+        raise AssertionError(f"fleet (b): pool not back to zero: cxl {pool.cxl.bytes_in_use} "
+                             f"rdma {pool.rdma.bytes_in_use}")
+    del pool, master
+    torch.cuda.empty_cache()
+    # the locality policy over the full configuration's trace, the profiles
+    # extrapolated to the bench's hot bytes
+    x = c["target_hot"] / (hot * PAGE)
+    trace = generate_trace(fleet, c["t_end"], seed=fb.SEED)
+    t0 = time.perf_counter()
+    res = fb.drive(fleet, {k: p.scaled(x) for k, p in profiles.items()}, trace, "locality",
+                   c["n_hosts"], c["slots"], c["max_hosts"])
+    rep["drive_s"] = time.perf_counter() - t0
+    s = res.summary()
+    if s["completed"] != s["invocations"]:
+        raise AssertionError(f"fleet (b) drive: {s['completed']} of {s['invocations']} done")
+    rep["extrapolated_x"] = x
+    rep["summary"] = s
+    return rep
+
+
+def fleet_a4d(torch, image, working_set) -> dict:
+    """(c): the 1.5 GiB image published with ``compress_cold=True`` and
+    without it, each into a fresh pool through the fused sweep.  Without
+    ``zstandard`` the first must be the second (the reference's rule); with
+    it, the compressed snapshot restores bit-identically, every page
+    verified."""
+    import dataclasses
+
+    from repro_torch import core
+    from repro_torch.core import snapshot as snap
+    from repro_torch.kernels import FusedScatter, make_fused_publish_fn
+
+    wrappers = data_plane_wrappers()
+    for k in wrappers.values():
+        k.launches = 0
+    pools, regs, walls = [], [], []
+    for compress in (True, False):
+        pool = core.HierarchicalPool(device=image.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        regs.append(core.build_snapshot(pool, image, working_set, "z", compress_cold=compress,
+                                        publish_fn=make_fused_publish_fn()))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        pools.append(pool)
+    rep = {"zstandard": snap._zstd is not None, "publish_s": walls,
+           "cold_compressed": regs[0].cold_compressed}
+    want = dict.fromkeys(DATA_PLANE, 0) | {"fused_publish": 2}
+    if snap._zstd is None:
+        same = (dataclasses.asdict(regs[0]) == dataclasses.asdict(regs[1])
+                and torch.equal(pools[0].cxl.buf, pools[1].cxl.buf)
+                and torch.equal(pools[0].rdma.buf, pools[1].rdma.buf))
+        if regs[0].cold_compressed or not same:
+            raise AssertionError("fleet (c): compress_cold without zstandard is not the "
+                                 "uncompressed publish")
+        log("  (c) zstandard is not installed here: compress_cold=True published the 1.5 GiB "
+            "image uncompressed (cold_compressed=False), regions and tier bytes equal to the "
+            "uncompressed publish; the zstd branches were not driven")
+    else:
+        r = restore_once(torch, pools[0], regs[0], image.buf, image.manifest, FusedScatter())
+        if r["pages_verified"] != regs[0].n_hot + regs[0].n_cold:
+            raise AssertionError(f"fleet (c): {r['pages_verified']} pages verified")
+        want["fused_restore"] = 4
+        rep["ratio"] = regs[0].cold_raw_bytes / regs[0].cold_bytes
+        rep["restore_s"] = r["restore_s"]
+        log(f"  (c) compressed cold tier: ratio {rep['ratio']:.3f} "
+            f"({regs[0].cold_raw_bytes} -> {regs[0].cold_bytes} B), restored bit-identically "
+            f"in {r['restore_s']:.2f} s, every page verified")
+    launches = {n: k.launches for n, k in wrappers.items()}
+    check_launches("fleet (c)", launches, want)
+    rep["launches"] = launches
+    return rep
+
+
+def log_fleet_scale(b: dict, target_hot: int, a_p99: float) -> None:
+    """(b)'s lines: the cut, the publishes, profiles and restores, the drive."""
+    pv = b["pages_per_variant"]
+    s = b["summary"]
+    log(f"  (b) cut: {pv['hot']} hot pages ({pv['hot'] * PAGE >> 20} MiB) a variant against the "
+        f"bench's {target_hot >> 20} MiB target ({b['scale_x']}x "
+        f"the bench's pages; profiles extrapolated {b['extrapolated_x']:g}x for the drive)")
+    log(f"  (b) {b['n_variants']} variants published in "
+        f"{b['publish_s']:.2f} s: per variant p50 {b['publish_wall_ms']['p50']:.2f} ms, max "
+        f"{b['publish_wall_ms']['max']:.2f} ms wall; host decision share "
+        f"{b['decide_share']:.3f} ({b['decide_s']:.2f} s); pool cxl "
+        f"{b['pool_bytes']['cxl'] / 2**30:.3f} GiB rdma {b['pool_bytes']['rdma'] / 2**30:.3f} GiB")
+    walls = ", ".join(f"{r['restore_s'] * 1e3:.1f}" for r in b["restores"])
+    log(f"  (b) profiles exact at conc 1 and 4 in {b['profile_s']:.2f} s; "
+        f"{len(b['restores'])} restores bit-identical, every page verified, in "
+        f"{b['restores_s']:.2f} s ({walls} ms); I6 holds; launches {b['launches']}; "
+        "pool back to zero")
+    log(f"  (b) locality drive {b['drive_s']:.2f} s: p50 {s['p50_cold_start_s'] * 1e3:.3f} ms, "
+        f"p99 {s['p99_cold_start_s'] * 1e3:.3f} ms (modeled, {b['extrapolated_x']:g}x); (a)'s "
+        f"locality p99 {a_p99 * 1e3:.3f} ms; printed, not compared: the two extrapolate "
+        "different layouts")
+
+
+def fleet_phase(torch, np, image, working_set, seed: int, out_dir: Path) -> dict:
+    """The fleet phase: (a), (b) and (c) above, counts reset before each
+    part; the bench twin's JSON files go to ``out_dir``/fleet_bench.
+    Returns the phase's numbers."""
+    import threading
+
+    import fleet_bench as fb
+
+    threads_before = set(threading.enumerate())
+    fb.OUT = out_dir / "fleet_bench"
+    device = image.device
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rep = {"a": fleet_reference(torch, fb, device)}
+    rep["a_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rep["b"] = b = fleet_scale(torch, np, fb, device, seed)
+    rep["b_s"] = time.perf_counter() - t0
+    log_fleet_scale(b, fb.bench_config(quick=False)["target_hot"],
+                    rep["a"]["policies"]["locality"]["p99_cold_start_s"])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rep["c"] = fleet_a4d(torch, image, working_set)
+    rep["c_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+    if left:
+        raise AssertionError(f"fleet: threads left after the phase: {left}")
+    rep["launches"] = {n: rep["a"]["launches"][n] + b["launches"][n] + rep["c"]["launches"][n]
+                       for n in DATA_PLANE}
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    rep["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"  fleet: (a) {rep['a_s']:.2f} s, (b) {rep['b_s']:.2f} s, (c) {rep['c_s']:.2f} s; "
+        f"peak device memory {rep['peak_mem_bytes'] / 2**30:.3f} GiB ((b) "
+        f"{b['peak_mem_above_start_bytes'] / 2**30:.3f} GiB above its start); launches "
+        f"{rep['launches']}; no thread left")
+    return rep
+
+
 def serve_timed(torch, np, inst, prompts, n_new: int):
     """Greedy serving as ``ServerInstance.generate`` does it, prefill and
     decode timed apart: ``(tokens (B, n_new), prefill logits, last logits,
@@ -2625,14 +2921,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("recurate")
 
-    # 12. Phi-4-mini's cold start from the pool, counts reset inside just before it
+    # 12. fleet serving: the bench twin against the committed results, a pod
+    # at the card's scale and the A4d check, counts reset before each part
+    log("fleet:")
+    report["fleet"] = fleet_phase(torch, np, image, working_set, args.seed, out.parent)
+    torch.cuda.empty_cache()
+    phase_done("fleet")
+
+    # 13. Phi-4-mini's cold start from the pool, counts reset inside just before it
     log("coldstart:")
     del pm, image, buf
     torch.cuda.empty_cache()
     report["coldstart"] = coldstart_phase(torch, np, args.seed, device, out.parent)
     phase_done("coldstart")
 
-    # 13. the model: the flash kernel's checks and timings, then Phi-4-mini's
+    # 14. the model: the flash kernel's checks and timings, then Phi-4-mini's
     # prefill forward (counts reset inside just before it), serving and parity
     log("model:")
     report["flash"] = check_flash(torch, device, args.seed)
@@ -2645,6 +2948,7 @@ def main() -> int:
     sim_launches = report["sim"]["launches"]
     recurate_launches = report["recurate"]["launches"]
     coldstart_launches = report["coldstart"]["launches"]
+    fleet_launches = report["fleet"]["launches"]
     coldstart_err = report["coldstart"]["max_abs_err"]
     cold, hot, store = row_lists["cold"], row_lists["hot"], row_lists["store_write"]
     kernels = [
@@ -2656,6 +2960,7 @@ def main() -> int:
                               "topology": topo_launches["fused_publish"],
                               "sim": sim_launches["fused_publish"],
                               "recurate": recurate_launches["fused_publish"],
+                              "fleet": fleet_launches["fused_publish"],
                               "coldstart": coldstart_launches["fused_publish"]},
          "bit_equal": True,
          "max_abs_err": max(pub_err, coldstart_err["fused_publish"]), "ms": pub["ms"],
@@ -2671,6 +2976,7 @@ def main() -> int:
                               "topology": topo_launches["fused_restore"],
                               "sim": sim_launches["fused_restore"],
                               "recurate": recurate_launches["fused_restore"],
+                              "fleet": fleet_launches["fused_restore"],
                               "coldstart": coldstart_launches["fused_restore"]},
          "bit_equal": True, "max_abs_err": res_err,
          "ms": cold["install"]["ms"], "plain_ms": cold["plain_ms"],
@@ -2697,6 +3003,7 @@ def main() -> int:
                                  "dedup": dedup_launches[name], "pod": pod_launches[name],
                                  "topology": topo_launches[name], "sim": sim_launches[name],
                                  "recurate": recurate_launches[name],
+                                 "fleet": fleet_launches[name],
                                  "coldstart": coldstart_launches[name]},
             "bit_equal": True,
             "max_abs_err": max(row_err[name], coldstart_err.get(name, 0)), "ms": r["ms"],

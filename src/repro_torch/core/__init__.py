@@ -18,7 +18,9 @@
 - :mod:`orchestrator` — node agent: borrow → flush → pre-install → resume
 - :mod:`failover`   — pool-master heartbeat lease and election (§3.6)
 
-The zstd cold tier raises ``NotImplementedError`` naming its ROADMAP item.
+The private layout's cold tier may be zstd-compressed per page
+(``compress_cold``; decompressed on the host, uncompressed without the
+``zstandard`` package).
 """
 from .clock import REAL_CLOCK, Clock, RealClock
 from .faults import (

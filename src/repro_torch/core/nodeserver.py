@@ -573,7 +573,7 @@ class NodePageServer:
             finally:
                 self._sem.release()
             return
-        _tag, sid, gkey, page = token
+        _tag, sid, gkey, page, nbytes, raw, kind = token
         with self._lock:
             session = self._sessions.get(sid)
             group = self._groups.get(gkey) if gkey is not None else None
@@ -582,11 +582,14 @@ class NodePageServer:
                 # every session of the group (submit_demand marked the page
                 # in flight in all of them)
                 sessions = list(group.sessions.values())
+                reader = group.reader
             else:
                 sessions = [session] if session is not None else []
+                reader = session.reader if session is not None else None
         try:
             if sessions:
-                data = buf[:PAGE_SIZE]
+                data = (reader.decompress_page(buf[:nbytes], raw)
+                        if kind == "rdma_z" else buf[:PAGE_SIZE])
                 for s in sessions:
                     try:
                         self._install(s, np.array([int(page)], dtype=np.int64), data)

@@ -672,6 +672,11 @@ class RestoreEngine:
             self.ledger.add("cxl_read",
                             self.reader.view.arbiter.charge(PAGE_SIZE))
             return row
+        if kind == "rdma_z":
+            pool_off, nbytes, raw = self.reader.cold_extent(off)
+            payload = self.reader.rdma.read(pool_off, nbytes)
+            self.ledger.add("rdma_read", self._rdma_arbiter.charge(nbytes))
+            return self.reader.decompress_page(payload, raw)
         row = self.reader.rdma.read(off, PAGE_SIZE)
         self.ledger.add("rdma_read", self._rdma_arbiter.charge(PAGE_SIZE))
         return row
@@ -831,17 +836,24 @@ class RestoreEngine:
                 ht.record_success()
             self._install_verified(np.array([page], dtype=np.int64), src)
             return
-        # cold page → async RDMA read
+        # cold page → async RDMA read (zstd per page on a compressed tier)
         self.instance.stats["fault_rdma"] += 1
+        if kind == "rdma_z":
+            pool_off, nbytes, raw = self.reader.cold_extent(off)
+        else:
+            pool_off, nbytes, raw = off, PAGE_SIZE, True
         if self.rdma_engine is None and self.server is None:
             self._record_heat([page], "demand_fault")
             payload = call_with_retries(
-                lambda: self.reader.rdma.read(off, PAGE_SIZE),
+                lambda: self.reader.rdma.read(pool_off, nbytes),
                 policy=self.retry, rng=self._retry_rng,
                 ledger=self.ledger, clock=self.clock, urgent=True,
                 trace=self.retry_trace)
-            self.ledger.add("rdma_read", self._rdma_arbiter.charge(PAGE_SIZE))
-            self._install_verified(np.array([page], dtype=np.int64), payload)
+            self.ledger.add("rdma_read", self._rdma_arbiter.charge(nbytes))
+            self._install_verified(
+                np.array([page], dtype=np.int64),
+                self.reader.decompress_page(payload, raw)
+                if kind == "rdma_z" else payload)
             return
         with self._inflight_lock:
             covered = bool(self._inflight.get(page))
@@ -854,9 +866,12 @@ class RestoreEngine:
             return     # already in flight (demand or prefetch extent)
         buf = self.buffers.acquire()
         if self.server is not None:
-            self.server.submit_demand(self, off, PAGE_SIZE, buf, (page,))
+            self.server.submit_demand(self, pool_off, nbytes, buf,
+                                      (page, nbytes, raw, kind))
         else:
-            self.rdma_engine.submit_read(off, PAGE_SIZE, buf, ("page", page), urgent=True)
+            self.rdma_engine.submit_read(pool_off, nbytes, buf,
+                                         ("page", page, nbytes, raw, kind),
+                                         urgent=True)
 
     def access(self, page: int, timeout_s: float = 30.0) -> None:
         """Guest touch: fault if needed and wait for install (test/replay API)."""
@@ -907,10 +922,11 @@ class RestoreEngine:
                 if self._prefetch_sem is not None:
                     self._prefetch_sem.release()
             return
-        _tag, page = token
+        _tag, page, nbytes, raw, kind = token
         try:
-            self._install_verified(np.array([int(page)], dtype=np.int64),
-                                   buf[:PAGE_SIZE])
+            data = (self.reader.decompress_page(buf[:nbytes], raw)
+                    if kind == "rdma_z" else buf[:PAGE_SIZE])
+            self._install_verified(np.array([int(page)], dtype=np.int64), data)
         except RuntimeError as e:
             if not self._is_fault(e):
                 raise
@@ -1014,7 +1030,9 @@ class RestoreEngine:
                     elif kind == "cxl":
                         self.instance.uffd_copy(page, self.reader.cxl_read(off, PAGE_SIZE))
                     else:
-                        self.ledger.add("rdma_read", self._rdma_arbiter.charge(PAGE_SIZE))
+                        nbytes = (self.reader.cold_extent(off)[1]
+                                  if kind == "rdma_z" else PAGE_SIZE)
+                        self.ledger.add("rdma_read", self._rdma_arbiter.charge(nbytes))
                         self.instance.uffd_copy(page, self.reader.read_page(page))
             return
         for start, n in self.reader.zero_runs():
@@ -1116,6 +1134,10 @@ class RestoreEngine:
             return "scatter_fn"
         if getattr(scatter, "expected", None) is None:
             return None                                  # unverified walk
+        if tier == "rdma" and self.reader.regions.cold_compressed:
+            # the rows are decompressed on the host during the walk: no arena
+            # row to pre-verify; the flush's launch verifies them
+            return None
         if tier == "cxl" and self.reader.view.has_valid_lines(offs, PAGE_SIZE):
             return "cached_lines"
         arena = (self.reader.view.tier if tier == "cxl" else self.reader.rdma).page_rows()

@@ -20,8 +20,16 @@ ABSOLUTE tier offsets, the private CXL region holds only machine state and
 offset array, and there is no private RDMA region.
 
 Page bytes stay on the pool's device; the offset array, page classes and run
-index are host numpy (read back from the device once).  The zstd-compressed
-cold tier raises ``NotImplementedError`` naming its ROADMAP item.
+index are host numpy (read back from the device once).
+
+The private layout's cold tier can be stored zstd-compressed per page
+(``compress_cold``): cold slots then hold the page's RANK and a uint32
+length index (high bit: stored raw) follows the offset array in CXL:
+    [ machine_state | offset_array | cold_length_index | hot page data ]
+Compression and decompression run on the host, on the payload's bytes; the
+decompressed pages go back to the pool's device and install like any other
+cold page.  Without the ``zstandard`` package a ``compress_cold`` publish
+stores the cold tier uncompressed (``cold_compressed=False``).
 """
 from __future__ import annotations
 
@@ -31,6 +39,11 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+try:
+    import zstandard as _zstd
+except Exception:  # optional: without it compress_cold publishes uncompressed
+    _zstd = None
 
 from ..kernels.page_gather import page_gather
 from ..kernels.page_scatter import page_scatter
@@ -42,7 +55,8 @@ ZERO_SENTINEL = np.uint64(0xFFFF_FFFF_FFFF_FFFF)
 TIER_SHIFT = np.uint64(62)
 OFFSET_MASK = np.uint64((1 << 62) - 1)
 
-_ZSTD_TODO = "compress_cold (zstd cold tier) is not ported yet (ROADMAP A4d)"
+RAW_BIT = np.uint32(0x8000_0000)      # cold-length index: page stored raw
+LEN_MASK = np.uint32(0x7FFF_FFFF)
 
 
 def encode_slot(tier: int, offset: int) -> np.uint64:
@@ -177,14 +191,16 @@ class SnapshotRegions:
     n_hot: int
     n_cold: int
     n_zero: int
-    # zstd cold tier: always off in this package (ROADMAP A4d)
+    # zstd-compressed cold tier: cold offset-array slots hold the page RANK
+    # (not a byte offset) and a uint32 per-cold-page length table lives in
+    # CXL after the offset array (ci_size bytes, page-aligned)
     cold_compressed: bool = False
     ci_size: int = 0
-    cold_raw_bytes: int = 0       # uncompressed cold payload
+    cold_raw_bytes: int = 0       # uncompressed cold payload (for ratio)
     # content-addressed layout (core/dedup.py): page payloads live in the
     # per-tier DedupStores and offset-array slots hold ABSOLUTE tier byte
     # offsets (refcounted, possibly shared across snapshots); no private
-    # RDMA region (rdma_size == 0)
+    # RDMA region (rdma_size == 0).  Mutually exclusive with cold_compressed.
     dedup: bool = False
 
     @property
@@ -211,11 +227,6 @@ class SnapshotRegions:
         return SnapshotRegions(**d)
 
 
-def _check_layout(regions: SnapshotRegions) -> None:
-    if regions.cold_compressed:
-        raise NotImplementedError(_ZSTD_TODO)
-
-
 def _serialize_machine_state(manifest: Manifest, metadata: dict) -> bytes:
     blob = json.dumps({"manifest": manifest.to_dict(), "metadata": metadata}).encode()
     return len(blob).to_bytes(8, "little") + blob
@@ -225,6 +236,39 @@ def _deserialize_machine_state(raw: np.ndarray) -> Tuple[Manifest, dict]:
     n = int.from_bytes(raw[:8].tobytes(), "little")
     d = json.loads(raw[8 : 8 + n].tobytes().decode())
     return Manifest.from_dict(d["manifest"]), d["metadata"]
+
+
+def _compress_cold(cold_mat: torch.Tensor) -> Tuple[bytes, np.ndarray]:
+    """Per-page zstd on the host: ``(blob, lengths uint32)``.  Pages that do
+    not shrink are stored raw with :data:`RAW_BIT` set in their length."""
+    cctx = _zstd.ZstdCompressor(level=3)
+    rows = cold_mat.reshape(-1, PAGE_SIZE).cpu().numpy()
+    chunks = []
+    lengths = np.zeros(rows.shape[0], dtype=np.uint32)
+    for i in range(rows.shape[0]):
+        raw = rows[i].tobytes()
+        z = cctx.compress(raw)
+        if len(z) < PAGE_SIZE:
+            chunks.append(z)
+            lengths[i] = len(z)
+        else:
+            chunks.append(raw)
+            lengths[i] = RAW_BIT | PAGE_SIZE
+    return b"".join(chunks), lengths
+
+
+def _decompress(dctx, payload: np.ndarray, is_raw: bool) -> np.ndarray:
+    """One stored cold page (host bytes) back to its 4 KiB."""
+    if is_raw:
+        return payload[:PAGE_SIZE]
+    out = dctx.decompress(payload.tobytes(), max_output_size=PAGE_SIZE)
+    return np.frombuffer(out, dtype=np.uint8)
+
+
+def _cold_starts(ci: np.ndarray) -> np.ndarray:
+    """Byte start of each rank's payload in the compressed cold region."""
+    lens = (ci & LEN_MASK).astype(np.int64)
+    return np.concatenate([[0], np.cumsum(lens)[:-1]])
 
 
 def _run_publish_fn(publish_fn, image: StateImage, working_set: Sequence[int]):
@@ -265,9 +309,11 @@ def build_snapshot(
     ``page_checksums`` attribute, guest-page-indexed int32 tensor on the
     device) so restores can verify installed pages against publish-time
     content.  When set it supersedes ``zero_bitmap``/``gather_fn``.
+    ``compress_cold`` stores the RDMA tier zstd-compressed per page (on the
+    host; uncompressed when ``zstandard`` is not installed).
     ``dedup`` routes page payloads through the pool's content-addressed
     stores instead of private data regions (offset-array slots then hold
-    refcounted absolute tier offsets).
+    refcounted absolute tier offsets); it disables ``compress_cold``.
     """
     if dedup:
         return _build_snapshot_dedup(pool, image, working_set, name,
@@ -275,8 +321,7 @@ def build_snapshot(
                                      zero_bitmap=zero_bitmap,
                                      gather_fn=gather_fn,
                                      publish_fn=publish_fn)
-    if compress_cold:
-        raise NotImplementedError(_ZSTD_TODO)
+    compress_cold = compress_cold and _zstd is not None
     checksums = None
     if publish_fn is not None:
         classes, hot_mat, cold_mat, checksums = _run_publish_fn(
@@ -289,24 +334,36 @@ def build_snapshot(
         cold_mat = gather(mat, classes.cold_pages) if classes.cold_pages.size else None
     hot, cold = classes.hot_pages, classes.cold_pages
     hot_nbytes = int(hot.size) * PAGE_SIZE
-    cold_nbytes = int(cold.size) * PAGE_SIZE
+    cold_raw_bytes = int(cold.size) * PAGE_SIZE
 
-    # Offset array: slot per guest page (byte offset within the tier region).
+    ci = np.zeros(0, dtype=np.uint32)
+    if compress_cold and cold.size:
+        blob, ci = _compress_cold(cold_mat)
+        cold_data = torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(pool.device)
+    else:
+        compress_cold = False
+        cold_data = cold_mat
+    cold_nbytes = len(blob) if compress_cold else cold_raw_bytes
+
+    # Offset array: slot per guest page (byte offset within the tier region,
+    # or the rank when the cold tier is compressed).
     oa = np.full(image.total_pages, ZERO_SENTINEL, dtype=np.uint64)
     if hot.size:
         oa[hot] = (np.uint64(TIER_CXL) << TIER_SHIFT) | (
             np.arange(hot.size, dtype=np.uint64) * np.uint64(PAGE_SIZE)
         )
     if cold.size:
+        stride = np.uint64(1) if compress_cold else np.uint64(PAGE_SIZE)
         oa[cold] = (np.uint64(TIER_RDMA) << TIER_SHIFT) | (
-            np.arange(cold.size, dtype=np.uint64) * np.uint64(PAGE_SIZE)
+            np.arange(cold.size, dtype=np.uint64) * stride
         )
 
     ms = _serialize_machine_state(image.manifest, metadata or {})
     ms_size = _align_pages(len(ms))
     oa_size = _align_pages(oa.nbytes)
+    ci_size = _align_pages(ci.nbytes) if compress_cold else 0
     hot_size = _align_pages(hot_nbytes) if hot_nbytes else 0
-    cxl_size = ms_size + oa_size + hot_size
+    cxl_size = ms_size + oa_size + ci_size + hot_size
     cold_size = _align_pages(cold_nbytes) if cold_nbytes else 0
 
     cxl_off = pool.cxl.alloc(cxl_size)
@@ -325,16 +382,19 @@ def build_snapshot(
         cold_bytes=cold_nbytes,
         total_pages=image.total_pages,
         n_hot=int(hot.size), n_cold=int(cold.size), n_zero=classes.n_zero,
-        cold_raw_bytes=cold_nbytes,
+        cold_compressed=compress_cold, ci_size=ci_size,
+        cold_raw_bytes=cold_raw_bytes,
     )
 
     dev = pool.device
     pool.cxl.write(regions.ms_off, _to_device(np.frombuffer(bytearray(ms), np.uint8), dev))
     pool.cxl.write(regions.oa_off, _to_device(oa, dev))
+    if compress_cold:
+        pool.cxl.write(regions.ci_off, _to_device(ci, dev))
     if hot_nbytes:
         pool.cxl.write(regions.hot_off, hot_mat)
     if cold_nbytes:
-        pool.rdma.write(rdma_off, cold_mat)
+        pool.rdma.write(rdma_off, cold_data)
     if checksums is not None:
         # advisory in-memory integrity record (NOT serialized — to_dict /
         # from_dict round-trips drop it)
@@ -440,7 +500,6 @@ def free_snapshot(pool: HierarchicalPool, regions: SnapshotRegions) -> None:
     """Return a snapshot's storage.  For dedup snapshots this DECREMENTS the
     per-page references (one per offset-array slot); the stores free tier
     bytes only for pages whose last reference this was."""
-    _check_layout(regions)
     if regions.dedup:
         # read the offset array BEFORE freeing the metadata region that
         # holds it — it is the authoritative list of held references
@@ -479,13 +538,13 @@ def estimate_snapshot_cxl_size(
     pool: Optional[HierarchicalPool] = None,
 ) -> int:
     """CXL bytes :func:`build_snapshot` would allocate for this publish —
-    machine state + offset array + hot data — WITHOUT building anything.
-    It matches the build's own arithmetic exactly.
+    machine state + offset array + cold-length index (compressed cold
+    tier) + hot data — WITHOUT building anything.  It matches the build's
+    own arithmetic exactly.
 
     With ``dedup`` (requires ``pool``) the hot-data term is the MARGINAL
     size: only page contents the CXL store does not already hold count."""
-    if compress_cold and not dedup:
-        raise NotImplementedError(_ZSTD_TODO)
+    compress_cold = compress_cold and _zstd is not None and not dedup
     classes = classify_pages(image, working_set, zero_bitmap)
     ms = _serialize_machine_state(image.manifest, metadata or {})
     ms_size = _align_pages(len(ms))
@@ -496,9 +555,11 @@ def estimate_snapshot_cxl_size(
         hot_new = (pool.dedup_cxl.probe_new_bytes(page_gather(image.pages_matrix(), hot))
                    if hot.size else 0)
         return ms_size + oa_size + hot_new
+    ci_size = (_align_pages(int(classes.cold_pages.size) * 4)
+               if compress_cold and classes.cold_pages.size else 0)
     hot_size = (_align_pages(int(classes.hot_pages.size) * PAGE_SIZE)
                 if classes.hot_pages.size else 0)
-    return ms_size + oa_size + hot_size
+    return ms_size + oa_size + ci_size + hot_size
 
 
 def reconstruct_image(pool: HierarchicalPool, regions: SnapshotRegions) -> StateImage:
@@ -509,9 +570,9 @@ def reconstruct_image(pool: HierarchicalPool, regions: SnapshotRegions) -> State
     pool's device: hot pages from CXL, cold pages from RDMA, zero pages left
     zero.  For a dedup snapshot each tier's pages are collected by one
     ``page_gather`` of the tier's page rows and installed by one
-    ``page_scatter`` into the image.
+    ``page_scatter`` into the image.  A compressed cold tier is read page by
+    page, as the reference reads it, and decompressed on the host.
     """
-    _check_layout(regions)
     ms_raw = pool.cxl.read(regions.ms_off, regions.ms_size).cpu().numpy()
     manifest, _meta = _deserialize_machine_state(ms_raw)
     oa = pool.cxl.read(regions.oa_off, regions.total_pages * 8).cpu().numpy().view(np.uint64)
@@ -531,7 +592,18 @@ def reconstruct_image(pool: HierarchicalPool, regions: SnapshotRegions) -> State
     if hot.size:
         raw = pool.cxl.read(regions.hot_off, int(hot.size) * PAGE_SIZE)
         mat[torch.from_numpy(hot).to(mat.device)] = raw.view(int(hot.size), PAGE_SIZE)
-    if cold.size:
+    if cold.size and regions.cold_compressed:
+        ci = pool.cxl.read(regions.ci_off, regions.n_cold * 4).cpu().numpy().view(np.uint32)
+        starts = _cold_starts(ci)
+        dctx = _zstd.ZstdDecompressor()
+        rows = np.empty((int(cold.size), PAGE_SIZE), dtype=np.uint8)
+        ranks = (oa[cold] & OFFSET_MASK).astype(np.int64)
+        for i, rank in enumerate(ranks.tolist()):
+            payload = pool.rdma.read(regions.rdma_off + int(starts[rank]),
+                                     int(ci[rank] & LEN_MASK)).cpu().numpy()
+            rows[i] = _decompress(dctx, payload, bool(ci[rank] & RAW_BIT))
+        mat[torch.from_numpy(cold).to(mat.device)] = torch.from_numpy(rows).to(mat.device)
+    elif cold.size:
         raw = pool.rdma.read(regions.rdma_off, int(cold.size) * PAGE_SIZE)
         mat[torch.from_numpy(cold).to(mat.device)] = raw.view(int(cold.size), PAGE_SIZE)
     return image
@@ -649,13 +721,15 @@ class SnapshotReader:
     """
 
     def __init__(self, regions: SnapshotRegions, cxl_view: HostView, rdma: MemoryTier):
-        _check_layout(regions)
         self.regions = regions
         self.view = cxl_view
         self.rdma = rdma
         self._oa: Optional[np.ndarray] = None
         self._manifest: Optional[Manifest] = None
         self._metadata: Optional[dict] = None
+        self._ci: Optional[np.ndarray] = None       # cold lengths (compressed tier)
+        self._ci_starts: Optional[np.ndarray] = None
+        self._dctx = _zstd.ZstdDecompressor() if _zstd is not None else None
         self._hot_runs: Optional[np.ndarray] = None
         self._cold_runs: Optional[np.ndarray] = None
         self._zero_runs: Optional[np.ndarray] = None
@@ -735,10 +809,21 @@ class SnapshotReader:
             self._oa = raw.cpu().numpy().view(np.uint64)
         return self._oa
 
+    def cold_index(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``(starts, lengths)`` of the compressed cold tier (cached): each
+        rank's byte start in the cold region and its uint32 length word
+        (:data:`RAW_BIT` set for a page stored raw)."""
+        if self._ci is None:
+            raw = self.cxl_read(self.regions.ci_off, self.regions.n_cold * 4)
+            self._ci = raw.cpu().numpy().view(np.uint32)
+            self._ci_starts = _cold_starts(self._ci)
+        return self._ci_starts, self._ci
+
     # -- page lookup ----------------------------------------------------------
     def lookup(self, page: int) -> Tuple[str, int]:
-        """-> ("zero", 0) | ("cxl", pool_byte_offset) | ("rdma", pool_byte_offset).
-        Dedup slots already hold absolute tier offsets (no region base)."""
+        """-> ("zero", 0) | ("cxl", pool_byte_offset) | ("rdma", pool_byte_offset)
+        | ("rdma_z", cold_rank) when the cold tier is compressed.  Dedup
+        slots already hold absolute tier offsets (no region base)."""
         slot = self.offset_array()[page]
         if slot == ZERO_SENTINEL:
             return "zero", 0
@@ -747,7 +832,24 @@ class SnapshotReader:
             return ("cxl" if tier == TIER_CXL else "rdma"), off
         if tier == TIER_CXL:
             return "cxl", self.regions.hot_off + off
+        if self.regions.cold_compressed:
+            return "rdma_z", off          # off == cold rank
         return "rdma", self.regions.rdma_off + off
+
+    def cold_extent(self, rank: int) -> Tuple[int, int, bool]:
+        """-> (pool_byte_offset, length, is_raw) of one compressed cold page."""
+        starts, lens = self.cold_index()
+        raw = bool(lens[rank] & RAW_BIT)
+        n = int(lens[rank] & LEN_MASK)
+        return self.regions.rdma_off + int(starts[rank]), n, raw
+
+    def decompress_page(self, payload: torch.Tensor, is_raw: bool) -> torch.Tensor:
+        """One stored cold page back to its 4 KiB, on the payload's device
+        (decompressed on the host)."""
+        if is_raw:
+            return payload[:PAGE_SIZE]
+        out = _decompress(self._dctx, payload.cpu().numpy(), False)
+        return torch.from_numpy(out.copy()).to(payload.device)
 
     def read_page(self, page: int) -> torch.Tensor:
         kind, off = self.lookup(page)
@@ -755,6 +857,9 @@ class SnapshotReader:
             return torch.zeros(PAGE_SIZE, dtype=torch.uint8, device=self.rdma.device)
         if kind == "cxl":
             return self.cxl_read(off, PAGE_SIZE)
+        if kind == "rdma_z":
+            pool_off, n, raw = self.cold_extent(off)
+            return self.decompress_page(self.rdma.read(pool_off, n), raw)
         return self.rdma.read(off, PAGE_SIZE)
 
     def hot_page_indices(self) -> np.ndarray:
@@ -771,7 +876,8 @@ class SnapshotReader:
     # -- run index (batched serving, §3.4) -----------------------------------
     # build_snapshot assigns tier offsets rank-by-rank over the *sorted* page
     # set, so guest-contiguous pages of one class are also contiguous in their
-    # tier's data region.  A run can therefore be served by ONE tier read.
+    # tier's data region (byte offsets for raw tiers, ranks for the compressed
+    # cold tier).  A run can therefore be served by ONE tier read.
 
     def hot_runs(self) -> np.ndarray:
         """int64 (R, 2) [start_page, n_pages] runs of the hot set (cached)."""
@@ -861,9 +967,12 @@ class SnapshotReader:
         ("cxl": the hot set, "rdma": the cold set) and the pool byte offset
         its 4 KiB are read from — the rows :meth:`iter_hot_extents` and
         :meth:`iter_cold_extents` cover (in guest order here), without
-        reading any of them."""
+        reading any of them.  For a compressed cold tier the offset is where
+        the page's stored bytes start: no arena row holds the page itself."""
         pages = self.hot_page_indices() if tier == "cxl" else self.cold_page_indices()
         offs = (self.offset_array()[pages] & OFFSET_MASK).astype(np.int64)
+        if tier == "rdma" and self.regions.cold_compressed:
+            return pages, self.regions.rdma_off + self.cold_index()[0][offs]
         if not self.regions.dedup:
             offs += self.regions.hot_off if tier == "cxl" else self.regions.rdma_off
         return pages, offs
@@ -872,16 +981,35 @@ class SnapshotReader:
         """Rank (position in the sorted cold set) of a cold page.  For a
         dedup snapshot the "rank" is the absolute tier page number."""
         _tier, off = decode_slot(self.offset_array()[page])
-        return off // PAGE_SIZE
+        return off if self.regions.cold_compressed else off // PAGE_SIZE
 
     def cold_extent_span(self, rank: int, n: int) -> Tuple[int, int]:
         """Byte span of `n` consecutive cold ranks in the RDMA tier:
-        ``(pool_byte_offset, nbytes)``.  Dedup ranks are absolute tier page
-        numbers, so no region base is added."""
+        ``(pool_byte_offset, nbytes)``.  The compressed tier stores the ranks'
+        payloads back to back, so consecutive ranks are one extent too.
+        Dedup ranks are absolute tier page numbers, so no region base is
+        added."""
         if self.regions.dedup:
             return rank * PAGE_SIZE, n * PAGE_SIZE
-        return self.regions.rdma_off + rank * PAGE_SIZE, n * PAGE_SIZE
+        if not self.regions.cold_compressed:
+            return self.regions.rdma_off + rank * PAGE_SIZE, n * PAGE_SIZE
+        starts, lens = self.cold_index()
+        lo = int(starts[rank])
+        hi = int(starts[rank + n - 1]) + int(lens[rank + n - 1] & LEN_MASK)
+        return self.regions.rdma_off + lo, hi - lo
 
     def split_cold_extent(self, rank: int, n: int, payload: torch.Tensor) -> torch.Tensor:
-        """One cold extent's payload as an (n, PAGE_SIZE) matrix (a view)."""
-        return payload[: n * PAGE_SIZE].view(n, PAGE_SIZE)
+        """One cold extent's payload as an (n, PAGE_SIZE) matrix: a view, or
+        for the compressed tier the pages decompressed on the host and
+        copied back to the payload's device in one transfer."""
+        if not self.regions.cold_compressed:
+            return payload[: n * PAGE_SIZE].view(n, PAGE_SIZE)
+        starts, lens = self.cold_index()
+        host = payload.cpu().numpy()
+        base = int(starts[rank])
+        out = np.empty((n, PAGE_SIZE), dtype=np.uint8)
+        for i in range(n):
+            lo = int(starts[rank + i]) - base
+            ln = int(lens[rank + i] & LEN_MASK)
+            out[i] = _decompress(self._dctx, host[lo : lo + ln], bool(lens[rank + i] & RAW_BIT))
+        return torch.from_numpy(out).to(payload.device)

@@ -935,3 +935,88 @@ def test_topology_scenario_on_card_equals_its_cpu_run(cuda_device):
     cpu = fn(seed, "cpu")
     assert c.replicas.stats == cpu.replicas.stats and c.router.stats == cpu.router.stats
     assert all(p.pool.rdma.buf.device.type == "cuda" for p in c.pods)
+
+
+def _fleet_bench():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    import fleet_bench
+
+    return fleet_bench
+
+
+@pytest.mark.parametrize("fn,name", [("run", "fleet_bench_quick.json"),
+                                     ("run_multipod", "fleet_bench_multipod_quick.json")])
+def test_fleet_bench_quick_on_card_equals_committed(cuda_device, tmp_path, monkeypatch, fn,
+                                                    name):
+    """The fleet bench twin with its pod on the card (every publish one
+    fused launch) gives the committed quick results key for key."""
+    import json
+    from pathlib import Path
+
+    fb = _fleet_bench()
+    monkeypatch.setattr(fb, "OUT", tmp_path)
+    before = fused_publish.launches
+    got = json.loads(json.dumps(getattr(fb, fn)(quick=True, device="cuda")))
+    want = json.loads((Path(__file__).resolve().parents[1] / "experiments" / name).read_text())
+    assert got == want
+    assert fused_publish.launches - before == got["fleet"]["n_types"]
+
+
+def test_fleet_scale_variant_on_card(cuda_device):
+    """Two scale-pod variants of one base group published into a dedup pod
+    on the card, profiled exactly and restored verified and bit-identical
+    to their images made again from the seed; the pool then back to zero."""
+    import math
+
+    from repro_torch.serve.strategies import modeled_concurrent_restore_s
+
+    fb = _fleet_bench()
+    fleet = fb.synthesize_fleet(2, 1, 10.0, seed=0)
+    dims = (256, 128, 64, 24)
+    pool, master, walls = fb.build_scale_pod(fleet, *dims, seed=3, device="cuda")
+    assert len(walls) == 2
+    profiles, err = fb.profile_pod(pool, master, fleet)
+    # fn1 holds its 24 delta rows and the 24 base rows fn0 replaced alone
+    assert err == 0.0 and profiles[1].shared_base_bytes == (256 - 2 * 24) * PAGE
+    for f in fleet:
+        regions = master.catalog.find(f.name).regions
+        reader = core.SnapshotReader(regions, pool.host_view(f"t-{f.name}"), pool.rdma)
+        assert math.isclose(profiles[f.fn_id].cold_start_s(4),
+                            modeled_concurrent_restore_s(reader, 4), rel_tol=1e-12)
+        reader.invalidate_cxl()
+        img = fb.scale_image(f, *dims, seed=3, device="cuda")
+        inst = core.Instance(core.StateImage.empty_like(img.manifest, device="cuda"))
+        core.RestoreEngine(reader, inst, scatter_fn=FusedScatter()).install_all_sync()
+        assert torch.equal(inst.image.buf, img.buf)
+        assert inst.scatter_fn.stats["pages_verified"] == regions.n_hot + regions.n_cold
+    fb.free_pod(master)
+    assert pool.cxl.bytes_in_use == pool.rdma.bytes_in_use == 0
+
+
+def test_compress_cold_without_zstandard_on_card(cuda_device, monkeypatch):
+    """Without ``zstandard`` a compress_cold publish on the card is the
+    uncompressed publish: regions and tier bytes equal."""
+    import dataclasses
+
+    from repro_torch.core import snapshot
+    from repro_torch.kernels import make_fused_publish_fn
+
+    monkeypatch.setattr(snapshot, "_zstd", None)
+    pages, ws = _publish_inputs(3000, seed=11, zero_every=3, ws_kind="rand", device="cuda")
+    image = core.StateImage(core.Manifest([core.ArrayExtent("g", 0, pages.numel(),
+                                                            (pages.numel(),), "uint8")],
+                                          3000), pages.reshape(-1))
+    working_set = torch.nonzero(ws).flatten().cpu().numpy()
+    out = []
+    for compress in (True, False):
+        pool = core.HierarchicalPool(64 << 20, 64 << 20, device="cuda")
+        out.append((pool, core.build_snapshot(pool, image, working_set, "z",
+                                              compress_cold=compress,
+                                              publish_fn=make_fused_publish_fn())))
+    (pa, ra), (pb, rb) = out
+    assert not ra.cold_compressed and ra.ci_size == 0
+    assert dataclasses.asdict(ra) == dataclasses.asdict(rb)
+    assert torch.equal(pa.cxl.buf, pb.cxl.buf) and torch.equal(pa.rdma.buf, pb.rdma.buf)

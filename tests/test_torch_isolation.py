@@ -1,7 +1,7 @@
 """The port stands alone: importing ``repro_torch`` (and the simulator's
-scenario library) loads neither ``jax`` nor the JAX package ``repro``, needs
-no card and no nvcc, and no file of the port (nor ``chip_smoke.py`` and the
-scripts it imports) imports them."""
+scenario library and the fleet bench) loads neither ``jax`` nor the JAX
+package ``repro``, needs no card and no nvcc, and no file of the port (nor
+``chip_smoke.py`` and the scripts it imports) imports them."""
 import ast
 import os
 import subprocess
@@ -13,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "sim_scenarios.py",
-    ROOT / "scripts" / "topology_phase.py"]
+    ROOT / "scripts" / "topology_phase.py", ROOT / "scripts" / "fleet_bench.py",
+    ROOT / "scripts" / "fleet_phase.py"]
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -24,8 +25,9 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.kernels.flash_attention, repro_torch.core.failover, "
             "repro_torch.core.profiler, repro_torch.checkpoint, repro_torch.checkpoint.ckpt, "
             "repro_torch.serve.strategies, repro_torch.serve.coldstart, "
-            "repro_torch.sim, repro_torch.sim.cluster, repro_torch.topology; "
-            "sys.path.insert(0, %r); import sim_scenarios; "
+            "repro_torch.sim, repro_torch.sim.cluster, repro_torch.topology, "
+            "repro_torch.fleet, repro_torch.fleet.driver, repro_torch.fleet.model; "
+            "sys.path.insert(0, %r); import sim_scenarios, fleet_bench; "
             "repro_torch.configs.base.load_all(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad") % str(ROOT / "scripts")

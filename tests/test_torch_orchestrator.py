@@ -265,12 +265,19 @@ def test_evict_for_ranks_by_borrow_counter():
 
 def test_publish_counts_one_fused_launch_per_build_on_cuda_only():
     """On CPU pools the master's publish_fn runs the plain sweep: no launch
-    is counted; compress_cold passes through to build_snapshot's A4d error."""
+    is counted; compress_cold passes through to build_snapshot, whose
+    compressed publish equals the JAX package's."""
     before = fused_publish.launches
-    master = port.PoolMaster(_pool(port), publish_fn=make_fused_publish_fn())
     a, ws = make_arrays(21)
-    master.publish("s", _image(port, a), ws)
+    pools = {mod: _pool(mod) for mod in (ref, port)}
+    masters = {mod: mod.PoolMaster(pools[mod], publish_fn=_publish_fn(mod))
+               for mod in (ref, port)}
+    for mod in (ref, port):
+        masters[mod].publish("s", _image(mod, a), ws)
     assert fused_publish.launches == before
-    with pytest.raises(NotImplementedError, match="A4d"):
-        master.publish("t", _image(port, a), ws, compress_cold=True)
-    assert master.catalog.find("t") is None and master._busy_names == set()
+    for mod in (ref, port):
+        masters[mod].publish("t", _image(mod, a), ws, compress_cold=True)
+    assert fused_publish.launches == before
+    _assert_pods_equal(pools[ref], pools[port], masters[ref], masters[port])
+    master = masters[port]
+    assert master.catalog.find("t") is not None and master._busy_names == set()

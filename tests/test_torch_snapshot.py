@@ -126,18 +126,31 @@ def test_reconstruct_image_bit_identical_and_free():
 
 
 def test_unported_layouts_raise():
+    """The compressed cold tier (once the one layout the port refused):
+    ``build_snapshot``, ``estimate_snapshot_cxl_size``, a ``SnapshotReader``
+    over it and ``free_snapshot`` agree with the JAX package (compressed with
+    ``zstandard``, uncompressed without it, in both packages alike)."""
     arrays, ws = make_image()
-    img = port.StateImage.build(arrays, device="cpu")
-    pool = port.HierarchicalPool(CXL, RDMA, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.build_snapshot(pool, img, ws, "m", compress_cold=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.estimate_snapshot_cxl_size(img, ws, compress_cold=True)
-    regions = port.build_snapshot(pool, img, ws, "m")
-    compressed = dataclasses.replace(regions, cold_compressed=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.SnapshotReader(compressed, pool.host_view("h"), pool.rdma)
-    assert pool.cxl.free_list_stats()["blocks"] == 1
+    img_r = ref.StateImage.build(arrays)
+    img_g = port.StateImage.build(arrays, device="cpu")
+    pool_r = ref.HierarchicalPool(CXL, RDMA)
+    pool_g = port.HierarchicalPool(CXL, RDMA, device="cpu")
+    reg_r = ref.build_snapshot(pool_r, img_r, ws, "m", compress_cold=True)
+    reg_g = port.build_snapshot(pool_g, img_g, ws, "m", compress_cold=True)
+    assert dataclasses.asdict(reg_r) == dataclasses.asdict(reg_g)
+    np.testing.assert_array_equal(pool_r.cxl.buf, pool_g.cxl.buf.numpy())
+    np.testing.assert_array_equal(pool_r.rdma.buf, pool_g.rdma.buf.numpy())
+    assert (ref.estimate_snapshot_cxl_size(img_r, ws, compress_cold=True)
+            == port.estimate_snapshot_cxl_size(img_g, ws, compress_cold=True)
+            == reg_g.cxl_size)
+    rd_r = ref.SnapshotReader(reg_r, pool_r.host_view("h"), pool_r.rdma)
+    rd_g = port.SnapshotReader(reg_g, pool_g.host_view("h"), pool_g.rdma)
+    for page in range(img_g.total_pages):
+        assert rd_r.lookup(page) == rd_g.lookup(page)
+        np.testing.assert_array_equal(rd_g.read_page(page).numpy(), img_r.page(page))
+    port.free_snapshot(pool_g, reg_g)
+    assert pool_g.cxl.free_list_stats()["blocks"] == 1
+    assert pool_g.rdma.bytes_in_use == 0
 
 
 def test_state_image_arrays_and_pages_view():
