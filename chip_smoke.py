@@ -119,12 +119,14 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 
 12. fleet   — fleet serving (``scripts/fleet_bench.py``, ``repro_torch.fleet``):
              (a) the bench twin's ``run`` and ``run_multipod`` at the
-             reference's full configurations (200 function types over 16
-             base groups, 189,870 invocations; the multi-pod tiers) with
-             every pod on the card and every publish one fused launch, each
-             output ``==`` the committed ``experiments/fleet_bench.json`` /
-             ``fleet_bench_multipod.json`` key for key and every criterion
-             true; (b) the same fleet with each variant's pages x64 (16 MiB
+             reference's quick configurations (24 function types over 6
+             base groups; the multi-pod tiers) with every pod on the card
+             and every publish one fused launch, each output ``==`` the
+             committed ``experiments/fleet_bench_quick.json`` /
+             ``fleet_bench_multipod_quick.json`` key for key and every
+             criterion true (the full configurations, 200 types and 189,870
+             invocations: ``scripts/fleet_phase.py --full``); (b) the full
+             configuration's fleet with each variant's pages x64 (16 MiB
              hot, 8 MiB cold, 4 MiB zero, 384 delta pages) from seeded
              generators on the card, published into one dedup pod, profiles
              exact against ``modeled_concurrent_restore_s`` at conc 1 and
@@ -139,7 +141,31 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              the keys compared, each step's wall, the publish wall per
              variant and the host decision share, and the peak memory.
 
-13. coldstart — Phi-4-mini 3.8B's serverless cold start from the pool at
+13. benches — the paper's evaluation benches on the port: (a) the twins
+             ``scripts/{dedup,fault,adaptive,concurrency}_bench.py`` at the
+             reference's full configurations, ``scripts/breakdown.py`` (chameleon, 32
+             concurrent) and ``scripts/serving_bench.py`` (chameleon), every
+             pool on the card and every publish one fused launch, each
+             output held to its committed CPU output in
+             ``experiments/torch/`` (``breakdown`` also to
+             ``experiments/breakdown.json``): integers, booleans and strings
+             ``==``, floats ``==`` or within 1e-12 relative
+             (``model_err_max``, a relative error, within 1e-12), every key
+             but the wall clocks and the brownout's breaker rejections
+             (which follow the wall clock); every criterion true; each wrapper's
+             launches as ``BENCH_LAUNCHES`` says, flash attention's 0.  (b)
+             the fault bench's bare run and four sweeps, two restores each,
+             at the 1.5 GiB image through its own ``make_stack`` /
+             ``run_sweep``: every restore bit-identical and every page
+             verified, armed-but-empty ledgers equal to the bare ones,
+             retries, one repair a poisoned restore, both brownout restores
+             degraded within 15% of the all-cold model, every pool byte
+             back; launches as ``fault_cell_launches`` says.  Prints each
+             twin's wall and headline (capacity multiplier, p50s, recovery,
+             concurrency gain, speedups), each restore's wall and the peak
+             memory.
+
+14. coldstart — Phi-4-mini 3.8B's serverless cold start from the pool at
              full width and depth, float32 weights from the seed (17.8 GB,
              ~4.35 M pages): reference tokens from the original parameters
              (4 prompts of 16 tokens, 8 new tokens); the working set from 16
@@ -159,7 +185,7 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              time to hot and to full, the publish, claim, prefill and decode
              walls, the modeled ledger and the peak device memory.
 
-14. model   — flash attention against its plain versions on the card, each
+15. model   — flash attention against its plain versions on the card, each
              case on the route ``ops.route`` gives it and asserted so: bf16
              with Dk == Dv in {64, 128} on the tensor-core kernel
              (``flash_attention_sm90.cu``), float32 and Dk != Dv on the SIMT
@@ -233,6 +259,40 @@ COLDSTART_CONC = 32         # co-located restores in examples/serve_coldstart.py
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 16, 8   # the cold-started server's requests
 PREFILL_SEQ = 8192          # prefill_32k cut to one 8,192-token sequence
 FLEET_SCALE_X = 64          # fleet (b): pages a variant over the bench's full configuration
+# the evaluation benches' twins (scripts/<name>.py), in the order the benches phase runs them
+BENCHES = ("dedup_bench", "fault_bench", "adaptive_bench", "concurrency_bench", "breakdown",
+           "serving_bench")
+# Launches of each data-plane wrapper in one run of each twin on the card, at its full and quick
+# configurations (a wrapper not named: 0), worked out from the code; the bench tests hold the
+# CPU tally of the same runs to these numbers (tests/test_torch_bench_harness.py).
+BENCH_LAUNCHES = {
+    # one fused sweep a publish (2 pods x 24 variants) and a capacity demotion (the baseline's
+    # 17); a budgeted publish's admission estimate: a zero scan, and on the dedup pod a hot
+    # gather; two store writes a dedup publish; one launch a non-empty batched walk of a restore
+    "dedup_bench": {"full": {"fused_publish": 65, "zero_detect": 48, "page_gather": 24,
+                             "page_scatter": 127},
+                    "quick": {"fused_publish": 23, "zero_detect": 16, "page_gather": 8,
+                              "page_scatter": 41}},
+    # a sweep a stack (bare, four sweeps, the model); per restore: bare 4 (two batched walks,
+    # a verify-only launch and an install each); armed, per extent: a hot chunk + a cold run
+    # (none, timeouts), 2 more for the poisoned page, a demand fault a hot page (brownout)
+    "fault_bench": {"full": {"fused_publish": 6, "fused_restore": 8608},
+                    "quick": {"fused_publish": 6, "fused_restore": 616}},
+    # publishes: drift 1 + its re-curation 1, prefetch A/B 1 a seed, capacity 4 + 2
+    # demotions; a zero scan a budgeted capacity publish; batched walks, prefetched extents
+    # and demand faults install through page_scatter
+    "adaptive_bench": {"full": {"fused_publish": 12, "zero_detect": 4, "page_scatter": 3352},
+                       "quick": {"fused_publish": 9, "zero_detect": 4, "page_scatter": 733}},
+    # a publish a snapshot of each point (12 same, 30 mixed); a restore's hot walk and each
+    # installed cold extent through page_scatter
+    "concurrency_bench": {"full": {"fused_publish": 42, "page_scatter": 4056},
+                          "quick": {"fused_publish": 4, "page_scatter": 468}},
+    # a zero scan a modeled strategy (5, per-page aquifer, 2 hot pre-install models); the
+    # restore's hot walk and 898 prefetched extents
+    "breakdown": {"full": {"fused_publish": 1, "zero_detect": 8, "page_scatter": 899}},
+    # one publish; the batched restore's two walks (the per-page one copies page by page)
+    "serving_bench": {"full": {"fused_publish": 1, "page_scatter": 2}},
+}
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:91"
 FLASH_CSRC = "src/repro_torch/kernels/flash_attention/csrc"
 FLASH_SRC = {"sm90": f"{FLASH_CSRC}/flash_attention_sm90.cu",
@@ -1711,14 +1771,6 @@ def recurate_phase(torch, np, image, working_set, cold_idx, seed: int) -> dict:
     return rep
 
 
-def json_diff(a, b, path: str = "") -> list:
-    """Paths where two JSON values differ (``==``, floats included)."""
-    if isinstance(a, dict) and isinstance(b, dict):
-        return [d for k in sorted(set(a) | set(b), key=str)
-                for d in json_diff(a.get(k), b.get(k), f"{path}/{k}")]
-    return [] if a == b else [f"{path}: {a!r} != {b!r}"]
-
-
 def json_leaves(d) -> int:
     return sum(json_leaves(v) for v in d.values()) if isinstance(d, dict) else 1
 
@@ -1728,23 +1780,28 @@ def check_launches(where: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{where}: launches {got}, want {want}")
 
 
-def fleet_reference(torch, fb, device) -> dict:
+def fleet_reference(torch, fb, device, full: bool = False) -> dict:
     """(a): the bench twin's single-pod and multi-pod runs at the
-    reference's configurations with every pod on the card, each held key for
-    key against the JAX package's committed JSON file."""
+    reference's quick configurations (``full``: its full ones) with every pod
+    on the card, each held key for key against the JAX package's committed
+    JSON file."""
     wrappers = data_plane_wrappers()
     for k in wrappers.values():
         k.launches = 0
     rep = {"walls_s": {}, "keys_compared": {}}
     outs = {}
-    for fn, name in (("run", "fleet_bench.json"), ("run_multipod", "fleet_bench_multipod.json")):
+    suffix = ".json" if full else "_quick.json"
+    for fn, name in (("run", f"fleet_bench{suffix}"),
+                     ("run_multipod", f"fleet_bench_multipod{suffix}")):
         walls = {}
         t0 = time.perf_counter()
-        out = json.loads(json.dumps(getattr(fb, fn)(device=device, walls=walls)))
+        out = json.loads(json.dumps(getattr(fb, fn)(quick=not full, device=device,
+                                                    walls=walls)))
         walls["total"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
         want = json.loads((ROOT / "experiments" / name).read_text())
-        diff = json_diff(out, want)
+        diffs, _, _, inexact = json_close(out, want)
+        diff = diffs + inexact
         if diff:
             raise AssertionError(f"fleet {fn}: differs from experiments/{name}: {diff[:8]}")
         if not all(out["criteria"].values()):
@@ -1944,10 +2001,12 @@ def log_fleet_scale(b: dict, target_hot: int, a_p99: float) -> None:
         "different layouts")
 
 
-def fleet_phase(torch, np, image, working_set, seed: int, out_dir: Path) -> dict:
+def fleet_phase(torch, np, image, working_set, seed: int, out_dir: Path,
+                full: bool = False) -> dict:
     """The fleet phase: (a), (b) and (c) above, counts reset before each
-    part; the bench twin's JSON files go to ``out_dir``/fleet_bench.
-    Returns the phase's numbers."""
+    part; the bench twin's JSON files go to ``out_dir``/fleet_bench.  (a)
+    runs the quick configurations unless ``full``.  Returns the phase's
+    numbers."""
     import threading
 
     import fleet_bench as fb
@@ -1957,7 +2016,7 @@ def fleet_phase(torch, np, image, working_set, seed: int, out_dir: Path) -> dict
     device = image.device
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    rep = {"a": fleet_reference(torch, fb, device)}
+    rep = {"a": fleet_reference(torch, fb, device, full)}
     rep["a_s"] = time.perf_counter() - t_phase
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1981,6 +2040,300 @@ def fleet_phase(torch, np, image, working_set, seed: int, out_dir: Path) -> dict
         f"peak device memory {rep['peak_mem_bytes'] / 2**30:.3f} GiB ((b) "
         f"{b['peak_mem_above_start_bytes'] / 2**30:.3f} GiB above its start); launches "
         f"{rep['launches']}; no thread left")
+    return rep
+
+
+# -- the evaluation benches ----------------------------------------------------
+
+# keys that are a relative difference of two quantities, compared on their scale, 1
+RELATIVE_ERROR_KEYS = ("model_err_max",)
+
+
+def json_close(got, want, path: str = "", skip=()) -> tuple:
+    """Compare two JSON values key for key: ints, booleans and strings
+    ``==``; floats ``==`` or within 1e-12 relative (1e-15 absolute under
+    1e-12; 1e-12 absolute for a key in ``RELATIVE_ERROR_KEYS``); lists
+    element by element.  A key named in ``skip`` or a path in it is not
+    compared.  Returns ``(diffs, floats, floats_bit_equal, inexact)``,
+    ``inexact`` the paths of floats that are close but not equal."""
+    diffs, inexact, n = [], [], [0, 0]
+
+    def walk(a, b, p):
+        leaf = p.rsplit("/", 1)[-1]
+        if leaf in skip or p in skip:
+            return
+        if isinstance(a, dict) and isinstance(b, dict):
+            for k in sorted(set(a) | set(b), key=str):
+                walk(a.get(k), b.get(k), f"{p}/{k}")
+        elif isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{p}[{i}]")
+        elif isinstance(a, float) and isinstance(b, float) and type(a) is type(b):
+            n[0] += 1
+            if a == b:
+                n[1] += 1
+            elif abs(a - b) <= (1e-12 if leaf in RELATIVE_ERROR_KEYS
+                                else 1e-15 if abs(b) < 1e-12 else 1e-12 * abs(b)):
+                inexact.append(f"{p}: {a!r} vs {b!r}")
+            else:
+                diffs.append(f"{p}: {a!r} != {b!r}")
+        elif a != b or type(a) is not type(b):
+            diffs.append(f"{p}: {a!r} != {b!r}")
+
+    walk(got, want, path)
+    return diffs, n[0], n[1], inexact
+
+
+def bench_files(name: str, quick: bool) -> tuple:
+    """The committed file a twin's run is held to, and its output's name."""
+    single = name in ("breakdown", "serving_bench")
+    out = f"{name}.json" if single or not quick else f"{name}_quick.json"
+    return ROOT / "experiments" / "torch" / out, out
+
+
+def brownout_rejection_bounds(n_restores: int, hot_pages: int) -> tuple:
+    """The fault bench's brownout rejections, which follow the wall clock,
+    bounded.  At least the trip a restore (a restore outlasts the breaker's
+    2 ms cooldown); at most one rejection a host-link read that a restore
+    makes while the breaker lets it through: its machine state and offset
+    array, each hot chunk, each hot page (served degraded once rejected)."""
+    from repro_torch.core.serving import RestoreEngine
+
+    chunks = -(-hot_pages // RestoreEngine.HOT_CHUNK_PAGES)
+    return n_restores, n_restores * (2 + chunks + hot_pages)
+
+
+def bench_criteria(name: str, out: dict) -> dict:
+    """The bench's pass/fail keys (each must be true)."""
+    if name == "concurrency_bench":
+        return {k: out["criteria"][k] for k in ("gain_ok", "model_within_15pct",
+                                                "all_bit_identical")}
+    if name == "breakdown":
+        return {"restore_bit_identical": out["restore_bit_identical"]}
+    if name == "serving_bench":
+        return {"all_bit_identical_and_not_slower": out["all_bit_identical_and_not_slower"]}
+    return out["criteria"]
+
+
+def bench_headline(name: str, out: dict) -> str:
+    if name == "dedup_bench":
+        return f"effective capacity {out['effective_capacity_x']:.4f}x (>= 1.5)"
+    if name == "fault_bench":
+        return "p50 " + ", ".join(f"{s} {r['p50_modeled_ms']:.6f} ms"
+                                  for s, r in out["sweeps"].items()) + " (modeled)"
+    if name == "adaptive_bench":
+        return (f"recovery {out['adaptive']['recovery_x']:.4f}x (>= 1.3), prefetch stall cut "
+                f"{out['prefetch_ab']['min_stall_reduction_x']:.4f}x")
+    if name == "concurrency_bench":
+        return f"gain at conc >= 8 {out['criteria']['gain_at_conc_ge_8']:.4f}x (>= 1.5)"
+    if name == "breakdown":
+        return (f"speedup over Firecracker {out['speedup_vs_firecracker']:.4f}x, over FaaSnap "
+                f"{out['speedup_vs_faasnap']:.4f}x (modeled; paper 2.12x, 1.19x)")
+    r = out["rows"][0]
+    return (f"{r['workload']}: batched over per-page {r['total_speedup']:.4f}x (modeled), "
+            f"zstd_available {out['zstd_available']}")
+
+
+def bench_twin(torch, name: str, quick: bool, out_dir: Path) -> dict:
+    """One twin's run on the card, counts reset just before it, held to its
+    committed CPU output (``breakdown`` also to the reference's file) with
+    every criterion true and its launches as ``BENCH_LAUNCHES`` says."""
+    import gc
+    import importlib
+
+    mod = importlib.import_module(name)
+    mod.OUT = out_dir
+    kw = ({} if name == "breakdown" else {"workloads": ["chameleon"]}
+          if name == "serving_bench" else {"quick": quick})
+    wrappers = data_plane_wrappers()
+    for k in wrappers.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = mod.run(device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in wrappers.items()}
+    # a pool's objects (and a master's) reference each other: the arenas a
+    # run allocated go with the cyclic collector, not when the run returns
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = json.loads(json.dumps(out))
+    path, fname = bench_files(name, quick)
+    written = json.loads((out_dir / fname).read_text())
+    if written != out:
+        raise AssertionError(f"benches {name}: the written file differs from the return value")
+    # wall clocks; and the brownout's breaker rejections, which follow the wall clock (the
+    # pool's breaker takes REAL_CLOCK): bounded below instead
+    skip = ("wall_s", "/sweeps/brownout/total_injected")
+    rep = {"wall_s": wall, "launches": launches, "compared": {},
+           "mem_left_bytes": torch.cuda.memory_allocated() - mem0}
+    wants = [(str(path.relative_to(ROOT)), json.loads(path.read_text()))]
+    if name == "breakdown":
+        wants.append(("experiments/breakdown.json",
+                      json.loads((ROOT / "experiments" / "breakdown.json").read_text())))
+    for src, want in wants:
+        diffs, n_float, n_equal, inexact = json_close(out, want, skip=skip)
+        if diffs:
+            raise AssertionError(f"benches {name}: differs from {src}: {diffs[:8]}")
+        rep["compared"][src] = {"keys": json_leaves(want), "floats": n_float,
+                                "floats_bit_equal": n_equal, "inexact": inexact}
+    if name == "fault_bench":
+        b = out["sweeps"]["brownout"]
+        lo, hi = brownout_rejection_bounds(b["n_restores"], out["workload"]["hot_pages"])
+        if not lo <= b["total_injected"] <= hi:
+            raise AssertionError(f"benches fault_bench: brownout rejections {b['total_injected']} "
+                                 f"outside [{lo}, {hi}]")
+        rep["brownout_injected"] = b["total_injected"]
+    crit = bench_criteria(name, out)
+    if not all(crit.values()):
+        raise AssertionError(f"benches {name}: criteria {crit}")
+    want_launches = dict.fromkeys(DATA_PLANE, 0) | BENCH_LAUNCHES[name][
+        "quick" if quick and name not in ("breakdown", "serving_bench") else "full"]
+    check_launches(f"benches {name}", launches, want_launches)
+    rep["headline"] = bench_headline(name, out)
+    cmp = "; ".join(f"{src}: {c['floats_bit_equal']} of {c['floats']} floats bit-equal"
+                    + (f", {len(c['inexact'])} within 1e-12: {c['inexact']}" if c["inexact"]
+                       else "") for src, c in rep["compared"].items())
+    log(f"  (a) {name}{' (quick)' if quick else ''}: {wall:.2f} s; {rep['headline']}; every "
+        f"key held ({cmp}); criteria true; launches {launches}; device memory left "
+        f"{rep['mem_left_bytes'] / 2**20:.1f} MiB")
+    return rep
+
+
+def fault_cell_launches(n_restores: int, n_hot: int, hot_extents: int, cold_runs: int) -> dict:
+    """The launches of :func:`fault_cell` over a private snapshot with
+    ``n_hot`` hot pages in ``hot_extents`` chunks and ``cold_runs`` cold
+    runs: a fused sweep a stack (the bare run, four sweeps, the model, the
+    extents' count); per restore, the bare run's two batched walks (a
+    verify-only launch and an install each), and with an injector armed
+    every walk per extent: a hot chunk or cold run a launch (none,
+    rdma_timeouts; a timed-out read is re-issued before its install), two
+    more for the poisoned page (the chunk's install, then the repaired
+    page's), and under the brownout a demand fault a hot page."""
+    per_extent = hot_extents + cold_runs
+    return dict.fromkeys(DATA_PLANE, 0) | {
+        "fused_publish": 7,
+        "fused_restore": n_restores * (4 + 2 * per_extent + (per_extent + 2)
+                                       + (n_hot + cold_runs))}
+
+
+def fault_cell(torch, np, image, working_set, n_restores: int = 2) -> dict:
+    """(b): the fault bench's bare run and four sweeps, ``n_restores``
+    restores each, at cell (1)'s 1.5 GiB image, through the twin's own
+    ``make_stack`` / ``run_sweep`` with its pool sized to the snapshot."""
+    import fault_bench as fb
+
+    from repro_torch.core import SnapshotReader, estimate_snapshot_cxl_size
+
+    ws = working_set
+    n_cold = int((image.pages_matrix().any(dim=1).cpu().numpy()).sum()) - len(ws)
+    slack = 1 << 20
+    cap = {"cxl_capacity": estimate_snapshot_cxl_size(image, ws) + slack,
+           "rdma_capacity": n_cold * PAGE + slack}
+    wrappers = data_plane_wrappers()
+    for k in wrappers.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    bare = fb.run_sweep("none", n_restores, image, ws, armed=False, **cap)
+    sweeps = {s: fb.run_sweep(s, n_restores, image, ws, **cap) for s in fb.SWEEPS}
+    model = fb.degraded_model_ms(image, ws, **cap)
+    wall = time.perf_counter() - t0
+    crit = fb.criteria_of(sweeps, bare, model, n_restores)
+    if not all(crit.values()):
+        raise AssertionError(f"benches (b): criteria {crit}")
+    # the layout's extents: per-extent walks launch once an extent
+    pool, master, borrow = fb.make_stack(image, ws, **cap)
+    reader = SnapshotReader(borrow.regions, pool.host_view("count"), pool.rdma)
+    n_hot, n_cold = borrow.regions.n_hot, borrow.regions.n_cold
+    hot_ext = sum(1 for _ in reader.iter_hot_extents())
+    cold_runs = int(reader.cold_runs().shape[0])
+    del reader
+    fb.free_stack(pool, master, borrow)
+    del pool, master, borrow
+    rows = {"bare": bare, **sweeps}
+    for s, r in rows.items():
+        if r["_pages_verified"] != [n_hot + n_cold] * n_restores or not r["all_bit_identical"]:
+            raise AssertionError(f"benches (b) {s}: verified {r['_pages_verified']}, bit-identical "
+                                 f"{r['all_bit_identical']}")
+    b = sweeps["brownout"]
+    if not (sweeps["rdma_timeouts"]["total_retries"] > 0
+            and sweeps["cxl_poison"]["total_repairs"] == n_restores
+            and b["n_degraded"] == n_restores):
+        raise AssertionError(f"benches (b): retries/repairs/degraded {sweeps}")
+    launches = {n: k.launches for n, k in wrappers.items()}
+    check_launches("benches (b)", launches,
+                   fault_cell_launches(n_restores, n_hot, hot_ext, cold_runs))
+    torch.cuda.synchronize()
+    rep = {"n_restores": n_restores, "n_hot": n_hot, "n_cold": n_cold, "hot_extents": hot_ext,
+           "cold_runs": cold_runs, "capacity": cap, "wall_s": wall, "launches": launches,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "peak_mem_above_start_bytes": torch.cuda.max_memory_allocated() - base_mem,
+           "degraded_model": model, "criteria": crit,
+           "sweeps": {s: {**fb.strip(r), "wall_s": r["_wall_s"]} for s, r in rows.items()}}
+    for s, r in rows.items():
+        log(f"  (b) {s:>13}: p50 {r['p50_modeled_ms']:.4f} ms modeled; restores "
+            + ", ".join(f"{w:.3f}" for w in r["_wall_s"]) + " s wall; retries "
+            f"{r['total_retries']}, repairs {r['total_repairs']}, degraded {r['n_degraded']}, "
+            f"injected {r['total_injected']}")
+    log(f"  (b) {n_restores} restores a sweep of the {image.total_pages}-page image (n_hot "
+        f"{n_hot}, n_cold {n_cold}; {hot_ext} hot chunks, {cold_runs} cold runs): every restore "
+        f"bit-identical, every page verified; armed-but-empty ledgers == bare (overhead 0); "
+        f"brownout p50 {b['p50_modeled_ms']:.4f} ms against the degraded model "
+        f"{model['degraded_ms']:.4f} ms (within 15%); every pool byte back; {wall:.2f} s; peak "
+        f"device memory {rep['peak_mem_bytes'] / 2**30:.3f} GiB "
+        f"({rep['peak_mem_above_start_bytes'] / 2**30:.3f} above the start); launches {launches}")
+    return rep
+
+
+def benches_phase(torch, np, image, working_set, out_dir: Path) -> dict:
+    """The benches phase: (a) the six twins at the reference's full
+    configurations against their committed files, (b) the fault sweeps at
+    cell (1)'s image; counts reset before each.  The twins' JSON files go
+    to ``out_dir``/benches."""
+    import threading
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    threads_before = set(threading.enumerate())
+    flash_ops.reset_launches()   # the workloads only initialise parameters: no attention
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t_phase = time.perf_counter()
+    rep = {"a": {}}
+    for name in BENCHES:
+        rep["a"][name] = bench_twin(torch, name, False, out_dir / "benches")
+        torch.cuda.empty_cache()
+    import gc
+
+    import workloads
+
+    workloads.clear_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["a_s"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    rep["b"] = fault_cell(torch, np, image, working_set)
+    rep["b_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+    if left:
+        raise AssertionError(f"benches: threads left after the phase: {left}")
+    rep["launches"] = {n: sum(r["launches"][n] for r in rep["a"].values())
+                       + rep["b"]["launches"][n] for n in DATA_PLANE}
+    rep["launches_flash"] = flash_ops.flash_attention.launches
+    if rep["launches_flash"]:
+        raise AssertionError(f"benches: {rep['launches_flash']} flash_attention launches")
+    rep["mem_left_bytes"] = torch.cuda.memory_allocated() - mem0
+    rep["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"  benches: (a) {rep['a_s']:.2f} s ("
+        + ", ".join(f"{n} {r['wall_s']:.2f}" for n, r in rep["a"].items())
+        + f"), (b) {rep['b_s']:.2f} s; launches {rep['launches']}; no thread left; device "
+        f"memory left {rep['mem_left_bytes'] / 2**20:.1f} MiB")
     return rep
 
 
@@ -2928,14 +3281,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("fleet")
 
-    # 13. Phi-4-mini's cold start from the pool, counts reset inside just before it
+    # 13. the evaluation benches' twins against their committed files, and the
+    # fault sweeps at the 1.5 GiB image, counts reset before each
+    log("benches:")
+    report["benches"] = benches_phase(torch, np, image, working_set, out.parent)
+    torch.cuda.empty_cache()
+    phase_done("benches")
+
+    # 14. Phi-4-mini's cold start from the pool, counts reset inside just before it
     log("coldstart:")
     del pm, image, buf
     torch.cuda.empty_cache()
     report["coldstart"] = coldstart_phase(torch, np, args.seed, device, out.parent)
     phase_done("coldstart")
 
-    # 14. the model: the flash kernel's checks and timings, then Phi-4-mini's
+    # 15. the model: the flash kernel's checks and timings, then Phi-4-mini's
     # prefill forward (counts reset inside just before it), serving and parity
     log("model:")
     report["flash"] = check_flash(torch, device, args.seed)
@@ -2949,6 +3309,7 @@ def main() -> int:
     recurate_launches = report["recurate"]["launches"]
     coldstart_launches = report["coldstart"]["launches"]
     fleet_launches = report["fleet"]["launches"]
+    bench_launches = report["benches"]["launches"]
     coldstart_err = report["coldstart"]["max_abs_err"]
     cold, hot, store = row_lists["cold"], row_lists["hot"], row_lists["store_write"]
     kernels = [
@@ -2961,6 +3322,7 @@ def main() -> int:
                               "sim": sim_launches["fused_publish"],
                               "recurate": recurate_launches["fused_publish"],
                               "fleet": fleet_launches["fused_publish"],
+                              "benches": bench_launches["fused_publish"],
                               "coldstart": coldstart_launches["fused_publish"]},
          "bit_equal": True,
          "max_abs_err": max(pub_err, coldstart_err["fused_publish"]), "ms": pub["ms"],
@@ -2977,6 +3339,7 @@ def main() -> int:
                               "sim": sim_launches["fused_restore"],
                               "recurate": recurate_launches["fused_restore"],
                               "fleet": fleet_launches["fused_restore"],
+                              "benches": bench_launches["fused_restore"],
                               "coldstart": coldstart_launches["fused_restore"]},
          "bit_equal": True, "max_abs_err": res_err,
          "ms": cold["install"]["ms"], "plain_ms": cold["plain_ms"],
@@ -3004,6 +3367,7 @@ def main() -> int:
                                  "topology": topo_launches[name], "sim": sim_launches[name],
                                  "recurate": recurate_launches[name],
                                  "fleet": fleet_launches[name],
+                                 "benches": bench_launches[name],
                                  "coldstart": coldstart_launches[name]},
             "bit_equal": True,
             "max_abs_err": max(row_err[name], coldstart_err.get(name, 0)), "ms": r["ms"],
@@ -3018,7 +3382,8 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SRC["sm90"],
         "replaces": FLASH_TPU, "launches": by_route["sm90"],
         "launches_by_route": by_route,
-        "launches_by_path": {"prefill_forward": report["model"]["launches"]},
+        "launches_by_path": {"prefill_forward": report["model"]["launches"],
+                             "benches": report["benches"]["launches_flash"]},
         "bit_equal": False, "tolerance": report["flash"]["tolerance"],
         "max_abs_err": report["flash"]["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -83,8 +83,8 @@ def _pairwise_sum(x: np.ndarray) -> float:
     return _pairwise_sum(x[:n2]) + _pairwise_sum(x[n2:])
 
 
-def float_mean(x: np.ndarray) -> float:
-    """``x.mean()`` of a float64 array, added in the order NumPy 2.0 adds
+def float_sum(x) -> float:
+    """``x.sum()`` of a float64 array, added in the order NumPy 2.0 adds
     it: pairwise sums (8 running sums per block of at most 128) inside
     buffers of 8,192 elements, the buffers summed in order.  Fixed here so
     that a summary does not depend on the NumPy build: NumPy 2.3 on an
@@ -93,7 +93,13 @@ def float_mean(x: np.ndarray) -> float:
     total = 0.0
     for s in range(0, x.size, _SUM_BUFFER):
         total += _pairwise_sum(x[s : s + _SUM_BUFFER])
-    return total / x.size
+    return total
+
+
+def float_mean(x) -> float:
+    """``x.mean()`` of a float64 array, added as :func:`float_sum` adds."""
+    x = np.ascontiguousarray(x, dtype=np.float64).reshape(-1)
+    return float_sum(x) / x.size
 
 
 @dataclasses.dataclass

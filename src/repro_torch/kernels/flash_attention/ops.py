@@ -7,6 +7,9 @@ CPU tensors take the plain versions, as the JAX package's non-TPU path does:
 above.  CUDA tensors launch one of the two hand-written kernels, the one
 ``route`` names, or raise.  ``flash_attention.launches_sm90`` and
 ``.launches_simt`` count the launches of each, ``.launches`` their sum.
+The kernels have no backward yet: a CUDA call under grad mode with an input
+that requires grad raises (``check_no_grad``) instead of returning an output
+with no autograd history.
 """
 from __future__ import annotations
 
@@ -52,6 +55,17 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool)
         raise ValueError(f"flash_attention: B*Hq={b * hq} exceeds the grid's 65535")
 
 
+def check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise when autograd would record this call: grad mode is on and any
+    of q, k, v requires grad.  The CUDA kernels fill their output through a
+    plain C entry point, so it would carry no ``grad_fn`` and every earlier
+    layer would silently get no gradient.  The backward is ROADMAP A11's."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernels have no backward yet (ROADMAP A11); call it "
+            "under torch.no_grad() or torch.inference_mode(), or detach q, k and v")
+
+
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """Which kernel takes a CUDA call that ``_check_cuda`` passed, from
     dtypes, shapes, base addresses and strides alone.
@@ -87,6 +101,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         if k.shape[2] > CHUNKED_THRESHOLD:
             return chunked_attention_ref(q, k, v, causal=causal, scale=scale)
         return attention_ref(q, k, v, causal=causal, scale=scale)
+    check_no_grad(q, k, v)
     _check_cuda(q, k, v, causal)
     # the kernel takes any strides of dims 0..2 (the model hands it transposed
     # views) but a contiguous last dim

@@ -335,3 +335,36 @@ def test_launch_counters_by_route(monkeypatch):
         flash_attention.launches = saved[0]
         for name, n in saved[1].items():
             setattr(flash_attention, f"launches_{name}", n)
+
+
+# -- no backward on the card yet: the guard ---------------------------------------------
+
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
+def test_grad_guard_raises_under_grad_naming_a11(needs_grad):
+    q, k, v = (torch.zeros(1, 2, 4, 8) for _ in range(3))
+    dict(q=q, k=k, v=v)[needs_grad].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="A11"):
+        ops.check_no_grad(q, k, v)
+    with torch.no_grad():
+        ops.check_no_grad(q, k, v)
+    with torch.inference_mode():
+        ops.check_no_grad(q, k, v)
+    ops.check_no_grad(q.detach(), k.detach(), v.detach())
+
+
+def test_cpu_path_still_differentiates():
+    """The guard is the CUDA branch's: on CPU tensors the plain versions run
+    under autograd, and their gradients agree with each other's."""
+    rng = np.random.default_rng(5)
+    base = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((1, 4, 16, 8), (1, 2, 16, 8), (1, 2, 16, 8))]
+    grads = []
+    for fn in (lambda q, k, v: flash_attention(q, k, v, causal=True),
+               lambda q, k, v: chunked_attention_ref(q, k, v, causal=True, scale=8 ** -0.5,
+                                                     block_k=4)):
+        q, k, v = (t.clone().requires_grad_(True) for t in base)
+        fn(q, k, v).square().sum().backward()
+        assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in (q, k, v))
+        grads.append([t.grad for t in (q, k, v)])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -1020,3 +1020,46 @@ def test_compress_cold_without_zstandard_on_card(cuda_device, monkeypatch):
     assert not ra.cold_compressed and ra.ci_size == 0
     assert dataclasses.asdict(ra) == dataclasses.asdict(rb)
     assert torch.equal(pa.cxl.buf, pb.cxl.buf) and torch.equal(pa.rdma.buf, pb.rdma.buf)
+
+
+def _smoke():
+    """``chip_smoke`` (the repo's root on the path; it puts scripts/ there)."""
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("name", ["dedup_bench", "fault_bench", "adaptive_bench",
+                                  "concurrency_bench", "breakdown", "serving_bench"])
+def test_bench_twin_on_card_holds_its_committed_file(cuda_device, name, tmp_path):
+    """Each bench twin at its quick configuration (breakdown and
+    serving_bench have one) on the card: every key held to its committed
+    CPU output (floats within 1e-12 relative, ``model_err_max`` within
+    1e-12; wall clocks and the brownout's breaker rejections aside), every
+    criterion true, launches exact."""
+    cs = _smoke()
+    rep = cs.bench_twin(torch, name, True, tmp_path)
+    assert rep["compared"] and all(c["floats"] >= c["floats_bit_equal"]
+                                   for c in rep["compared"].values())
+
+
+def test_flash_attention_raises_under_grad_on_card(cuda_device):
+    """The CUDA kernels have no backward yet: a call that autograd would
+    record raises; under no_grad the same inputs run."""
+    from repro_torch.kernels import flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 64, 64, generator=g, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    with pytest.raises(RuntimeError, match="A11"):
+        flash_attention(q.requires_grad_(True), k, v)
+    with torch.no_grad():
+        out = flash_attention(q, k, v)
+    assert out.shape == (1, 2, 64, 64) and torch.isfinite(out.float()).all()
+    assert not out.requires_grad

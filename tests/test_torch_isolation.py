@@ -1,5 +1,5 @@
 """The port stands alone: importing ``repro_torch`` (and the simulator's
-scenario library and the fleet bench) loads neither ``jax`` nor the JAX
+scenario library and the bench twins) loads neither ``jax`` nor the JAX
 package ``repro``, needs no card and no nvcc, and no file of the port (nor
 ``chip_smoke.py`` and the scripts it imports) imports them."""
 import ast
@@ -14,7 +14,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "sim_scenarios.py",
     ROOT / "scripts" / "topology_phase.py", ROOT / "scripts" / "fleet_bench.py",
-    ROOT / "scripts" / "fleet_phase.py"]
+    ROOT / "scripts" / "fleet_phase.py"] + [
+    ROOT / "scripts" / f"{name}.py"
+    for name in ("workloads", "dedup_bench", "fault_bench", "adaptive_bench",
+                 "concurrency_bench", "breakdown", "serving_bench", "benches_phase")]
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -27,7 +30,8 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.serve.strategies, repro_torch.serve.coldstart, "
             "repro_torch.sim, repro_torch.sim.cluster, repro_torch.topology, "
             "repro_torch.fleet, repro_torch.fleet.driver, repro_torch.fleet.model; "
-            "sys.path.insert(0, %r); import sim_scenarios, fleet_bench; "
+            "sys.path.insert(0, %r); import sim_scenarios, fleet_bench, workloads, dedup_bench, "
+            "fault_bench, adaptive_bench, concurrency_bench, breakdown, serving_bench; "
             "repro_torch.configs.base.load_all(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad") % str(ROOT / "scripts")
