@@ -208,6 +208,31 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              at full width, 2 layers, float32 (relative error < 2e-3).  One
              prefill forward and four decode steps run under torch.profiler.
 
+16. train   — training on the card.  (a) The flash-attention backward
+             (``flash_attention_bwd.cu``) against autograd through the
+             float32 reference on the upcast inputs (float32 within 1e-4
+             max|want| + 1e-6, bf16 within 2^-6 max|want| + 1e-4, per
+             gradient) and against its plain version on the same saved output
+             and log-sum-exp, each case's forward on its asserted route: the
+             training shape B=1, Hq=24, Hkv=8, S=4096, D=128 causal in bf16 and
+             float32, D=64, S=1000, ragged Sq < Skv, non-causal, MHA; two
+             launches bit-equal; at the training shape, in turns, the kernel,
+             the plain backward and ``scaled_dot_product_attention``'s backward
+             beside the bound.  (b) Phi-4-mini 3.8B at full width, 3 of its 32
+             layers (1.53 B float32 parameters, bf16 compute, remat), batches
+             of ``SyntheticLMData(vocab=200064, seq_len=4096, global_batch=1)``:
+             6 uninterrupted steps (one more under torch.profiler for the
+             backward's share of the device time); a ``Trainer`` that runs 3
+             steps with a blocking checkpoint (one fused publish) and is
+             dropped; a second ``Trainer`` that resumes through
+             ``run(resume=True)`` and trains to step 6.  The restored state
+             equal to the checkpointed one, every page verified, every loss
+             and gradient norm finite, the resumed parameters equal to the
+             uninterrupted run's, launches exact (forward twice a layer a
+             step under remat, the backward once).  (c) The quickstart twin
+             (``scripts/quickstart.py``) with asynchronous checkpoints: its
+             loss falls, the restored parameters bit-identical, 12 tokens.
+
 Prints each phase's wall time, a ``{"kernels": [...]}`` line, the card line,
 and as the last line ``{"ok": true, "device": {...}}``.  Details go to
 ``--out``.  Modeled ledger seconds are the paper's CXL/RDMA cost model, not
@@ -258,6 +283,10 @@ COLDSTART_COMPUTE_S = 0.25  # and its modeled compute
 COLDSTART_CONC = 32         # co-located restores in examples/serve_coldstart.py
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 16, 8   # the cold-started server's requests
 PREFILL_SEQ = 8192          # prefill_32k cut to one 8,192-token sequence
+TRAIN_SEQ = 4096            # train_4k's sequence length (configs/shapes.py)
+TRAIN_LAYERS = 3            # Phi-4-mini's 32 layers cut to 3: the checkpoint's peak is 4x the state
+TRAIN_STEPS = 6
+TRAIN_CKPT_STEP = 3
 FLEET_SCALE_X = 64          # fleet (b): pages a variant over the bench's full configuration
 # the evaluation benches' twins (scripts/<name>.py), in the order the benches phase runs them
 BENCHES = ("dedup_bench", "fault_bench", "adaptive_bench", "concurrency_bench", "breakdown",
@@ -295,7 +324,8 @@ BENCH_LAUNCHES = {
 }
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:91"
 FLASH_CSRC = "src/repro_torch/kernels/flash_attention/csrc"
-FLASH_SRC = {"sm90": f"{FLASH_CSRC}/flash_attention_sm90.cu",
+FLASH_SRC = {"bwd": f"{FLASH_CSRC}/flash_attention_bwd.cu",
+             "sm90": f"{FLASH_CSRC}/flash_attention_sm90.cu",
              "simt": f"{FLASH_CSRC}/flash_attention.cu"}
 
 
@@ -3033,6 +3063,454 @@ def model_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
     return rep
 
 
+# ----------------------------------------------------------------------------
+# train: the flash-attention backward, Phi-4-mini training, the quickstart twin
+# ----------------------------------------------------------------------------
+
+def flash_bwd_bound_ms(q, k, causal: bool):
+    """Least time for one backward: 5 products (S, dP, dV, dQ, dK) of 2*D
+    operations per (query, key) pair the mask keeps, at the peak rate for
+    the inputs' type, against q, k, v, O, dO and lse read and dq, dk, dv
+    written once at the memory rate."""
+    import torch
+
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    ops = 10 * d * flash_pairs(b, hq, sq, skv, causal)
+    rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    # q, O, dO read and dq written; k, v read and dk, dv written; lse read
+    nbytes = 4 * (q.numel() + k.numel()) * q.element_size() + b * hq * sq * 4
+    t, by = bound_ms(nbytes, 0)
+    if ops / rate * 1e3 > t:
+        t, by = ops / rate * 1e3, "operations"
+    return t, by, ops, nbytes
+
+
+def check_flash_bwd(torch, device, seed: int) -> dict:
+    """The flash-attention backward kernel on the card: each case's forward
+    under autograd on its asserted route, then the backward kernel, against
+    autograd through the float32 ``attention_ref`` on the upcast inputs
+    (float32 within 1e-4 max|want| + 1e-6, bf16 within 2^-6 max|want| +
+    1e-4, per gradient) and against ``flash_attention_bwd_ref`` on the same
+    saved output and log-sum-exp; two launches bit-equal.  At the training
+    shape, in turns: the kernel, its plain version and the library's
+    backward (``scaled_dot_product_attention`` with K and V repeated to Hq),
+    beside the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_ref, flash_attention_bwd,
+                                                     flash_attention_bwd_ref)
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 23)
+    bf, f32 = torch.bfloat16, torch.float32
+    tol = {f32: (1e-4, 1e-6), bf: (2.0 ** -6, 1e-4)}
+
+    def inputs(b, hq, hkv, sq, skv, d, dtype):
+        return (torch.randn(b, hq, sq, d, generator=g, device=device).to(dtype),
+                torch.randn(b, hkv, skv, d, generator=g, device=device).to(dtype),
+                torch.randn(b, hkv, skv, d, generator=g, device=device).to(dtype),
+                torch.randn(b, hq, sq, d, generator=g, device=device).to(dtype))
+
+    def share(got, want, dtype):
+        rtol, atol = tol[dtype]
+        err = float((got.float() - want.float()).abs().max())
+        return err, err / (rtol * float(want.float().abs().max()) + atol)
+
+    path = (1, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 128)
+    cases = [("training shape bf16", path, bf, True, "sm90"),
+             ("training shape f32", path, f32, True, "simt"),
+             ("D=64", (1, 24, 8, 2048, 2048, 64), bf, True, "sm90"),
+             ("S=1000, not a multiple of the tile", (1, 24, 8, 1000, 1000, 128), bf, True,
+              "sm90"),
+             ("ragged Sq=700<Skv=1100", (1, 24, 8, 700, 1100, 128), bf, True, "sm90"),
+             ("non-causal", (1, 24, 8, 1000, 1000, 128), bf, False, "sm90"),
+             ("MHA", (1, 8, 8, 1024, 1024, 128), bf, True, "sm90")]
+    out = {"cases": [], "tolerance": {"float32": tol[f32], "bfloat16": tol[bf]}}
+    for name, shape, dtype, causal, want_route in cases:
+        q, k, v, do = inputs(*shape, dtype)
+        scale = shape[5] ** -0.5
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        before = fops.launches_by_route()
+        o = fops.flash_attention(qg, kg, vg, causal=causal)
+        took = [r for r, n in fops.launches_by_route().items() if n != before[r]]
+        if took != [want_route]:
+            raise AssertionError(f"flash backward ({name}): the forward took {took}, "
+                                 f"want {want_route}")
+        nb = flash_attention_bwd.launches
+        got = torch.autograd.grad(o, (qg, kg, vg), do)
+        if flash_attention_bwd.launches != nb + 1:
+            raise AssertionError(f"flash backward ({name}): {flash_attention_bwd.launches - nb} "
+                                 "backward launches, want 1")
+        _, lse = fops._forward(q, k, v, causal, scale, with_lse=True)
+        o_saved = o.detach()
+        again = flash_attention_bwd(q, k, v, o_saved, lse, do, causal=causal)
+        plain = flash_attention_bwd_ref(q, k, v, o_saved, lse, do, causal=causal, scale=scale)
+        qf, kf, vf = (t.float().requires_grad_(True) for t in (q, k, v))
+        want = torch.autograd.grad(attention_ref(qf, kf, vf, causal=causal), (qf, kf, vf),
+                                   do.float())
+        torch.cuda.synchronize()
+        row = {"name": name, "shape": list(shape), "dtype": str(dtype), "causal": causal,
+               "route": want_route, "grads": {}}
+        for gname, a, b2, p, w in zip(("dq", "dk", "dv"), got, again, plain, want):
+            if not torch.equal(a, b2):
+                raise AssertionError(f"flash backward ({name}): two launches differ in {gname}")
+            err, sh = share(a, w, dtype)
+            perr, psh = share(a, p, dtype)
+            if a.dtype != dtype or a.shape != w.shape or sh > 1 or psh > 1:
+                raise AssertionError(f"flash backward ({name}) {gname}: max_abs_err {err} "
+                                     f"({sh:.3f} of the limit) against autograd, {perr} "
+                                     f"({psh:.3f}) against the plain backward")
+            row["grads"][gname] = {"max_abs_err": err, "share_of_limit": sh,
+                                   "vs_plain_max_abs_err": perr, "vs_plain_share": psh}
+        row["max_abs_err"] = max(r["max_abs_err"] for r in row["grads"].values())
+        out["cases"].append(row)
+        log(f"  flash backward {name} {tuple(shape)} causal={causal} (forward on {want_route}): "
+            + ", ".join(f"{k} {r['max_abs_err']:.3g} ({r['share_of_limit']:.3f} of the limit; "
+                        f"plain {r['vs_plain_share']:.3f})" for k, r in row["grads"].items())
+            + "; two launches bit-equal")
+        del q, k, v, do, qg, kg, vg, o, got, again, plain, want, qf, kf, vf, lse, o_saved
+    torch.cuda.empty_cache()
+
+    # at the training shape, in turns: kernel, plain, library
+    q, k, v, do = inputs(*path, bf)
+    o, lse = fops._forward(q, k, v, True, 128 ** -0.5, with_lse=True)
+    group = q.shape[1] // k.shape[1]
+    ql = q.clone().requires_grad_(True)
+    kl = k.repeat_interleave(group, 1).requires_grad_(True)
+    vl = v.repeat_interleave(group, 1).requires_grad_(True)
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+
+    def kernel():
+        return flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+
+    def plain():
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+
+    def library():
+        return torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
+
+    nb = flash_attention_bwd.launches
+    turns = {"kernel": [], "plain": [], "library": []}
+    for name, fn, iters in (("kernel", kernel, 5), ("plain", plain, 2), ("library", library, 10),
+                            ("library", library, 10), ("plain", plain, 2),
+                            ("kernel", kernel, 5)):
+        turns[name].append(cuda_ms(fn, iters=iters, warmup=1))
+    flash_attention_bwd.launches = nb           # timing launches are not the path's
+    bound, by, ops, nbytes = flash_bwd_bound_ms(q, k, True)
+    out["timing"] = {"shape": f"B=1 Hq=24 Hkv=8 S={TRAIN_SEQ} D=128 causal bf16",
+                     "turns_ms": turns, "order": "kernel, plain, library, library, plain, kernel",
+                     "ms": sum(turns["kernel"]) / 2, "plain_ms": sum(turns["plain"]) / 2,
+                     "library_ms": sum(turns["library"]) / 2,
+                     "plain": "flash_attention_bwd_ref (block_k=512)",
+                     "library": "torch.autograd.grad through F.scaled_dot_product_attention("
+                                "is_causal=True), K and V repeated to Hq, its backward alone",
+                     "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes}
+    del q, k, v, do, o, lse, ql, kl, vl, lib_out
+    torch.cuda.empty_cache()
+    r = out["timing"]
+    out["max_abs_err"] = max(c["max_abs_err"] for c in out["cases"])
+    log(f"  flash backward {r['ms']:.3f} ms at {r['shape']} "
+        f"({', '.join(f'{t:.3f}' for t in turns['kernel'])}); plain {r['plain_ms']:.3f} ms; "
+        f"library backward {r['library_ms']:.4f} ms; bound {bound:.4f} ms by {by}: "
+        f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB")
+    return out
+
+
+def tree_fingerprint(torch, tree) -> list:
+    """Per leaf, in tree order: dtype, shape and two int64 sums of its 32-bit
+    words (plain and position-weighted, wrapping), computed on the card in
+    chunks of 2^26 words (1.6 GB of temporaries at most): any changed word
+    changes them but with odds of 2^-64."""
+    from repro_torch.tree import tree_leaves
+
+    chunk = 1 << 26
+    fp = []
+    for t in tree_leaves(tree):
+        flat = t.detach().reshape(-1)
+        flat = flat.view(torch.int32) if t.element_size() == 4 else flat.view(torch.uint8)
+        plain = weighted = 0
+        for start in range(0, flat.numel(), chunk):
+            words = flat[start:start + chunk].to(torch.int64)
+            pos = torch.arange(start, start + words.numel(), device=words.device,
+                               dtype=torch.int64)
+            plain += int(words.sum())
+            weighted += int((words * (pos * 2654435761 + 1)).sum())
+        fp.append((str(t.dtype), tuple(t.shape), plain, weighted % (1 << 64)))
+    return fp
+
+
+def train_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
+    """Training on the card (see the module docstring): (a) the backward
+    kernel's checks and timings; (b) Phi-4-mini at full width, cut in depth,
+    6 uninterrupted steps, then 3 steps with a blocking checkpoint, a crash
+    and a resume to step 6 through ``Trainer.run(resume=True)``; (c) the
+    quickstart twin with asynchronous checkpoints."""
+    import dataclasses
+    import gc
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import quickstart
+    from repro_torch.checkpoint.ckpt import flatten_state
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import HierarchicalPool, Orchestrator, PoolMaster, RestoreEngine
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.snapshot_fuse import ops
+    from repro_torch.models import build
+    from repro_torch.train import LoopConfig, Trainer
+    from repro_torch.train.trainstep import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rep = {"backward": check_flash_bwd(torch, device, seed)}
+    counted = data_plane_wrappers()
+    threads_before = set(threading.enumerate())
+    t_phase = time.perf_counter()
+
+    cfg = dataclasses.replace(get_config(MODEL_ARCH), n_layers=TRAIN_LAYERS,
+                              name=f"{MODEL_ARCH}-train-{TRAIN_LAYERS}l")
+    n_layers = cfg.n_layers
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1,
+                                      seed=0))
+    model = build(cfg, device=device)
+    rep["config"] = {"arch": MODEL_ARCH, "n_layers": n_layers, "d_model": cfg.d_model,
+                     "vocab": cfg.vocab, "param_count": cfg.param_count(), "remat": cfg.remat,
+                     "compute_dtype": cfg.compute_dtype, "seq": TRAIN_SEQ, "global_batch": 1,
+                     "reduced": [f"depth 32 -> {n_layers}", "train_4k global batch 256 -> 1"]}
+    log(f"  {cfg.name}: {cfg.param_count():,} float32 parameters at full width (d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}), remat {cfg.remat}, bf16 compute; cut: "
+        + "; ".join(rep["config"]["reduced"]))
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(i).items()}
+
+    def reset():
+        fops.reset_launches()
+        for k in counted.values():
+            k.launches = 0
+
+    # (b1) six uninterrupted steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    step = make_train_step(model)
+    state = init_train_state(model, seed)
+    walls, losses, gnorms = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch(i))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    want_fwd, want_bwd = 2 * n_layers * TRAIN_STEPS, n_layers * TRAIN_STEPS
+    got = {"flash_attention": flash_attention.launches, "by_route": fops.launches_by_route(),
+           "flash_attention_bwd": flash_attention_bwd.launches}
+    if got["by_route"] != {"sm90": want_fwd, "simt": 0} or got["flash_attention_bwd"] != want_bwd:
+        raise AssertionError(f"train: {TRAIN_STEPS} steps launched {got}, want {want_fwd} sm90 "
+                             f"forwards (remat: twice a layer) and {want_bwd} backwards")
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"train: losses {losses} grad norms {gnorms} not finite")
+    rep["uninterrupted"] = {"losses": losses, "grad_norms": gnorms, "step_s": walls,
+                            "tokens_per_s": TRAIN_SEQ / min(walls[1:]), "launches": got}
+    peaks = {"uninterrupted": torch.cuda.max_memory_allocated()}
+    log(f"  6 uninterrupted steps: losses {', '.join(f'{x:.4f}' for x in losses)}; grad norms "
+        f"{', '.join(f'{x:.3f}' for x in gnorms)}; step walls "
+        f"{', '.join(f'{x:.3f}' for x in walls)} s ({rep['uninterrupted']['tokens_per_s']:.0f} "
+        f"tokens/s at the best warm step); launches {got}")
+
+    # one more step (state is not kept) under the profiler: the backward's share
+    probe = tree_map(torch.clone, state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        probe, _ = step(probe, batch(TRAIN_STEPS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = _device_summary(torch, prof, wall, top=8)
+    dev = torch.autograd.DeviceType.CUDA
+    by_name = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == dev}
+    bwd_ms = sum(t for n, t in by_name.items()
+                 if "dkdv_kernel" in n or "dq_kernel" in n or "delta_kernel" in n)
+    fwd_ms = sum(t for n, t in by_name.items() if "flash_sm90_kernel" in n)
+    summary.update(backward_ms=bwd_ms, backward_share=bwd_ms / summary["device_busy_ms"],
+                   forward_flash_ms=fwd_ms)
+    rep["profile_step"] = summary
+    (out_dir / "profile_train_step.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30))
+    del prof, probe
+    reset()
+    log(f"  profiled step: wall {wall:.3f} s, device busy {summary['device_busy_ms']:.1f} ms, "
+        f"idle share {summary['device_idle_share']:.4f}; flash backward {bwd_ms:.1f} ms = "
+        f"{summary['backward_share']:.3f} of the device time, flash forward {fwd_ms:.1f} ms")
+    for r in summary["top"][:5]:
+        log(f"    {r['device_ms']:.3f} ms x{r['count']} {r['name'][:70]}")
+
+    final_ref = tree_map(lambda t: t.cpu(), state.params)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b2) a Trainer: 3 steps, a blocking checkpoint at step 3, then the crash
+    n_params = cfg.param_count()
+    slack = 256 << 20
+    pool = HierarchicalPool(cxl_capacity=4 * n_params + slack,
+                            rdma_capacity=8 * n_params + slack, device=device)
+    free0 = (pool.cxl.free_list(), pool.rdma.free_list())
+    master = PoolMaster(pool, publish_fn=ops.make_fused_publish_fn())
+    name = f"{cfg.name}-ckpt"
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t1 = Trainer(model, data, master=master,
+                 loop_cfg=LoopConfig(steps=TRAIN_CKPT_STEP, ckpt_every=TRAIN_CKPT_STEP,
+                                     ckpt_name=name, async_checkpoint=False, log_every=1),
+                 seed=seed)
+    state3 = t1.run()
+    torch.cuda.synchronize()
+    fp3 = tree_fingerprint(torch, state3)
+    ck = t1.ckpt_stats[-1]
+    n_publish = counted["fused_publish"].launches
+    if [s["step"] for s in t1.ckpt_stats] != [TRAIN_CKPT_STEP] or n_publish != 1:
+        raise AssertionError(f"train: checkpoints {t1.ckpt_stats}, fused_publish launches "
+                             f"{n_publish}, want one at step {TRAIN_CKPT_STEP}")
+    rep["checkpoint"] = {k: ck[k] for k in ("publish_s", "total_pages", "zero", "hot", "cold",
+                                            "cxl_bytes", "rdma_bytes")}
+    first_losses = [m["loss"] for m in t1.metrics_log if "loss" in m]
+    peaks["trainer_and_blocking_checkpoint"] = torch.cuda.max_memory_allocated()
+    log(f"  Trainer: {TRAIN_CKPT_STEP} steps (losses "
+        f"{', '.join(f'{x:.4f}' for x in first_losses)}), blocking checkpoint at step "
+        f"{TRAIN_CKPT_STEP}: {ck['total_pages']} pages (hot {ck['hot']}, cold {ck['cold']}, "
+        f"zero {ck['zero']}) published in {ck['publish_s']:.3f} s wall; then the crash")
+    if first_losses != losses[:TRAIN_CKPT_STEP]:
+        raise AssertionError(f"train: the Trainer's losses {first_losses} differ from the "
+                             f"uninterrupted run's {losses[:TRAIN_CKPT_STEP]}")
+    del t1, state3
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd_b2 = fops.launches_by_route()["sm90"]
+
+    # (b3) a second Trainer resumes and trains to step 6
+    torch.cuda.reset_peak_memory_stats()
+    orch = Orchestrator("trainer-host", pool, master.catalog, prefetch_cold=True,
+                        scatter_fn=ops.FusedScatter())
+    t2 = Trainer(model, data, master=master, orch=orch,
+                 loop_cfg=LoopConfig(steps=TRAIN_STEPS, ckpt_every=0, ckpt_name=name,
+                                     log_every=1), seed=seed)
+    restored_fp = []
+    real_try = t2.try_restore
+
+    def try_restore(template):
+        got = real_try(template)
+        restored_fp.append(tree_fingerprint(torch, got[0]))
+        rep["restore"] = {k: got[2][k] for k in ("time_to_hot_s", "time_to_full_s", "flushes",
+                                                 "walk_routes")}
+        return got
+
+    t2.try_restore = try_restore
+    final = t2.run(resume=True)
+    torch.cuda.synchronize()
+    st = rep["restore"]
+    verified = orch.scatter_fn.stats["pages_verified"]
+    if restored_fp != [fp3]:
+        raise AssertionError("train: the restored state differs from the checkpointed one")
+    if verified != ck["hot"] + ck["cold"]:
+        raise AssertionError(f"train: {verified} pages verified, want {ck['hot'] + ck['cold']}")
+    check_routes("train restore", st["walk_routes"], walks=1)
+    n_chunks = -(-ck["hot"] // RestoreEngine.HOT_CHUNK_PAGES)
+    want = {"fused_publish": 1,
+            "fused_restore": restore_launches(orch.scatter_fn.stats, n_chunks, 1, st["flushes"]),
+            "zero_detect": 0, "page_checksum": 0, "page_gather": 0, "page_scatter": 0}
+    launches = {n: k.launches for n, k in counted.items()}
+    resumed_steps = TRAIN_STEPS - TRAIN_CKPT_STEP
+    want_fwd = 2 * n_layers * TRAIN_STEPS            # 3 + 3 steps, remat: twice a layer
+    want_bwd = n_layers * TRAIN_STEPS
+    flash = {"by_route": fops.launches_by_route(),
+             "flash_attention_bwd": flash_attention_bwd.launches}
+    if launches != want or flash != {"by_route": {"sm90": want_fwd, "simt": 0},
+                                     "flash_attention_bwd": want_bwd}:
+        raise AssertionError(f"train: launches {launches} {flash}, want {want}, {want_fwd} sm90 "
+                             f"forwards, {want_bwd} backwards")
+    resumed_losses = [m["loss"] for m in t2.metrics_log if "loss" in m]
+    if not np.isfinite(resumed_losses).all() or len(resumed_losses) != resumed_steps:
+        raise AssertionError(f"train: resumed losses {resumed_losses}")
+    peaks["restore_and_resume"] = torch.cuda.max_memory_allocated()
+
+    # the resumed parameters against the uninterrupted run's
+    diffs = []
+    for (path, a), b in zip(flatten_state(final_ref).items(), tree_leaves(final.params)):
+        b = b.cpu()
+        if not torch.equal(a, b):
+            rel = float((a - b).abs().max() / a.abs().max())
+            diffs.append((path, rel))
+            if not torch.allclose(b, a, rtol=1e-6, atol=1e-7):
+                raise AssertionError(f"train: resumed {path} differs from the uninterrupted "
+                                     f"run's beyond rtol 1e-6, atol 1e-7 (relative {rel})")
+    rep["resumed_equals_uninterrupted"] = "bit for bit" if not diffs else {
+        "within rtol 1e-6 atol 1e-7": diffs}
+    rep["resumed_losses"] = resumed_losses
+    rep["launches"] = {**launches, "flash_attention": want_fwd, "flash_attention_bwd": want_bwd}
+    log(f"  resumed with Trainer.run(resume=True): time to hot {st['time_to_hot_s']:.3f} s, to "
+        f"full {st['time_to_full_s']:.3f} s; restored state equal to the checkpointed one "
+        f"(fingerprints of every leaf), {verified} pages verified; losses "
+        f"{', '.join(f'{x:.4f}' for x in resumed_losses)} (uninterrupted "
+        f"{', '.join(f'{x:.4f}' for x in losses[TRAIN_CKPT_STEP:])}); final parameters "
+        f"{'bit-equal to' if not diffs else 'within rtol 1e-6 of'} the uninterrupted run's "
+        f"{diffs if diffs else ''}; launches {rep['launches']}")
+    del final, t2, final_ref
+    orch.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the quickstart twin, asynchronous checkpoints, on the card
+    reset()
+    t0 = time.perf_counter()
+    qs = quickstart.run(device=device, master=PoolMaster(
+        HierarchicalPool(64 << 20, 128 << 20, device=device),
+        publish_fn=ops.make_fused_publish_fn()))
+    q_losses = qs["losses"]
+    if not q_losses[-1] < q_losses[0] - 0.1 or qs["tokens"].shape != (1, 12):
+        raise AssertionError(f"train: quickstart losses {q_losses}, tokens {qs['tokens']}")
+    rep["quickstart"] = {"losses": q_losses, "tokens": qs["tokens"][0].tolist(),
+                         "wall_s": time.perf_counter() - t0,
+                         "checkpoints": [s["step"] for s in qs["ckpt_stats"]],
+                         "launches": {"flash_attention": flash_attention.launches,
+                                      "flash_attention_bwd": flash_attention_bwd.launches,
+                                      "by_route": fops.launches_by_route(),
+                                      **{n: k.launches for n, k in counted.items()}}}
+    del qs
+    log(f"  quickstart twin: losses {', '.join(f'{x:.3f}' for x in q_losses)}; async "
+        f"checkpoints at {rep['quickstart']['checkpoints']}; restored params bit-identical; "
+        f"generated {rep['quickstart']['tokens']}; {rep['quickstart']['wall_s']:.2f} s; "
+        f"launches {rep['quickstart']['launches']}")
+
+    if not master.delete(name) or master.gc() != 0 or \
+            (pool.cxl.free_list(), pool.rdma.free_list()) != free0:
+        raise AssertionError("train: delete + gc did not return the pool to its start")
+    left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+    if left:
+        raise AssertionError(f"train: threads left after the phase: {left}")
+    del pool, master
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["peak_mem_bytes_by_part"] = peaks
+    rep["peak_mem_bytes"] = max(peaks.values())
+    rep["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"  peak device memory by part: "
+        + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in peaks.items())
+        + "; no thread left, pool back to its start")
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3302,6 +3780,13 @@ def main() -> int:
     report["model"] = model_phase(torch, np, args.seed, device, out.parent)
     phase_done("model")
 
+    # 16. training: the attention backward's checks and timings, Phi-4-mini's
+    # train steps, checkpoint, crash and resume, the quickstart twin (counts
+    # reset inside just before each path)
+    log("train:")
+    report["train"] = train_phase(torch, np, args.seed, device, out.parent)
+    phase_done("train")
+
     dedup_launches = report["dedup"]["launches"]
     pod_launches = report["pod"]["launches"]
     topo_launches = report["topology"]["launches"]
@@ -3383,11 +3868,25 @@ def main() -> int:
         "replaces": FLASH_TPU, "launches": by_route["sm90"],
         "launches_by_route": by_route,
         "launches_by_path": {"prefill_forward": report["model"]["launches"],
-                             "benches": report["benches"]["launches_flash"]},
+                             "benches": report["benches"]["launches_flash"],
+                             "train": report["train"]["launches"]["flash_attention"]},
         "bit_equal": False, "tolerance": report["flash"]["tolerance"],
         "max_abs_err": report["flash"]["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "simt_ms": r["simt_ms"], "simt_source": FLASH_SRC["simt"], "shape": r["shape"]})
+    tr = report["train"]
+    b = tr["backward"]["timing"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda", "source": FLASH_SRC["bwd"],
+        "replaces": f"none: the backward of {FLASH_TPU}, which the JAX package gets by "
+                    "differentiating its reference",
+        "launches": tr["launches"]["flash_attention_bwd"],
+        "launches_by_path": {"train": tr["launches"]["flash_attention_bwd"],
+                             "quickstart": tr["quickstart"]["launches"]["flash_attention_bwd"]},
+        "bit_equal": False, "deterministic": True, "tolerance": tr["backward"]["tolerance"],
+        "max_abs_err": tr["backward"]["max_abs_err"], "ms": b["ms"], "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": b["library_ms"],
+        "shape": b["shape"]})
     report["kernels"] = kernels
     report["smoke_s"] = sum(report["phase_s"].values())
     log(f"smoke: {report['smoke_s']:.2f} s over {len(report['phase_s'])} phases on {card}")

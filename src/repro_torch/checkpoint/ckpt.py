@@ -23,35 +23,24 @@ Serving-state hotness comes from the offline profiler (core/profiler.py).
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core import Manifest, Orchestrator, PoolMaster, StateImage
 from ..core.profiler import AccessRecorder
+from ..tree import children
 
 
 # --------------------------------------------------------------------------
 # state tree <-> named arrays
 # --------------------------------------------------------------------------
 
-def _children(node) -> Optional[List[Tuple[str, Any]]]:
-    """``(key, child)`` pairs of a container in ``jax.tree_util`` order, or
-    None for a leaf."""
-    if isinstance(node, dict):
-        return [(str(k), node[k]) for k in sorted(node)]
-    if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return [(f, getattr(node, f)) for f in node._fields]
-    if isinstance(node, (list, tuple)):
-        return [(str(i), v) for i, v in enumerate(node)]
-    return None
-
-
 def _leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
     if tree is None:                      # an empty subtree, as in jax
         return
-    kids = _children(tree)
+    kids = children(tree)
     if kids is None:
         yield "/".join(path), tree
         return
@@ -77,7 +66,7 @@ def unflatten_state(template, arrays: Dict[str, Any]):
     def build(node, path: Tuple[str, ...]):
         if node is None:
             return None
-        kids = _children(node)
+        kids = children(node)
         if kids is None:
             arr = arrays["/".join(path)]
             if not isinstance(arr, torch.Tensor):

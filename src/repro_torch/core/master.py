@@ -19,6 +19,7 @@ one launch of the fused publish kernel.
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,11 +64,17 @@ class CXLCapacityManager:
 
     def __init__(self, master: "PoolMaster", budget_bytes: int,
                  demote_drain_timeout_s: float = 0.25):
-        self.master = master
+        # held weakly: the master holds this manager, and a cycle would keep
+        # the master's pool arenas allocated until the cyclic collector ran
+        self._master = weakref.ref(master)
         self.budget = CXLBudget(budget_bytes)
         self.demote_drain_timeout_s = demote_drain_timeout_s
         self._hand = 0
         self._lock = threading.Lock()
+
+    @property
+    def master(self) -> "PoolMaster":
+        return self._master()
 
     def usage(self) -> int:
         """Authoritative: sum of live catalog entries' CXL regions (the

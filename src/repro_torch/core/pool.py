@@ -26,6 +26,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import threading
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -201,12 +202,23 @@ class MemoryTier:
         self.fault_injector = None
         self.health = None
         # back-pointer to this tier's content-addressed store (set by
-        # DedupStore); checksum repair resolves the store from the tier
-        self.dedup_store = None
+        # DedupStore); checksum repair resolves the store from the tier.
+        # Held weakly: the store references the tier, and a cycle would keep
+        # the arena allocated until the cyclic collector ran.
+        self._dedup_store_ref = None
 
     @property
     def device(self) -> torch.device:
         return self.buf.device
+
+    @property
+    def dedup_store(self):
+        """This tier's content-addressed store, or None."""
+        return None if self._dedup_store_ref is None else self._dedup_store_ref()
+
+    @dedup_store.setter
+    def dedup_store(self, store) -> None:
+        self._dedup_store_ref = None if store is None else weakref.ref(store)
 
     def arbiter_for(self, host: str = "") -> LinkArbiter:
         """The contention arbiter for `host`'s link to this tier."""

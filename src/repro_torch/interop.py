@@ -6,7 +6,8 @@ that another implementation of the same format published (its manifest
 dict, image bytes, tier arenas, free lists, dedup store states, region
 record and the pod's catalog) can be restored and freed here, and the other
 way round; and a model's parameter tree (nested dicts of arrays under the same names and
-shapes) can be loaded here or written out.  They import nothing but this
+shapes), or a whole train state (parameters, float32 moments and an int32
+step), can be loaded here or written out.  They import nothing but this
 package.
 """
 from __future__ import annotations
@@ -21,6 +22,8 @@ from .core.dedup import DedupStore
 from .core.pagestore import Manifest, StateImage
 from .core.pool import HierarchicalPool, MemoryTier
 from .core.snapshot import SnapshotRegions
+from .train.optimizer import AdamWState
+from .train.trainstep import TrainState
 
 FreeLists = Dict[str, List[Tuple[int, int]]]
 
@@ -165,3 +168,22 @@ def params_to_numpy(params):
     if isinstance(params, (list, tuple)):
         return type(params)(params_to_numpy(v) for v in params)
     return params.detach().cpu().numpy()
+
+
+def train_state_from_numpy(state, device="cuda") -> TrainState:
+    """A ``TrainState`` on ``device`` from ``(params, (step, m, v))`` of
+    numpy arrays (the reference's ``TrainState`` of ``AdamWState`` mapped to
+    numpy is such a pair): the same bits, the step an int32 scalar."""
+    params, (step, m, v) = state
+    return TrainState(params_from_numpy(params, device),
+                      AdamWState(torch.from_numpy(np.array(step, dtype=np.int32)).to(device),
+                                 params_from_numpy(m, device), params_from_numpy(v, device)))
+
+
+def train_state_to_numpy(state: TrainState) -> TrainState:
+    """Inverse of :func:`train_state_from_numpy`: the same ``TrainState`` and
+    ``AdamWState`` shape with host numpy leaves."""
+    opt = state.opt
+    return TrainState(params_to_numpy(state.params),
+                      AdamWState(opt.step.detach().cpu().numpy(), params_to_numpy(opt.m),
+                                 params_to_numpy(opt.v)))

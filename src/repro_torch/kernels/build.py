@@ -38,6 +38,8 @@ SOURCES: Dict[str, tuple] = {
     "flash_attention": (KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu", ()),
     "flash_attention_sm90": (KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_sm90.cu",
                              ()),
+    "flash_attention_bwd": (KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
+                            ()),
 }
 
 # ctypes argument types of the C entry points

@@ -32,6 +32,11 @@
 // tensor cores idle: wgmma, TMA and warp specialisation are the redesign.
 // Ragged Sq and Skv are masked here (rows past Sq load zeros and are not
 // written; keys past Skv score -1e30 and load zero values).
+//
+// Training: given an `lse` pointer (float32, (B, Hq, Sq)), the epilogue also
+// writes each row's log-sum-exp m + log(l) of its scaled scores, from which
+// csrc/flash_attention_bwd.cu recomputes the probabilities.  Serving passes
+// null and the kernel writes nothing more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +66,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, Hq, Sq) or null
   int64_t hq, hkv, sq, skv, dk, dv;
   int64_t q_sb, q_sh, q_ss;  // element strides of dims 0..2 (dim 3 is contiguous)
   int64_t k_sb, k_sh, k_ss;
@@ -230,6 +236,7 @@ flash_kernel(const Args a) {
     const int64_t row = q0 + ty * 4 + i;
     if (row >= a.sq) continue;
     const float li = l[i] == 0.f ? 1.f : l[i];
+    if (a.lse != nullptr && tx == 0) a.lse[bh * a.sq + row] = m[i] + logf(l[i]);
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
 #pragma unroll
@@ -267,12 +274,14 @@ extern "C" const char* aq_error_string(int code) {
 }
 
 // q, k, v: element strides (sb, sh, ss) of dims 0..2, dim 3 contiguous; o: a
-// contiguous (b, hq, sq, dv) output.  dtype 0 = float32, 1 = bfloat16 (all
-// four tensors).  Requires 1 <= dk, dv <= 256, hq % hkv == 0, b * hq < 65536,
-// and sq <= skv when causal (the wrapper checks).  Returns the CUDA error.
+// contiguous (b, hq, sq, dv) output; lse: null, or a contiguous float32
+// (b, hq, sq) output of the rows' log-sum-exp.  dtype 0 = float32, 1 =
+// bfloat16 (q, k, v and o).  Requires 1 <= dk, dv <= 256, hq % hkv == 0,
+// b * hq < 65536, and sq <= skv when causal (the wrapper checks).  Returns the
+// CUDA error.
 extern "C" int aq_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                  int64_t b, int64_t hq, int64_t hkv, int64_t sq, int64_t skv,
-                                  int64_t dk, int64_t dv, int64_t q_sb, int64_t q_sh,
+                                  float* lse, int64_t b, int64_t hq, int64_t hkv, int64_t sq,
+                                  int64_t skv, int64_t dk, int64_t dv, int64_t q_sb, int64_t q_sh,
                                   int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
                                   int64_t v_sb, int64_t v_sh, int64_t v_ss, float scale,
                                   int causal, int dtype, void* stream) {
@@ -280,7 +289,7 @@ extern "C" int aq_flash_attention(const void* q, const void* k, const void* v, v
   if (dk < 1 || dk > 256 || dv < 1 || dv > 256 || hkv <= 0 || hq % hkv != 0 ||
       b * hq >= 65536 || (causal && sq > skv))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, o, hq, hkv, sq, skv, dk, dv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+  const Args a{q, k, v, o, lse, hq, hkv, sq, skv, dk, dv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                v_sb, v_sh, v_ss, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_dv<float>(a, b, s);

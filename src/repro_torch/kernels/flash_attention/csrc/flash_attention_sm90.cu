@@ -50,7 +50,9 @@
 // - Shared memory holds bf16 tiles of 128 rows x 64 columns, 128-byte
 //   swizzled as TMA writes them and wgmma reads them: Q 128 x D, K and V two
 //   stages each, 160 KB at D = 128, one block an SM.
-// - Epilogue: O / l rounded to bf16, rows < Sq stored as 4-byte pairs.
+// - Epilogue: O / l rounded to bf16, rows < Sq stored as 4-byte pairs;
+//   given an `lse` pointer (training), each row's log-sum-exp
+//   m ln2 + log(l) in natural units, float32, for csrc/flash_attention_bwd.cu.
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry is fetched at run time
 #include <cuda_bf16.h>
@@ -83,6 +85,7 @@ struct __align__(1024) Smem {
 
 struct Params {
   __nv_bfloat16* o;  // contiguous (B, Hq, Sq, D)
+  float* lse;        // contiguous (B, Hq, Sq), or null
   int hq, group, sq, skv;
   float scale;
   int causal;
@@ -455,9 +458,15 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (tid == 0) mbar_arrive(&sm.v_empty[s]);
     }
 
-    // epilogue: O / l in bf16, rows < Sq
+    // epilogue: O / l in bf16, rows < Sq; the log-sum-exp when asked, from
+    // the row max in log2 units: m ln2 + log(l)
     const float d0 = l0 == 0.f ? 1.f : l0, d1 = l1 == 0.f ? 1.f : l1;
     __nv_bfloat16* out = p.o + static_cast<int64_t>(bh) * p.sq * D;
+    if (p.lse != nullptr && lane % 4 == 0) {
+      float* lse = p.lse + static_cast<int64_t>(bh) * p.sq;
+      if (r0 < p.sq) lse[r0] = m0 * 0.6931471805599453f + logf(l0);
+      if (r1 < p.sq) lse[r1] = m1 * 0.6931471805599453f + logf(l1);
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int c = j * 8 + col;
@@ -542,12 +551,13 @@ extern "C" const char* aq_error_string(int code) {
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), all bf16, with element strides
 // (sb, sh, ss) of dims 0..2 that are multiples of 8 and dim 3 contiguous,
-// bases 16-byte aligned; o: a contiguous (B, Hq, Sq, D) bf16 output.
+// bases 16-byte aligned; o: a contiguous (B, Hq, Sq, D) bf16 output; lse:
+// null, or a contiguous float32 (B, Hq, Sq) output of the rows' log-sum-exp.
 // Requires D in {64, 128}, Skv >= 1, Hq % Hkv == 0, B * Hq < 65536 and
 // Sq <= Skv when causal (ops.route and the wrapper check).  Returns the CUDA
 // error, or kErrNoEncode / kErrEncode + CUresult.
 extern "C" int aq_flash_attention_sm90(const void* q, const void* k, const void* v, void* o,
-                                       int64_t b, int64_t hq, int64_t hkv, int64_t sq,
+                                       float* lse, int64_t b, int64_t hq, int64_t hkv, int64_t sq,
                                        int64_t skv, int64_t d, int64_t q_sb, int64_t q_sh,
                                        int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
                                        int64_t v_sb, int64_t v_sh, int64_t v_ss, float scale,
@@ -561,7 +571,7 @@ extern "C" int aq_flash_attention_sm90(const void* q, const void* k, const void*
   if (rc == 0) rc = make_map(&tk, k, d, skv, hkv, b, k_ss, k_sh, k_sb);
   if (rc == 0) rc = make_map(&tv, v, d, skv, hkv, b, v_ss, v_sh, v_sb);
   if (rc != 0) return rc;
-  const Params p{static_cast<__nv_bfloat16*>(o), static_cast<int>(hq),
+  const Params p{static_cast<__nv_bfloat16*>(o), lse, static_cast<int>(hq),
                  static_cast<int>(hq / hkv), static_cast<int>(sq), static_cast<int>(skv), scale,
                  causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

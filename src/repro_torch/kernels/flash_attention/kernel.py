@@ -1,44 +1,71 @@
-"""ctypes bindings of the two hand-written CUDA flash-attention kernels, both
-replacing ``flash_attention_pallas``: ``csrc/flash_attention_sm90.cu`` (TMA,
-wgmma, warp-specialised; bf16, Dk == Dv in {64, 128}) and
-``csrc/flash_attention.cu`` (float32 FMAs on the CUDA cores; every other
-call).  ``ops.route`` picks one.  Each takes CUDA tensors that ``ops.py`` has
+"""ctypes bindings of the hand-written CUDA flash-attention kernels: the two
+forward kernels, both replacing ``flash_attention_pallas``,
+``csrc/flash_attention_sm90.cu`` (TMA, wgmma, warp-specialised; bf16,
+Dk == Dv in {64, 128}) and ``csrc/flash_attention.cu`` (float32 FMAs on the
+CUDA cores; every other call), ``ops.route`` picking one; and the backward,
+``csrc/flash_attention_bwd.cu``.  Each takes CUDA tensors that ``ops.py`` has
 checked and allocated, launches on PyTorch's current stream without
 synchronising, and raises when the launch is refused.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from .. import build
 from ..build import F32, I32, I64, PTR
 
-_ARGS = (PTR, PTR, PTR, PTR, *(I64,) * 7, *(I64,) * 9, F32, I32, I32, PTR)
-_SM90_ARGS = (PTR, PTR, PTR, PTR, *(I64,) * 6, *(I64,) * 9, F32, I32, PTR)
+_ARGS = (PTR, PTR, PTR, PTR, PTR, *(I64,) * 7, *(I64,) * 9, F32, I32, I32, PTR)
+_SM90_ARGS = (PTR, PTR, PTR, PTR, PTR, *(I64,) * 6, *(I64,) * 9, F32, I32, PTR)
+_BWD_ARGS = (*(PTR,) * 10, *(I64,) * 6, *(I64,) * 12, F32, I32, I32, PTR)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                    scale: float, causal: bool) -> None:
+                    scale: float, causal: bool, lse: Optional[torch.Tensor] = None) -> None:
     """``out = softmax(q k^T * scale [causal mask]) v`` per query head, with
     q, k, v of one dtype in ``DTYPES``, each contiguous in its last dim, and
-    ``out`` a contiguous (B, Hq, Sq, Dv) tensor of that dtype."""
+    ``out`` a contiguous (B, Hq, Sq, Dv) tensor of that dtype.  ``lse``, a
+    contiguous float32 (B, Hq, Sq) tensor or None, gets each row's
+    log-sum-exp of its scaled scores."""
     b, hq, sq, dk = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     build.call("flash_attention", "aq_flash_attention", _ARGS,
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
                b, hq, hkv, sq, skv, dk, dv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                scale, int(causal), DTYPES[q.dtype], build.stream_of(q))
 
 
 def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                         scale: float, causal: bool) -> None:
+                         scale: float, causal: bool, lse: Optional[torch.Tensor] = None) -> None:
     """The same function on the tensor cores, for calls ``ops.route`` gives
     ``"sm90"``: bf16, Dk == Dv in {64, 128}, 16-byte aligned bases and
     strides of dims 0..2 (any order: the tensor maps take them as they are)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     build.call("flash_attention_sm90", "aq_flash_attention_sm90", _SM90_ARGS,
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
                b, hq, hkv, sq, skv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                scale, int(causal), build.stream_of(q))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                        dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, scale: float,
+                        causal: bool) -> None:
+    """dq, dk, dv (contiguous, the inputs' dtype) of attention from q, k, v
+    and ``dout`` (each contiguous in its last dim), ``out`` and the float32
+    ``lse`` (contiguous); ``delta`` is float32 (B, Hq, Sq) scratch.  Three
+    kernels in order on the current stream: rowsum(dO * O), dK/dV, dQ."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    build.call("flash_attention_bwd", "aq_flash_attention_bwd", _BWD_ARGS,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+               lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+               b, hq, hkv, sq, skv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *dout.stride()[:3], scale, int(causal), DTYPES[q.dtype], build.stream_of(q))

@@ -1,4 +1,4 @@
-"""Dispatch wrapper for grouped-query flash attention.
+"""Dispatch wrapper for grouped-query flash attention and its backward.
 
 ``flash_attention(q, k, v, causal=True, scale=None)``: q (B, Hq, Sq, Dk),
 k (B, Hkv, Skv, Dk), v (B, Hkv, Skv, Dv) -> (B, Hq, Sq, Dv) in q's dtype.
@@ -7,9 +7,14 @@ CPU tensors take the plain versions, as the JAX package's non-TPU path does:
 above.  CUDA tensors launch one of the two hand-written kernels, the one
 ``route`` names, or raise.  ``flash_attention.launches_sm90`` and
 ``.launches_simt`` count the launches of each, ``.launches`` their sum.
-The kernels have no backward yet: a CUDA call under grad mode with an input
-that requires grad raises (``check_no_grad``) instead of returning an output
-with no autograd history.
+
+When grad mode is on and q, k or v requires grad, the call goes through
+``FlashAttentionFn``: the same forward, which also writes each row's
+log-sum-exp, and a backward that recomputes the probabilities from it
+(``flash_attention_bwd``: ``csrc/flash_attention_bwd.cu`` on CUDA tensors,
+``flash_attention_bwd_ref`` on CPU ones; its launches in
+``flash_attention_bwd.launches``).  Every other call (serving, inference)
+writes no log-sum-exp and saves nothing.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch
 
 from .. import launch_count
 from . import kernel
-from .ref import attention_ref, chunked_attention_ref
+from .ref import attention_ref, chunked_attention_ref, flash_attention_bwd_ref
 
 # Above this KV length the CPU path uses the chunked online-softmax form.
 CHUNKED_THRESHOLD = 2048
@@ -55,17 +60,6 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool)
         raise ValueError(f"flash_attention: B*Hq={b * hq} exceeds the grid's 65535")
 
 
-def check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise when autograd would record this call: grad mode is on and any
-    of q, k, v requires grad.  The CUDA kernels fill their output through a
-    plain C entry point, so it would carry no ``grad_fn`` and every earlier
-    layer would silently get no gradient.  The backward is ROADMAP A11's."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention: the CUDA kernels have no backward yet (ROADMAP A11); call it "
-            "under torch.no_grad() or torch.inference_mode(), or detach q, k and v")
-
-
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """Which kernel takes a CUDA call that ``_check_cuda`` passed, from
     dtypes, shapes, base addresses and strides alone.
@@ -97,30 +91,112 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         raise ValueError("flash_attention: q, k and v must be (B, H, S, D)")
     if scale is None:
         scale = q.shape[3] ** -0.5
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, float(scale))
+    return _forward(q, k, v, causal, scale, with_lse=False)[0]
+
+
+def _forward(q, k, v, causal: bool, scale: float, with_lse: bool):
+    """``(out, lse or None)``: the plain versions on CPU tensors, the kernel
+    ``route`` names on CUDA ones (writing the float32 log-sum-exp (B, Hq,
+    Sq) only when ``with_lse``)."""
     if q.device.type == "cpu":
-        if k.shape[2] > CHUNKED_THRESHOLD:
-            return chunked_attention_ref(q, k, v, causal=causal, scale=scale)
-        return attention_ref(q, k, v, causal=causal, scale=scale)
-    check_no_grad(q, k, v)
+        fn = chunked_attention_ref if k.shape[2] > CHUNKED_THRESHOLD else attention_ref
+        if with_lse:
+            return fn(q, k, v, causal=causal, scale=scale, return_lse=True)
+        return fn(q, k, v, causal=causal, scale=scale), None
     _check_cuda(q, k, v, causal)
     # the kernel takes any strides of dims 0..2 (the model hands it transposed
     # views) but a contiguous last dim
     q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
     b, hq, sq, _ = q.shape
     out = torch.empty((b, hq, sq, v.shape[3]), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse
+           else None)
     if out.numel():
         which = route(q, k, v)
         launch = kernel.flash_attention_sm90 if which == "sm90" else kernel.flash_attention
         with torch.cuda.device(q.device):
-            launch(q, k, v, out, float(scale), causal)
+            launch(q, k, v, out, float(scale), causal, lse)
         launch_count.count(flash_attention)
         launch_count.count(flash_attention, f"launches_{which}")
-    return out
+    return out, lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward saves q, k, v, the
+    output and its log-sum-exp; the backward is ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = _forward(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal=ctx.causal,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def _check_bwd_cuda(q, k, v, out, lse, dout, causal: bool) -> None:
+    _check_cuda(q, k, v, causal)
+    dk = q.shape[3]
+    if v.shape[3] != dk:
+        raise ValueError(f"flash_attention_bwd: the kernel takes Dk == Dv, got Dk={dk}, "
+                         f"Dv={v.shape[3]} (MLA's backward is ROADMAP A11's)")
+    want = (*q.shape[:3], dk)
+    for name, t, dtype in (("out", out, q.dtype), ("dout", dout, q.dtype)):
+        if tuple(t.shape) != want or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} is {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, want {want} {dtype} on {q.device}")
+    if tuple(lse.shape) != want[:3] or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse is {tuple(lse.shape)} {lse.dtype}, want "
+                         f"{want[:3]} float32")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                        scale: Optional[float] = None):
+    """``(dq, dk, dv)`` of ``flash_attention`` from its inputs, its output
+    ``out``, the forward's float32 log-sum-exp ``lse`` (B, Hq, Sq) and the
+    output's gradient ``dout``.  CPU tensors take ``flash_attention_bwd_ref``;
+    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (Dk == Dv <= 256,
+    float32 or bf16) or raise.  The gradients come back contiguous, in the
+    inputs' dtypes; two launches on the same inputs give the same bits."""
+    if scale is None:
+        scale = q.shape[3] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, scale=scale)
+    _check_bwd_cuda(q, k, v, out, lse, dout, causal)
+    q, k, v, dout = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v, dout))
+    out, lse = out.contiguous(), lse.contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if k.shape[2] == 0:                   # no keys: nothing attends, every gradient is 0
+        return dq.zero_(), dk, dv
+    if q.numel():
+        delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        with torch.cuda.device(q.device):
+            kernel.flash_attention_bwd(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                                       float(scale), causal)
+        launch_count.count(flash_attention_bwd)
+    else:
+        dk.zero_()
+        dv.zero_()
+    return dq, dk, dv
 
 
 def reset_launches() -> None:
-    """Sets every launch count of ``flash_attention`` to 0."""
+    """Sets every launch count of ``flash_attention`` and
+    ``flash_attention_bwd`` to 0."""
     flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
     for name in ROUTES:
         setattr(flash_attention, f"launches_{name}", 0)
 

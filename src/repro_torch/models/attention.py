@@ -1,8 +1,9 @@
 """Attention: GQA (with optional QKV bias) and the dispatch functions.
 
 The full-sequence path (train/prefill) routes through the flash-attention op
-(``kernels/flash_attention``: the hand-written CUDA kernel on a CUDA tensor,
-its plain version on a CPU one); the decode path is einsum attention over the
+(``kernels/flash_attention``: the hand-written CUDA kernels on a CUDA tensor,
+its plain versions on a CPU one; differentiable, its backward a kernel of
+its own); the decode path is einsum attention over the
 KV cache (one query, no flash needed), as in the JAX package.
 
 KV cache per layer: k, v (B, Hkv, max_len, Dh).  The JAX package's sharding

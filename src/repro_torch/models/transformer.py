@@ -3,7 +3,9 @@ identical (attention + SwiGLU) blocks, final norm, unembedding.
 
 Layer weights are stacked on a leading axis as in the JAX package, and the
 JAX ``lax.scan`` over them becomes a Python loop over that axis (eager
-PyTorch; ``remat`` has nothing to do without autograd).  Decode caches are
+PyTorch).  Under autograd with ``cfg.remat`` each block runs inside
+``torch.utils.checkpoint`` (the twin of the reference's ``jax.checkpoint``):
+only its input is kept, and the backward runs its forward again.  Decode caches are
 stacked the same way, ``{"k", "v"}: (L, B, Hkv, max_len, Dh)``, and each
 step writes its layer's slice in place.  The MoE, SSM, hybrid and VLM
 families come later (ROADMAP A11) and raise here.
@@ -13,6 +15,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.pagestore import resolve_device
@@ -104,8 +107,12 @@ def _lm_trunk(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     x = embed(cparams["embed"], tokens, cdt)
     positions = torch.arange(s, device=tokens.device)
     layers = cparams["layers"]
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(layers["ln1"]["scale"].shape[0]):
-        x = dense_block(_layer(layers, i), x, cfg, positions)
+        if remat:
+            x = checkpoint(dense_block, _layer(layers, i), x, cfg, positions, use_reentrant=False)
+        else:
+            x = dense_block(_layer(layers, i), x, cfg, positions)
     return x, torch.zeros((), dtype=torch.float32, device=tokens.device)
 
 

@@ -7,6 +7,13 @@ Pallas kernel (the JAX package's own ``test_bf16`` bound), and one bf16
 rounding, 2^-8 |want| + 1e-4, against the float32 oracle on the upcast inputs
 (the limit ``chip_smoke.py`` and the card tests hold the CUDA kernels to).
 
+The backward (``FlashAttentionFn``): on CPU tensors its plain version
+``flash_attention_bwd_ref`` against autograd through ``attention_ref``
+(float32, within 1e-5 max|want|) and the dispatch's gradients against
+``jax.grad`` through the JAX reference (float32 within 1e-4 max|want| + 1e-6,
+bf16 within 2^-6 max|want| + 1e-4, per gradient tensor); the CUDA kernel is
+held to the same limits on the card (``tests/test_torch_gpu.py``).
+
 The tensor-core kernel (``csrc/flash_attention_sm90.cu``) cannot run here;
 ``_sm90_arithmetic`` repeats its arithmetic in plain torch (128-key tiles in
 order, online base-2 softmax in float32, P split into bf16 hi + lo against
@@ -337,24 +344,127 @@ def test_launch_counters_by_route(monkeypatch):
             setattr(flash_attention, f"launches_{name}", n)
 
 
-# -- no backward on the card yet: the guard ---------------------------------------------
+# -- the backward ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
-def test_grad_guard_raises_under_grad_naming_a11(needs_grad):
-    q, k, v = (torch.zeros(1, 2, 4, 8) for _ in range(3))
-    dict(q=q, k=k, v=v)[needs_grad].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="A11"):
-        ops.check_no_grad(q, k, v)
-    with torch.no_grad():
-        ops.check_no_grad(q, k, v)
-    with torch.inference_mode():
-        ops.check_no_grad(q, k, v)
-    ops.check_no_grad(q.detach(), k.detach(), v.detach())
+# (B, Hq, Hkv, Sq, Skv, D): GQA, MHA, ragged Sq < Skv, and keys above
+# CHUNKED_THRESHOLD (the CPU forward takes the chunked form there)
+BWD_SHAPES = {"gqa": (1, 4, 2, 48, 48, 16), "mha": (2, 3, 3, 40, 40, 16),
+              "sq<skv": (1, 4, 1, 30, 70, 16),
+              "above-threshold": (1, 2, 1, 8, CHUNKED_THRESHOLD + 100, 16)}
+# float32 within 1e-4 max|want| + 1e-6, bf16 within 2^-6 max|want| + 1e-4,
+# per gradient tensor, against the float32 gradient of the upcast inputs (the
+# limits the card holds the CUDA backward to)
+BWD_TOL = {np.float32: (1e-4, 1e-6), "bf16": (2.0 ** -6, 1e-4)}
+
+
+def _bwd_case(shape, dtype, seed=31):
+    q, k, v = _qkv(seed, *shape[:5], shape[5], shape[5])
+    do = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(np.float32)
+    ts = [torch.from_numpy(a) for a in (q, k, v, do)]
+    if dtype == "bf16":
+        ts = [t.to(torch.bfloat16) for t in ts]
+    return ts
+
+
+def _within(got, want, dtype) -> bool:
+    rtol, atol = BWD_TOL[dtype]
+    want = np.asarray(want, np.float64)
+    err = np.abs(np.asarray(got.float(), np.float64) - want).max()
+    return err <= rtol * np.abs(want).max() + atol
+
+
+@pytest.mark.parametrize("shape", list(BWD_SHAPES), ids=list(BWD_SHAPES))
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_matches_autograd(shape, causal):
+    """``flash_attention_bwd_ref`` (FA2's formulas by key chunks) against
+    autograd through ``attention_ref``, float32: within 1e-5 max|want|."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+
+    q, k, v, do = _bwd_case(BWD_SHAPES[shape], np.float32)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    want = torch.autograd.grad(attention_ref(qg, kg, vg, causal=causal), (qg, kg, vg), do)
+    out, lse = attention_ref(q, k, v, causal=causal, return_lse=True)
+    got = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, block_k=32)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("shape", list(BWD_SHAPES), ids=list(BWD_SHAPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"], ids=["f32", "bf16"])
+def test_autograd_function_matches_jax_grad(shape, causal, dtype):
+    """``flash_attention`` under autograd on CPU tensors (``FlashAttentionFn``:
+    the plain forward with its log-sum-exp, the plain backward) against
+    ``jax.grad`` through the JAX reference attention on the float32 inputs;
+    the CPU path launches nothing."""
+    import jax
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v, do = _bwd_case(BWD_SHAPES[shape], dtype)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    out = flash_attention(qg, kg, vg, causal=causal)
+    assert isinstance(out.grad_fn, ops.FlashAttentionFn._backward_cls)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == before
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
+    want = jax.grad(lambda a, b, c: jnp.sum(jax_attention_ref(a, b, c, causal=causal) * jdo),
+                    argnums=(0, 1, 2))(jq, jk, jv)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert _within(g, w, dtype)
+
+
+def test_forward_under_autograd_equals_the_plain_forward():
+    """Under grad the forward gives the bits it gives without, and its
+    log-sum-exp is ``logsumexp`` of the scaled scores."""
+    q, k, v, _ = _bwd_case((1, 4, 2, 33, 50, 8), np.float32)
+    plain = flash_attention(q, k, v)
+    assert plain.grad_fn is None
+    graded = flash_attention(q.clone().requires_grad_(True), k, v)
+    assert torch.equal(plain, graded.detach())
+    _, lse = attention_ref(q, k, v, return_lse=True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k.repeat_interleave(2, 1)) * 8 ** -0.5
+    s = s.masked_fill(torch.arange(50)[None, :] > torch.arange(33)[:, None] + 17, float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-6, atol=1e-6)
+    _, lse_chunked = chunked_attention_ref(q, k, v, block_k=16, return_lse=True)
+    torch.testing.assert_close(lse_chunked, lse, rtol=1e-6, atol=1e-6)
+
+
+def test_backward_wrapper_counts_launches_and_refuses(monkeypatch):
+    """On CUDA tensors the backward launches its kernel once (meta tensors
+    stand in; the binding is a recorder) and refuses Dk != Dv; without keys
+    it returns zeros and launches nothing."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    calls = []
+    monkeypatch.setattr(ops.kernel, "flash_attention_bwd", lambda *a: calls.append(a))
+    monkeypatch.setattr(ops.torch.cuda, "device", lambda d: contextlib.nullcontext())
+    before = flash_attention_bwd.launches
+
+    def z(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    q, k, v = z(1, 4, 8, 64), z(1, 2, 8, 64), z(1, 2, 8, 64)
+    dq, dk, dv = flash_attention_bwd(q, k, v, z(1, 4, 8, 64), z(1, 4, 8, dtype=torch.float32),
+                                     z(1, 4, 8, 64))
+    assert len(calls) == 1 and flash_attention_bwd.launches == before + 1
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    with pytest.raises(ValueError, match="Dk == Dv"):
+        flash_attention_bwd(q, k, z(1, 2, 8, 32), z(1, 4, 8, 32),
+                            z(1, 4, 8, dtype=torch.float32), z(1, 4, 8, 32))
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, z(1, 4, 8, 64), z(1, 4, 9, dtype=torch.float32),
+                            z(1, 4, 8, 64))
+    assert len(calls) == 1 and flash_attention_bwd.launches == before + 1
+    flash_attention_bwd.launches = before
 
 
 def test_cpu_path_still_differentiates():
-    """The guard is the CUDA branch's: on CPU tensors the plain versions run
-    under autograd, and their gradients agree with each other's."""
+    """On CPU tensors the gradients through the dispatch (the plain backward)
+    agree with autograd through the chunked plain form."""
     rng = np.random.default_rng(5)
     base = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             for s in ((1, 4, 16, 8), (1, 2, 16, 8), (1, 2, 16, 8))]

@@ -1049,17 +1049,178 @@ def test_bench_twin_on_card_holds_its_committed_file(cuda_device, name, tmp_path
                                    for c in rep["compared"].values())
 
 
-def test_flash_attention_raises_under_grad_on_card(cuda_device):
-    """The CUDA kernels have no backward yet: a call that autograd would
-    record raises; under no_grad the same inputs run."""
-    from repro_torch.kernels import flash_attention
+# --------------------------------------------------------------------------
+# the flash-attention backward
+# --------------------------------------------------------------------------
 
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(1, 2, 64, 64, generator=g, device="cuda", dtype=torch.bfloat16)
-               for _ in range(3))
-    with pytest.raises(RuntimeError, match="A11"):
-        flash_attention(q.requires_grad_(True), k, v)
-    with torch.no_grad():
-        out = flash_attention(q, k, v)
-    assert out.shape == (1, 2, 64, 64) and torch.isfinite(out.float()).all()
-    assert not out.requires_grad
+# Against autograd through attention_ref on the inputs upcast to float32, per
+# gradient tensor: float32 within 1e-4 max|want| + 1e-6, bf16 within 2^-6
+# max|want| + 1e-4.
+BWD_TOL = {torch.float32: (1e-4, 1e-6), torch.bfloat16: (2.0 ** -6, 1e-4)}
+
+BWD_CASES = [
+    (1, 4, 4, 128, 128, 64),       # MHA
+    (2, 8, 2, 256, 256, 128),      # GQA 4:1
+    (1, 6, 2, 100, 300, 64),       # ragged Sq < Skv
+    (1, 6, 3, 77, 77, 128),        # S not a multiple of the tile
+    (1, 4, 2, 70, 90, 256),        # the largest head dim (32-row tiles)
+    (2, 4, 1, 1, 33, 32),          # one query row, D = 32
+]
+
+
+def _bwd_inputs(shape, dtype, device, seed):
+    b, hq, hkv, sq, skv, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(b, hq, sq, d, generator=g, device=device).to(dtype)
+    k = torch.randn(b, hkv, skv, d, generator=g, device=device).to(dtype)
+    v = torch.randn(b, hkv, skv, d, generator=g, device=device).to(dtype)
+    do = torch.randn(b, hq, sq, d, generator=g, device=device).to(dtype)
+    return q, k, v, do
+
+
+def _autograd_want(q, k, v, do, causal):
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    qf, kf, vf = (t.float().requires_grad_(True) for t in (q, k, v))
+    out = attention_ref(qf, kf, vf, causal=causal)
+    return torch.autograd.grad(out, (qf, kf, vf), do.float())
+
+
+@pytest.mark.parametrize("shape", BWD_CASES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_autograd(cuda_device, shape, causal, dtype):
+    """``flash_attention`` under autograd on the card (forward with its
+    log-sum-exp on the route the rule gives, then the backward kernel)
+    against autograd through the float32 reference; one backward launch."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v, do = _bwd_inputs(shape, dtype, cuda_device, sum(shape))
+    want = _autograd_want(q, k, v, do, causal)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    before = flash_attention_bwd.launches
+    fwd_before = flash_attention.launches
+    out = flash_attention(qg, kg, vg, causal=causal)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    assert flash_attention.launches == fwd_before + 1
+    rtol, atol = BWD_TOL[dtype]
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = float((g.float() - w).abs().max())
+        assert err <= rtol * float(w.abs().max()) + atol, (name, err, float(w.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_is_deterministic_and_matches_plain(cuda_device, dtype):
+    """Two launches on the same inputs give the same bits (no float atomics),
+    and the kernel agrees with ``flash_attention_bwd_ref`` on the same
+    forward output and log-sum-exp."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention.ops import _forward
+
+    q, k, v, do = _bwd_inputs((1, 12, 4, 333, 333, 128), dtype, cuda_device, 5)
+    out, lse = _forward(q, k, v, True, 128 ** -0.5, with_lse=True)
+    a = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    b = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    plain = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    rtol, atol = BWD_TOL[dtype]
+    for x, y, p in zip(a, b, plain):
+        assert torch.equal(x, y)
+        err = float((x.float() - p.float()).abs().max())
+        assert err <= rtol * float(p.float().abs().max()) + atol
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.bfloat16, 64),
+                                     (torch.float32, 128), (torch.float32, 96)])
+def test_flash_forward_lse_matches_logsumexp(cuda_device, dtype, d):
+    """The forward's log-sum-exp on each route against ``torch.logsumexp`` of
+    the float32 scaled scores (causal, ragged Sq < Skv)."""
+    from repro_torch.kernels.flash_attention.ops import _forward, route
+
+    q, k, v, _ = _bwd_inputs((1, 8, 2, 200, 260, d), dtype, cuda_device, d)
+    assert route(q, k, v) == ("sm90" if dtype == torch.bfloat16 and d in (64, 128) else "simt")
+    _, lse = _forward(q, k, v, True, d ** -0.5, with_lse=True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float().repeat_interleave(4, 1)) * d ** -0.5
+    pos = torch.arange(260, device=cuda_device)
+    mask = pos[None, :] > pos[:200, None] + 60
+    want = torch.logsumexp(s.masked_fill(mask, float("-inf")), dim=-1)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert float((lse - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-5
+
+
+def test_serving_forward_unchanged_by_the_backward(cuda_device):
+    """Without grad the forward writes no log-sum-exp and saves nothing: the
+    same bits as the forward under autograd, one launch each, an output with
+    no history."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import ops
+
+    q, k, v, _ = _bwd_inputs((1, 24, 8, 300, 300, 128), torch.bfloat16, cuda_device, 1)
+    before = ops.launches_by_route()
+    plain = flash_attention(q, k, v)
+    assert plain.grad_fn is None and not plain.requires_grad
+    qg = q.clone().requires_grad_(True)
+    graded = flash_attention(qg, k, v)
+    torch.cuda.synchronize()
+    assert graded.grad_fn is not None
+    assert torch.equal(plain, graded.detach())
+    assert ops.launches_by_route() == {"sm90": before["sm90"] + 2, "simt": before["simt"]}
+
+
+def test_flash_bwd_refuses_what_the_kernel_does_not_take(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=cuda_device)
+
+    before = flash_attention_bwd.launches
+    q, k, v = z(1, 4, 8, 16), z(1, 2, 8, 16), z(1, 2, 8, 8)        # Dk != Dv
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, z(1, 4, 8, 8), z(1, 4, 8), z(1, 4, 8, 8))
+    q, k, v = z(1, 4, 8, 16), z(1, 2, 8, 16), z(1, 2, 8, 16)
+    with pytest.raises(ValueError):                                 # lse of another shape
+        flash_attention_bwd(q, k, v, z(1, 4, 8, 16), z(1, 4, 9), z(1, 4, 8, 16))
+    assert flash_attention_bwd.launches == before
+
+
+def test_two_layer_train_step_on_card_matches_cpu(cuda_device):
+    """A reduced phi4-mini's loss and every gradient on the card (flash
+    forward with its log-sum-exp, the backward kernel, remat on) against the
+    same parameters and batch on the CPU, float32 compute: within 1e-4
+    relative (matmul and softmax summation order on the card)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
+    from repro_torch.models import build
+    from repro_torch.train.trainstep import make_loss_fn
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("phi4-mini-3.8b").reduced(compute_dtype="float32", n_layers=2, remat=True)
+    p_cpu = build(cfg, device="cpu").init(0)
+    host = params_to_numpy(p_cpu)
+    batch = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=96, global_batch=2)).batch_at(0)
+    losses, grads = [], []
+    for device in ("cpu", cuda_device):
+        model = build(cfg, device=device)
+        params = params_from_numpy(host, device=device)
+        for t in tree_leaves(params):
+            t.requires_grad_(True)
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        fwd, bwd = ops.flash_attention.launches, flash_attention_bwd.launches
+        loss, _ = make_loss_fn(model)(params, b)
+        loss.backward()
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert ops.flash_attention.launches == fwd + 2 * cfg.n_layers       # remat
+            assert flash_attention_bwd.launches == bwd + cfg.n_layers
+        losses.append(float(loss.detach()))
+        grads.append([t.grad.cpu() for t in tree_leaves(params)])
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+    for g_cpu, g_gpu in zip(*grads):
+        assert float((g_gpu - g_cpu).abs().max()) <= 1e-4 * float(g_cpu.abs().max()) + 1e-7

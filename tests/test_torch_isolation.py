@@ -1,7 +1,8 @@
 """The port stands alone: importing ``repro_torch`` (and the simulator's
-scenario library and the bench twins) loads neither ``jax`` nor the JAX
-package ``repro``, needs no card and no nvcc, and no file of the port (nor
-``chip_smoke.py`` and the scripts it imports) imports them."""
+scenario library, the bench twins and the training examples' twins) loads
+neither ``jax`` nor the JAX package ``repro``, needs no card and no nvcc, and
+no file of the port (nor ``chip_smoke.py`` and the scripts it imports)
+imports them."""
 import ast
 import os
 import subprocess
@@ -17,7 +18,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "scripts" / "fleet_phase.py"] + [
     ROOT / "scripts" / f"{name}.py"
     for name in ("workloads", "dedup_bench", "fault_bench", "adaptive_bench",
-                 "concurrency_bench", "breakdown", "serving_bench", "benches_phase")]
+                 "concurrency_bench", "breakdown", "serving_bench", "benches_phase",
+                 "quickstart", "train_e2e", "train_phase")]
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -29,9 +31,12 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.core.profiler, repro_torch.checkpoint, repro_torch.checkpoint.ckpt, "
             "repro_torch.serve.strategies, repro_torch.serve.coldstart, "
             "repro_torch.sim, repro_torch.sim.cluster, repro_torch.topology, "
-            "repro_torch.fleet, repro_torch.fleet.driver, repro_torch.fleet.model; "
+            "repro_torch.fleet, repro_torch.fleet.driver, repro_torch.fleet.model, "
+            "repro_torch.data, repro_torch.sharding, repro_torch.train, repro_torch.tree, "
+            "repro_torch.launch.train, repro_torch.launch.serve; "
             "sys.path.insert(0, %r); import sim_scenarios, fleet_bench, workloads, dedup_bench, "
-            "fault_bench, adaptive_bench, concurrency_bench, breakdown, serving_bench; "
+            "fault_bench, adaptive_bench, concurrency_bench, breakdown, serving_bench, "
+            "quickstart, train_e2e; "
             "repro_torch.configs.base.load_all(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad") % str(ROOT / "scripts")
