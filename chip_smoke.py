@@ -208,17 +208,21 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              at full width, 2 layers, float32 (relative error < 2e-3).  One
              prefill forward and four decode steps run under torch.profiler.
 
-16. train   — training on the card.  (a) The flash-attention backward
-             (``flash_attention_bwd.cu``) against autograd through the
+16. train   — training on the card.  (a) The flash-attention backward on
+             both routes (``flash_attention_bwd_sm90.cu``: TMA, wgmma;
+             ``flash_attention_bwd.cu``: SIMT) against autograd through the
              float32 reference on the upcast inputs (float32 within 1e-4
              max|want| + 1e-6, bf16 within 2^-6 max|want| + 1e-4, per
              gradient) and against its plain version on the same saved output
-             and log-sum-exp, each case's forward on its asserted route: the
-             training shape B=1, Hq=24, Hkv=8, S=4096, D=128 causal in bf16 and
-             float32, D=64, S=1000, ragged Sq < Skv, non-causal, MHA; two
-             launches bit-equal; at the training shape, in turns, the kernel,
-             the plain backward and ``scaled_dot_product_attention``'s backward
-             beside the bound.  (b) Phi-4-mini 3.8B at full width, 3 of its 32
+             and log-sum-exp, each case's forward and backward on their
+             asserted routes: the training shape B=1, Hq=24, Hkv=8, S=4096,
+             D=128 causal in bf16 (sm90; and SIMT, through a dO view whose
+             rows no TMA map takes) and float32, D=64, S=1000, ragged
+             Sq < Skv, non-causal, MHA; two launches bit-equal; the library's
+             bf16 backward's share of the same limit; at the training shape,
+             in turns, the tensor-core kernel, the SIMT kernel, the plain
+             backward and ``scaled_dot_product_attention``'s backward beside
+             the bound.  (b) Phi-4-mini 3.8B at full width, 3 of its 32
              layers (1.53 B float32 parameters, bf16 compute, remat), batches
              of ``SyntheticLMData(vocab=200064, seq_len=4096, global_batch=1)``:
              6 uninterrupted steps (one more under torch.profiler for the
@@ -229,7 +233,7 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              equal to the checkpointed one, every page verified, every loss
              and gradient norm finite, the resumed parameters equal to the
              uninterrupted run's, launches exact (forward twice a layer a
-             step under remat, the backward once).  (c) The quickstart twin
+             step under remat, the backward once, every one on sm90).  (c) The quickstart twin
              (``scripts/quickstart.py``) with asynchronous checkpoints: its
              loss falls, the restored parameters bit-identical, 12 tokens.
 
@@ -325,6 +329,7 @@ BENCH_LAUNCHES = {
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:91"
 FLASH_CSRC = "src/repro_torch/kernels/flash_attention/csrc"
 FLASH_SRC = {"bwd": f"{FLASH_CSRC}/flash_attention_bwd.cu",
+             "bwd_sm90": f"{FLASH_CSRC}/flash_attention_bwd_sm90.cu",
              "sm90": f"{FLASH_CSRC}/flash_attention_sm90.cu",
              "simt": f"{FLASH_CSRC}/flash_attention.cu"}
 
@@ -3087,15 +3092,20 @@ def flash_bwd_bound_ms(q, k, causal: bool):
 
 
 def check_flash_bwd(torch, device, seed: int) -> dict:
-    """The flash-attention backward kernel on the card: each case's forward
-    under autograd on its asserted route, then the backward kernel, against
-    autograd through the float32 ``attention_ref`` on the upcast inputs
-    (float32 within 1e-4 max|want| + 1e-6, bf16 within 2^-6 max|want| +
-    1e-4, per gradient) and against ``flash_attention_bwd_ref`` on the same
-    saved output and log-sum-exp; two launches bit-equal.  At the training
-    shape, in turns: the kernel, its plain version and the library's
-    backward (``scaled_dot_product_attention`` with K and V repeated to Hq),
-    beside the bound."""
+    """The flash-attention backward on the card, on both of its routes
+    (``ops.bwd_route``): each case's forward under autograd on its asserted
+    route, then the backward on its asserted route, against autograd through
+    the float32 ``attention_ref`` on the upcast inputs (float32 within
+    1e-4 max|want| + 1e-6, bf16 within 2^-6 max|want| + 1e-4, per gradient)
+    and against ``flash_attention_bwd_ref`` on the same saved output and
+    log-sum-exp; two launches bit-equal.  bf16 cases take the tensor-core
+    kernel; float32, and bf16 with a dO view whose rows are not a multiple of
+    16 bytes, the SIMT kernel.  At the training shape the library's bf16
+    backward (``scaled_dot_product_attention`` with K and V repeated to Hq)
+    is held to the same limit too, printed as a yardstick of what bf16
+    products give; then, in turns, the tensor-core kernel, the SIMT kernel on
+    the same inputs, the plain version and the library's backward, beside
+    the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (attention_ref, flash_attention_bwd,
@@ -3118,18 +3128,37 @@ def check_flash_bwd(torch, device, seed: int) -> dict:
         err = float((got.float() - want.float()).abs().max())
         return err, err / (rtol * float(want.float().abs().max()) + atol)
 
+    def unaligned(t):
+        """The same values in a view whose rows are 4 elements longer than D
+        (264 bytes at D = 128 in bf16: no multiple of 16, so no TMA map)."""
+        view = torch.empty(*t.shape[:3], t.shape[3] + 4, dtype=t.dtype, device=t.device)
+        return view[..., :t.shape[3]].copy_(t)
+
+    def simt(q, k, v, o, lse, do, causal=True):
+        """The SIMT kernel through its binding (uncounted: timing only)."""
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty(q.shape[:3], dtype=f32, device=q.device)
+        fops.kernel.flash_attention_bwd(q, k, v, o, do, lse, delta, dq, dk, dv,
+                                        q.shape[3] ** -0.5, causal)
+        return dq, dk, dv
+
     path = (1, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 128)
-    cases = [("training shape bf16", path, bf, True, "sm90"),
-             ("training shape f32", path, f32, True, "simt"),
-             ("D=64", (1, 24, 8, 2048, 2048, 64), bf, True, "sm90"),
+    # name, shape, dtype, causal, forward route, backward route, dO as an unaligned view
+    cases = [("training shape bf16", path, bf, True, "sm90", "sm90", False),
+             ("training shape bf16, dO rows of 264 bytes", path, bf, True, "sm90", "simt", True),
+             ("training shape f32", path, f32, True, "simt", "simt", False),
+             ("D=64", (1, 24, 8, 2048, 2048, 64), bf, True, "sm90", "sm90", False),
              ("S=1000, not a multiple of the tile", (1, 24, 8, 1000, 1000, 128), bf, True,
-              "sm90"),
-             ("ragged Sq=700<Skv=1100", (1, 24, 8, 700, 1100, 128), bf, True, "sm90"),
-             ("non-causal", (1, 24, 8, 1000, 1000, 128), bf, False, "sm90"),
-             ("MHA", (1, 8, 8, 1024, 1024, 128), bf, True, "sm90")]
+              "sm90", "sm90", False),
+             ("ragged Sq=700<Skv=1100", (1, 24, 8, 700, 1100, 128), bf, True, "sm90", "sm90",
+              False),
+             ("non-causal", (1, 24, 8, 1000, 1000, 128), bf, False, "sm90", "sm90", False),
+             ("MHA", (1, 8, 8, 1024, 1024, 128), bf, True, "sm90", "sm90", False)]
     out = {"cases": [], "tolerance": {"float32": tol[f32], "bfloat16": tol[bf]}}
-    for name, shape, dtype, causal, want_route in cases:
+    for name, shape, dtype, causal, want_route, want_bwd, view in cases:
         q, k, v, do = inputs(*shape, dtype)
+        if view:
+            do = unaligned(do)
         scale = shape[5] ** -0.5
         qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
         before = fops.launches_by_route()
@@ -3138,11 +3167,14 @@ def check_flash_bwd(torch, device, seed: int) -> dict:
         if took != [want_route]:
             raise AssertionError(f"flash backward ({name}): the forward took {took}, "
                                  f"want {want_route}")
+        before = fops.launches_by_route(flash_attention_bwd)
         nb = flash_attention_bwd.launches
         got = torch.autograd.grad(o, (qg, kg, vg), do)
-        if flash_attention_bwd.launches != nb + 1:
+        took = [r for r, n in fops.launches_by_route(flash_attention_bwd).items()
+                if n != before[r]]
+        if flash_attention_bwd.launches != nb + 1 or took != [want_bwd]:
             raise AssertionError(f"flash backward ({name}): {flash_attention_bwd.launches - nb} "
-                                 "backward launches, want 1")
+                                 f"backward launches on {took}, want 1 on {want_bwd}")
         _, lse = fops._forward(q, k, v, causal, scale, with_lse=True)
         o_saved = o.detach()
         again = flash_attention_bwd(q, k, v, o_saved, lse, do, causal=causal)
@@ -3152,7 +3184,7 @@ def check_flash_bwd(torch, device, seed: int) -> dict:
                                    do.float())
         torch.cuda.synchronize()
         row = {"name": name, "shape": list(shape), "dtype": str(dtype), "causal": causal,
-               "route": want_route, "grads": {}}
+               "route": want_route, "bwd_route": want_bwd, "grads": {}}
         for gname, a, b2, p, w in zip(("dq", "dk", "dv"), got, again, plain, want):
             if not torch.equal(a, b2):
                 raise AssertionError(f"flash backward ({name}): two launches differ in {gname}")
@@ -3166,14 +3198,33 @@ def check_flash_bwd(torch, device, seed: int) -> dict:
                                    "vs_plain_max_abs_err": perr, "vs_plain_share": psh}
         row["max_abs_err"] = max(r["max_abs_err"] for r in row["grads"].values())
         out["cases"].append(row)
-        log(f"  flash backward {name} {tuple(shape)} causal={causal} (forward on {want_route}): "
+        log(f"  flash backward {name} {tuple(shape)} causal={causal} (forward on {want_route}, "
+            f"backward on {want_bwd}): "
             + ", ".join(f"{k} {r['max_abs_err']:.3g} ({r['share_of_limit']:.3f} of the limit; "
                         f"plain {r['vs_plain_share']:.3f})" for k, r in row["grads"].items())
             + "; two launches bit-equal")
+        if name == "training shape bf16":
+            # the library's bf16 backward on the same inputs, held to the same limit
+            group = q.shape[1] // k.shape[1]
+            ql = q.clone().requires_grad_(True)
+            kl = k.repeat_interleave(group, 1).requires_grad_(True)
+            vl = v.repeat_interleave(group, 1).requires_grad_(True)
+            lib = torch.autograd.grad(F.scaled_dot_product_attention(ql, kl, vl, is_causal=True),
+                                      (ql, kl, vl), do)
+            lib = (lib[0], *(x.float().unflatten(1, (k.shape[1], group)).sum(2)
+                             for x in lib[1:]))
+            out["library_share_of_limit"] = {gname: share(x, w, bf)[1]
+                                             for gname, x, w in zip(("dq", "dk", "dv"), lib,
+                                                                    want)}
+            log("  library backward (scaled_dot_product_attention, bf16) at the training "
+                "shape: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                      out["library_share_of_limit"].items())
+                + " of the limit (dK, dV summed over each group in float32)")
+            del ql, kl, vl, lib
         del q, k, v, do, qg, kg, vg, o, got, again, plain, want, qf, kf, vf, lse, o_saved
     torch.cuda.empty_cache()
 
-    # at the training shape, in turns: kernel, plain, library
+    # at the training shape, in turns: tensor-core kernel, SIMT kernel, plain, library
     q, k, v, do = inputs(*path, bf)
     o, lse = fops._forward(q, k, v, True, 128 ** -0.5, with_lse=True)
     group = q.shape[1] // k.shape[1]
@@ -3181,40 +3232,41 @@ def check_flash_bwd(torch, device, seed: int) -> dict:
     kl = k.repeat_interleave(group, 1).requires_grad_(True)
     vl = v.repeat_interleave(group, 1).requires_grad_(True)
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-
-    def kernel():
-        return flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-
-    def plain():
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
-
-    def library():
-        return torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
-
-    nb = flash_attention_bwd.launches
-    turns = {"kernel": [], "plain": [], "library": []}
-    for name, fn, iters in (("kernel", kernel, 5), ("plain", plain, 2), ("library", library, 10),
-                            ("library", library, 10), ("plain", plain, 2),
-                            ("kernel", kernel, 5)):
-        turns[name].append(cuda_ms(fn, iters=iters, warmup=1))
-    flash_attention_bwd.launches = nb           # timing launches are not the path's
+    fns = {"sm90": lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+           "simt": lambda: simt(q, k, v, o, lse, do),
+           "plain": lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True),
+           "library": lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)}
+    if fops.bwd_route(q, k, v, do) != "sm90":
+        raise AssertionError("flash backward: the timed inputs do not take the sm90 route")
+    nb = (flash_attention_bwd.launches, fops.launches_by_route(flash_attention_bwd))
+    order = ("sm90", "simt", "plain", "library", "library", "plain", "simt", "sm90")
+    iters = {"sm90": 10, "simt": 2, "plain": 2, "library": 10}
+    turns = {name: [] for name in fns}
+    for name in order:
+        turns[name].append(cuda_ms(fns[name], iters=iters[name], warmup=1))
+    flash_attention_bwd.launches = nb[0]        # timing launches are not the path's
+    for r, n in nb[1].items():
+        setattr(flash_attention_bwd, f"launches_{r}", n)
     bound, by, ops, nbytes = flash_bwd_bound_ms(q, k, True)
     out["timing"] = {"shape": f"B=1 Hq=24 Hkv=8 S={TRAIN_SEQ} D=128 causal bf16",
-                     "turns_ms": turns, "order": "kernel, plain, library, library, plain, kernel",
-                     "ms": sum(turns["kernel"]) / 2, "plain_ms": sum(turns["plain"]) / 2,
+                     "turns_ms": turns, "order": ", ".join(order),
+                     "ms": sum(turns["sm90"]) / 2, "simt_ms": sum(turns["simt"]) / 2,
+                     "plain_ms": sum(turns["plain"]) / 2,
                      "library_ms": sum(turns["library"]) / 2,
                      "plain": "flash_attention_bwd_ref (block_k=512)",
                      "library": "torch.autograd.grad through F.scaled_dot_product_attention("
                                 "is_causal=True), K and V repeated to Hq, its backward alone",
                      "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes}
-    del q, k, v, do, o, lse, ql, kl, vl, lib_out
+    del q, k, v, do, o, lse, ql, kl, vl, lib_out, fns
     torch.cuda.empty_cache()
     r = out["timing"]
-    out["max_abs_err"] = max(c["max_abs_err"] for c in out["cases"])
-    log(f"  flash backward {r['ms']:.3f} ms at {r['shape']} "
-        f"({', '.join(f'{t:.3f}' for t in turns['kernel'])}); plain {r['plain_ms']:.3f} ms; "
-        f"library backward {r['library_ms']:.4f} ms; bound {bound:.4f} ms by {by}: "
-        f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB")
+    out["max_abs_err"] = {route: max(c["max_abs_err"] for c in out["cases"]
+                                     if c["bwd_route"] == route) for route in ("sm90", "simt")}
+    log(f"  flash backward at {r['shape']}: sm90 {r['ms']:.4f} ms "
+        f"({', '.join(f'{t:.4f}' for t in turns['sm90'])}), "
+        f"{r['ms'] / r['library_ms']:.2f}x the library; simt {r['simt_ms']:.3f} ms; plain "
+        f"{r['plain_ms']:.3f} ms; library backward {r['library_ms']:.4f} ms; bound "
+        f"{bound:.4f} ms by {by}: {ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB")
     return out
 
 
@@ -3314,10 +3366,12 @@ def train_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
         gnorms.append(float(m["grad_norm"]))
     want_fwd, want_bwd = 2 * n_layers * TRAIN_STEPS, n_layers * TRAIN_STEPS
     got = {"flash_attention": flash_attention.launches, "by_route": fops.launches_by_route(),
-           "flash_attention_bwd": flash_attention_bwd.launches}
-    if got["by_route"] != {"sm90": want_fwd, "simt": 0} or got["flash_attention_bwd"] != want_bwd:
+           "flash_attention_bwd": flash_attention_bwd.launches,
+           "bwd_by_route": fops.launches_by_route(flash_attention_bwd)}
+    if got["by_route"] != {"sm90": want_fwd, "simt": 0} or \
+            got["bwd_by_route"] != {"sm90": want_bwd, "simt": 0}:
         raise AssertionError(f"train: {TRAIN_STEPS} steps launched {got}, want {want_fwd} sm90 "
-                             f"forwards (remat: twice a layer) and {want_bwd} backwards")
+                             f"forwards (remat: twice a layer) and {want_bwd} sm90 backwards")
     if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
         raise AssertionError(f"train: losses {losses} grad norms {gnorms} not finite")
     rep["uninterrupted"] = {"losses": losses, "grad_norms": gnorms, "step_s": walls,
@@ -3340,19 +3394,22 @@ def train_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
     dev = torch.autograd.DeviceType.CUDA
     by_name = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
                if e.device_type == dev}
-    bwd_ms = sum(t for n, t in by_name.items()
-                 if "dkdv_kernel" in n or "dq_kernel" in n or "delta_kernel" in n)
+    bwd_parts = {part: sum(t for n, t in by_name.items() if part in n)
+                 for part in ("prep_kernel", "delta_kernel", "dkdv_kernel", "dq_kernel")}
+    bwd_ms = sum(bwd_parts.values())
     fwd_ms = sum(t for n, t in by_name.items() if "flash_sm90_kernel" in n)
     summary.update(backward_ms=bwd_ms, backward_share=bwd_ms / summary["device_busy_ms"],
-                   forward_flash_ms=fwd_ms)
+                   backward_ms_by_kernel=bwd_parts, forward_flash_ms=fwd_ms)
     rep["profile_step"] = summary
     (out_dir / "profile_train_step.txt").write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30))
     del prof, probe
     reset()
     log(f"  profiled step: wall {wall:.3f} s, device busy {summary['device_busy_ms']:.1f} ms, "
-        f"idle share {summary['device_idle_share']:.4f}; flash backward {bwd_ms:.1f} ms = "
-        f"{summary['backward_share']:.3f} of the device time, flash forward {fwd_ms:.1f} ms")
+        f"idle share {summary['device_idle_share']:.4f}; flash backward {bwd_ms:.2f} ms = "
+        f"{summary['backward_share']:.4f} of the device time "
+        f"({', '.join(f'{k} {v:.3f}' for k, v in bwd_parts.items() if v)}), flash forward "
+        f"{fwd_ms:.1f} ms")
     for r in summary["top"][:5]:
         log(f"    {r['device_ms']:.3f} ms x{r['count']} {r['name'][:70]}")
 
@@ -3435,11 +3492,11 @@ def train_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
     want_fwd = 2 * n_layers * TRAIN_STEPS            # 3 + 3 steps, remat: twice a layer
     want_bwd = n_layers * TRAIN_STEPS
     flash = {"by_route": fops.launches_by_route(),
-             "flash_attention_bwd": flash_attention_bwd.launches}
+             "bwd_by_route": fops.launches_by_route(flash_attention_bwd)}
     if launches != want or flash != {"by_route": {"sm90": want_fwd, "simt": 0},
-                                     "flash_attention_bwd": want_bwd}:
+                                     "bwd_by_route": {"sm90": want_bwd, "simt": 0}}:
         raise AssertionError(f"train: launches {launches} {flash}, want {want}, {want_fwd} sm90 "
-                             f"forwards, {want_bwd} backwards")
+                             f"forwards, {want_bwd} sm90 backwards")
     resumed_losses = [m["loss"] for m in t2.metrics_log if "loss" in m]
     if not np.isfinite(resumed_losses).all() or len(resumed_losses) != resumed_steps:
         raise AssertionError(f"train: resumed losses {resumed_losses}")
@@ -3458,7 +3515,8 @@ def train_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
     rep["resumed_equals_uninterrupted"] = "bit for bit" if not diffs else {
         "within rtol 1e-6 atol 1e-7": diffs}
     rep["resumed_losses"] = resumed_losses
-    rep["launches"] = {**launches, "flash_attention": want_fwd, "flash_attention_bwd": want_bwd}
+    rep["launches"] = {**launches, "flash_attention": want_fwd, "flash_attention_bwd": want_bwd,
+                       "flash_attention_bwd_by_route": {"sm90": want_bwd, "simt": 0}}
     log(f"  resumed with Trainer.run(resume=True): time to hot {st['time_to_hot_s']:.3f} s, to "
         f"full {st['time_to_full_s']:.3f} s; restored state equal to the checkpointed one "
         f"(fingerprints of every leaf), {verified} pages verified; losses "
@@ -3486,7 +3544,12 @@ def train_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
                          "launches": {"flash_attention": flash_attention.launches,
                                       "flash_attention_bwd": flash_attention_bwd.launches,
                                       "by_route": fops.launches_by_route(),
+                                      "bwd_by_route": fops.launches_by_route(flash_attention_bwd),
                                       **{n: k.launches for n, k in counted.items()}}}
+    bwd_q = rep["quickstart"]["launches"]["bwd_by_route"]
+    if bwd_q["simt"] == 0 or bwd_q["sm90"] != 0:
+        raise AssertionError(f"train: the quickstart twin's backwards went {bwd_q}, want all on "
+                             "simt (its heads are 32 wide)")
     del qs
     log(f"  quickstart twin: losses {', '.join(f'{x:.3f}' for x in q_losses)}; async "
         f"checkpoints at {rep['quickstart']['checkpoints']}; restored params bit-identical; "
@@ -3876,17 +3939,25 @@ def main() -> int:
         "simt_ms": r["simt_ms"], "simt_source": FLASH_SRC["simt"], "shape": r["shape"]})
     tr = report["train"]
     b = tr["backward"]["timing"]
-    kernels.append({
-        "name": "flash_attention_bwd", "route": "cuda", "source": FLASH_SRC["bwd"],
-        "replaces": f"none: the backward of {FLASH_TPU}, which the JAX package gets by "
-                    "differentiating its reference",
-        "launches": tr["launches"]["flash_attention_bwd"],
-        "launches_by_path": {"train": tr["launches"]["flash_attention_bwd"],
-                             "quickstart": tr["quickstart"]["launches"]["flash_attention_bwd"]},
-        "bit_equal": False, "deterministic": True, "tolerance": tr["backward"]["tolerance"],
-        "max_abs_err": tr["backward"]["max_abs_err"], "ms": b["ms"], "plain_ms": b["plain_ms"],
-        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": b["library_ms"],
-        "shape": b["shape"]})
+    bwd_replaces = (f"none: the backward of {FLASH_TPU}, which the JAX package gets by "
+                    "differentiating its reference")
+    qs_bwd = tr["quickstart"]["launches"]["bwd_by_route"]
+    train_bwd = tr["launches"]["flash_attention_bwd_by_route"]
+    # the tensor-core kernel's path is the bf16 train step; the SIMT
+    # kernel's, the quickstart twin (32-wide heads)
+    for route, name, src, ms, launches in (
+            ("sm90", "flash_attention_bwd_sm90", "bwd_sm90", b["ms"], train_bwd["sm90"]),
+            ("simt", "flash_attention_bwd", "bwd", b["simt_ms"], qs_bwd["simt"])):
+        if launches == 0:
+            raise AssertionError(f"{name}: launched no time on its path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SRC[src],
+            "replaces": bwd_replaces, "launches": launches,
+            "launches_by_path": {"train": train_bwd[route], "quickstart": qs_bwd[route]},
+            "bit_equal": False, "deterministic": True, "tolerance": tr["backward"]["tolerance"],
+            "max_abs_err": tr["backward"]["max_abs_err"][route], "ms": ms,
+            "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": b["library_ms"], "shape": b["shape"]})
     report["kernels"] = kernels
     report["smoke_s"] = sum(report["phase_s"].values())
     log(f"smoke: {report['smoke_s']:.2f} s over {len(report['phase_s'])} phases on {card}")

@@ -4,8 +4,9 @@
     python3 scripts/train_phase.py [--seed 0] [--out build/train]
 
 Builds the kernels and runs ``chip_smoke.train_phase``: (a) the
-flash-attention backward against autograd and its plain version, and its
-times beside the library's; (b) Phi-4-mini at full width, cut in depth:
+flash-attention backward on both routes (tensor-core and SIMT) against
+autograd and its plain version, and their times beside the library's; (b)
+Phi-4-mini at full width, cut in depth:
 uninterrupted steps, a checkpointing ``Trainer``, a crash and a resume;
 (c) the quickstart twin.  Prints the phase's lines; the report goes to
 ``--out``/train.json.  Exits non-zero without a CUDA card.

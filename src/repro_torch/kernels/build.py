@@ -28,6 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _COMMON = (KERNELS_DIR / "snapshot_fuse" / "csrc" / "common.cuh",)
 _ROWS = (*_COMMON, KERNELS_DIR / "snapshot_fuse" / "csrc" / "row_copy.cuh")
+_FLASH = KERNELS_DIR / "flash_attention" / "csrc"
+_SM90 = (_FLASH / "sm90_common.cuh",)
 # library name -> (main source, headers it includes)
 SOURCES: Dict[str, tuple] = {
     "fused_publish": (KERNELS_DIR / "snapshot_fuse" / "csrc" / "fused_publish.cu", _COMMON),
@@ -35,11 +37,10 @@ SOURCES: Dict[str, tuple] = {
     **{name: (KERNELS_DIR / name / "csrc" / f"{name}.cu", _COMMON)
        for name in ("zero_detect", "page_checksum", "page_gather")},
     "page_scatter": (KERNELS_DIR / "page_scatter" / "csrc" / "page_scatter.cu", _ROWS),
-    "flash_attention": (KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu", ()),
-    "flash_attention_sm90": (KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_sm90.cu",
-                             ()),
-    "flash_attention_bwd": (KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
-                            ()),
+    "flash_attention": (_FLASH / "flash_attention.cu", ()),
+    "flash_attention_sm90": (_FLASH / "flash_attention_sm90.cu", _SM90),
+    "flash_attention_bwd": (_FLASH / "flash_attention_bwd.cu", ()),
+    "flash_attention_bwd_sm90": (_FLASH / "flash_attention_bwd_sm90.cu", _SM90),
 }
 
 # ctypes argument types of the C entry points

@@ -11,10 +11,12 @@ above.  CUDA tensors launch one of the two hand-written kernels, the one
 When grad mode is on and q, k or v requires grad, the call goes through
 ``FlashAttentionFn``: the same forward, which also writes each row's
 log-sum-exp, and a backward that recomputes the probabilities from it
-(``flash_attention_bwd``: ``csrc/flash_attention_bwd.cu`` on CUDA tensors,
-``flash_attention_bwd_ref`` on CPU ones; its launches in
-``flash_attention_bwd.launches``).  Every other call (serving, inference)
-writes no log-sum-exp and saves nothing.
+(``flash_attention_bwd``: on CUDA tensors one of two hand-written kernels,
+the one ``bwd_route`` names, ``csrc/flash_attention_bwd_sm90.cu`` or
+``csrc/flash_attention_bwd.cu``; ``flash_attention_bwd_ref`` on CPU ones;
+its launches in ``flash_attention_bwd.launches_sm90`` and ``.launches_simt``,
+``.launches`` their sum).  Every other call (serving, inference) writes no
+log-sum-exp and saves nothing.
 """
 from __future__ import annotations
 
@@ -76,12 +78,28 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
         return "simt"
     if q.shape[3] != v.shape[3] or q.shape[3] not in SM90_HEAD_DIMS:
         return "simt"
-    for t in (q, k, v):
-        if t.stride(3) != 1 or t.data_ptr() % 16:
-            return "simt"
-        if any(t.stride(i) <= 0 or t.stride(i) * t.element_size() % 16 for i in range(3)):
-            return "simt"
-    return "sm90"
+    return "sm90" if all(_tma_legal(t) for t in (q, k, v)) else "simt"
+
+
+def _tma_legal(t: torch.Tensor) -> bool:
+    """What a TMA tensor map takes: a 16-byte aligned base, positive strides
+    of dims 0..2 that are multiples of 16 bytes, a contiguous dim 3."""
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(t.stride(i) > 0 and t.stride(i) * t.element_size() % 16 == 0
+                    for i in range(3)))
+
+
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor) -> str:
+    """Which backward kernel takes a CUDA call, from dtypes, shapes, base
+    addresses and strides alone: ``"sm90"`` (``csrc/flash_attention_bwd_sm90.cu``:
+    TMA, wgmma) when ``route(q, k, v)`` gives ``"sm90"`` and ``dout`` is bf16
+    with a 16-byte aligned base, positive strides of dims 0..2 that are
+    multiples of 16 bytes and a contiguous dim 3; ``"simt"``
+    (``csrc/flash_attention_bwd.cu``) for every other call: float32, Dk != Dv,
+    other head dims, unaligned views."""
+    if route(q, k, v) == "sm90" and dout.dtype == torch.bfloat16 and _tma_legal(dout):
+        return "sm90"
+    return "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -165,7 +183,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     """``(dq, dk, dv)`` of ``flash_attention`` from its inputs, its output
     ``out``, the forward's float32 log-sum-exp ``lse`` (B, Hq, Sq) and the
     output's gradient ``dout``.  CPU tensors take ``flash_attention_bwd_ref``;
-    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (Dk == Dv <= 256,
+    CUDA tensors launch the kernel ``bwd_route`` names (Dk == Dv <= 256,
     float32 or bf16) or raise.  The gradients come back contiguous, in the
     inputs' dtypes; two launches on the same inputs give the same bits."""
     if scale is None:
@@ -173,6 +191,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, scale=scale)
     _check_bwd_cuda(q, k, v, out, lse, dout, causal)
+    which = bwd_route(q, k, v, dout)   # on the tensors as given: no copy picks the route
+    # the SIMT kernel takes any strides of dims 0..2 but a contiguous last dim
     q, k, v, dout = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v, dout))
     out, lse = out.contiguous(), lse.contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -181,11 +201,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     if k.shape[2] == 0:                   # no keys: nothing attends, every gradient is 0
         return dq.zero_(), dk, dv
     if q.numel():
-        delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
         with torch.cuda.device(q.device):
-            kernel.flash_attention_bwd(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                                       float(scale), causal)
+            if which == "sm90":
+                aux = torch.empty(kernel.bwd_sm90_scratch_shape(q), dtype=torch.float32,
+                                  device=q.device)
+                kernel.flash_attention_bwd_sm90(q, k, v, out, dout, lse, aux, dq, dk, dv,
+                                                float(scale), causal)
+            else:
+                delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+                kernel.flash_attention_bwd(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                                           float(scale), causal)
         launch_count.count(flash_attention_bwd)
+        launch_count.count(flash_attention_bwd, f"launches_{which}")
     else:
         dk.zero_()
         dv.zero_()
@@ -194,15 +221,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
 
 def reset_launches() -> None:
     """Sets every launch count of ``flash_attention`` and
-    ``flash_attention_bwd`` to 0."""
-    flash_attention.launches = 0
-    flash_attention_bwd.launches = 0
-    for name in ROUTES:
-        setattr(flash_attention, f"launches_{name}", 0)
+    ``flash_attention_bwd`` (sums and routes) to 0."""
+    for fn in (flash_attention, flash_attention_bwd):
+        fn.launches = 0
+        for name in ROUTES:
+            setattr(fn, f"launches_{name}", 0)
 
 
-def launches_by_route() -> dict:
-    return {name: getattr(flash_attention, f"launches_{name}") for name in ROUTES}
+def launches_by_route(fn=flash_attention) -> dict:
+    """``{"sm90": n, "simt": n}``: the launches of ``fn`` (``flash_attention``
+    or ``flash_attention_bwd``) by route."""
+    return {name: getattr(fn, f"launches_{name}") for name in ROUTES}
 
 
 reset_launches()

@@ -19,7 +19,12 @@ The tensor-core kernel (``csrc/flash_attention_sm90.cu``) cannot run here;
 order, online base-2 softmax in float32, P split into bf16 hi + lo against
 bf16 V, output rounded to bf16) so that its numerical design is held to the same
 limit, and ``route``, the rule that picks a kernel, is a pure function of
-dtypes, shapes and strides that runs without a card.
+dtypes, shapes and strides that runs without a card.  The same for the
+tensor-core backward (``csrc/flash_attention_bwd_sm90.cu``):
+``_sm90_bwd_arithmetic`` repeats its tile order and roundings (float32
+scores, P and dS rounded to bf16 into float32 accumulators, the query heads
+of a group in order, lse converted to log2 units once a row) against
+``jax.grad`` within the bf16 limit, and ``bwd_route`` picks its kernel.
 """
 import contextlib
 
@@ -435,12 +440,13 @@ def test_forward_under_autograd_equals_the_plain_forward():
 
 def test_backward_wrapper_counts_launches_and_refuses(monkeypatch):
     """On CUDA tensors the backward launches its kernel once (meta tensors
-    stand in; the binding is a recorder) and refuses Dk != Dv; without keys
+    stand in; the bindings are recorders) and refuses Dk != Dv; without keys
     it returns zeros and launches nothing."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
     calls = []
     monkeypatch.setattr(ops.kernel, "flash_attention_bwd", lambda *a: calls.append(a))
+    monkeypatch.setattr(ops.kernel, "flash_attention_bwd_sm90", lambda *a: calls.append(a))
     monkeypatch.setattr(ops.torch.cuda, "device", lambda d: contextlib.nullcontext())
     before = flash_attention_bwd.launches
 
@@ -478,3 +484,193 @@ def test_cpu_path_still_differentiates():
         grads.append([t.grad for t in (q, k, v)])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# -- the tensor-core backward ----------------------------------------------------------
+
+LOG2E = np.float32(np.log2(np.e))
+
+
+def _sm90_bwd_arithmetic(q, k, v, out, lse, do, causal, fault=None):
+    """The sm90 backward's arithmetic on bf16 q, k, v, ``do`` (``out`` the
+    forward's bf16 output, ``lse`` its float32 log-sum-exp in natural units):
+    D = rowsum(dO * O) and lse2 = lse * log2(e) in float32 once a row; the
+    dK/dV kernel by 128-key tiles, the query heads of each group in order and
+    64-query tiles in order: S^T = K Q^T in float32, P^T = 2^(S^T * scale *
+    log2(e) - lse2), 0 where the causal mask drops a key, dP^T = V dO^T,
+    dS^T = P^T (dP^T - D), then dV += bf16(P^T) dO and dK += bf16(dS^T) Q in
+    float32; the dQ kernel by 64-key tiles: S, dP, dS again and dQ +=
+    bf16(dS) K.  dK and dQ times scale, all three rounded to bf16.  ``fault``
+    (for the limit's own test): "no-delta" drops the - D of dS, "lse-units"
+    takes lse as if it were in log2 units."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    scale_log2 = scale * torch.tensor(LOG2E)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, do))
+    lse2 = lse if fault == "lse-units" else lse * torch.tensor(LOG2E)
+    delta = (gf * out.float()).sum(-1)
+    if fault == "no-delta":
+        delta = torch.zeros_like(delta)
+    off = skv - sq
+
+    def bf(x):
+        return x.to(torch.bfloat16).float()
+
+    def masked(p, rows, keys):          # p (..., rows, keys)
+        if not causal:
+            return p
+        return p.masked_fill(keys[None, :] > rows[:, None] + off, 0.0)
+
+    dk = torch.zeros(b, hkv, skv, d)
+    dv = torch.zeros(b, hkv, skv, d)
+    for k0 in range(0, skv, 128):
+        keys = torch.arange(k0, min(k0 + 128, skv))
+        kt, vt = kf[:, :, k0:k0 + 128], vf[:, :, k0:k0 + 128]
+        for g in range(group):
+            heads = torch.arange(hkv) * group + g
+            for q0 in range(0, sq, 64):
+                rows = torch.arange(q0, min(q0 + 64, sq))
+                qt, gt = qf[:, heads, q0:q0 + 64], gf[:, heads, q0:q0 + 64]
+                st = kt @ qt.transpose(-1, -2)                         # (b, hkv, keys, rows)
+                pt = torch.exp2(st * scale_log2 - lse2[:, heads, q0:q0 + 64][..., None, :])
+                pt = masked(pt.transpose(-1, -2), rows, keys).transpose(-1, -2)
+                dpt = vt @ gt.transpose(-1, -2)
+                dst = pt * (dpt - delta[:, heads, q0:q0 + 64][..., None, :])
+                dv[:, :, k0:k0 + 128] += bf(pt) @ gt
+                dk[:, :, k0:k0 + 128] += bf(dst) @ qt
+    kx, vx = kf.repeat_interleave(group, 1), vf.repeat_interleave(group, 1)
+    rows = torch.arange(sq)
+    dq = torch.zeros(b, hq, sq, d)
+    for k0 in range(0, skv, 64):
+        keys = torch.arange(k0, min(k0 + 64, skv))
+        kt, vt = kx[:, :, k0:k0 + 64], vx[:, :, k0:k0 + 64]
+        p = masked(torch.exp2(qf @ kt.transpose(-1, -2) * scale_log2 - lse2[..., None]), rows,
+                   keys)
+        ds = p * (gf @ vt.transpose(-1, -2) - delta[..., None])
+        dq += bf(ds) @ kt
+    return ((dq * scale).to(torch.bfloat16), (dk * scale).to(torch.bfloat16),
+            dv.to(torch.bfloat16))
+
+
+def _sm90_bwd_case(shape, causal, seed=41):
+    """bf16 q, k, v, dO of ``shape`` (B, Hq, Hkv, Sq, Skv, D), the sm90
+    forward's output (``_sm90_arithmetic``) and the float32 log-sum-exp, and
+    ``jax.grad`` through the JAX reference attention on the upcast inputs."""
+    import jax
+
+    q, k, v, do = _bwd_case(shape, "bf16", seed)
+    out = _sm90_arithmetic(q, k, v, causal)
+    _, lse = attention_ref(q.float(), k.float(), v.float(), causal=causal, return_lse=True)
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
+    want = jax.grad(lambda a, b, c: jnp.sum(jax_attention_ref(a, b, c, causal=causal) * jdo),
+                    argnums=(0, 1, 2))(jq, jk, jv)
+    return (q, k, v, out, lse, do), want
+
+
+# BWD_SHAPES plus GQA 3:1 at D = 128 with ragged tiles (Sq = 100 fills no
+# 64-query tile, Skv = 300 no 128-key tile)
+SM90_BWD_SHAPES = {**BWD_SHAPES, "gqa3-d128-ragged": (1, 6, 2, 100, 300, 128)}
+
+
+@pytest.mark.parametrize("shape", list(SM90_BWD_SHAPES), ids=list(SM90_BWD_SHAPES))
+@pytest.mark.parametrize("causal", [True, False])
+def test_sm90_bwd_arithmetic_matches_jax_grad(shape, causal):
+    """The tensor-core backward's arithmetic (bf16 P and dS into float32
+    accumulators) within the bf16 limit, 2^-6 max|want| + 1e-4 per gradient,
+    of ``jax.grad`` through the JAX reference on the upcast inputs."""
+    args, want = _sm90_bwd_case(SM90_BWD_SHAPES[shape], causal)
+    got = _sm90_bwd_arithmetic(*args, causal)
+    for g, w, t in zip(got, want, args[:3]):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+        assert _within(g, w, "bf16")
+
+
+@pytest.mark.parametrize("fault", ["no-delta", "lse-units"])
+def test_bf16_bwd_limit_rejects_known_faults(fault):
+    """The limit the card holds the backward to fails dS without its - D
+    term and lse taken in the wrong units, where the kernel's arithmetic
+    passes."""
+    args, want = _sm90_bwd_case(SM90_BWD_SHAPES["gqa3-d128-ragged"], True)
+    assert all(_within(g, w, "bf16") for g, w in zip(_sm90_bwd_arithmetic(*args, True), want))
+    bad = _sm90_bwd_arithmetic(*args, True, fault=fault)
+    assert not all(_within(g, w, "bf16") for g, w in zip(bad, want))
+
+
+def _bwd_route_case(case, device="cpu"):
+    """(q, k, v, dout) for one case of the backward's route rule, on
+    ``device`` (the CPU, or "meta" standing in for a card)."""
+    qkv = case if case in ("d64", "model-views", "float32", "dk!=dv", "d256") else "bf16-d128"
+    q, k, v = (t.to(device) for t in _route_case(qkv))    # dense: `to` keeps their strides
+
+    def z(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    shape = q.shape[:3] + (v.shape[3],)
+    dout = z(*shape, dtype=q.dtype)
+    if case == "model-views":       # autograd's gradient of a (B, S, H, D) view
+        dout = z(shape[0], shape[2], shape[1], shape[3]).transpose(1, 2)
+    elif case == "dout-unaligned-base":
+        dout = z(dout.numel() + 1)[1:].view(shape)
+    elif case == "dout-unaligned-stride":   # rows of 132 bf16 = 264 bytes
+        dout = z(*shape[:3], 132)[..., :128]
+    elif case == "dout-last-dim-strided":
+        dout = z(*shape[:2], 128, shape[2]).transpose(2, 3)
+    elif case == "dout-expanded":   # stride 0 over the heads
+        dout = z(1, 1, *shape[2:]).expand(shape)
+    elif case == "dout-float32":
+        dout = dout.float()
+    return q, k, v, dout
+
+
+BWD_ROUTE_CASES = {"bf16-d128": "sm90", "d64": "sm90", "model-views": "sm90",
+                   "float32": "simt", "dk!=dv": "simt", "d256": "simt",
+                   "dout-unaligned-base": "simt", "dout-unaligned-stride": "simt",
+                   "dout-last-dim-strided": "simt", "dout-expanded": "simt",
+                   "dout-float32": "simt"}
+
+
+@pytest.mark.parametrize("case", list(BWD_ROUTE_CASES))
+def test_bwd_route_rule(case):
+    """The backward goes to the tensor-core kernel when the forward's rule
+    does and dO passes the same TMA rule (autograd's transposed gradient
+    included); everything else to the SIMT kernel."""
+    q, k, v, dout = _bwd_route_case(case)
+    assert ops.bwd_route(q, k, v, dout) == BWD_ROUTE_CASES[case]
+
+
+def test_bwd_launch_counters_by_route(monkeypatch):
+    """The backward launches the kernel ``bwd_route`` names on the tensors
+    as given (no copy changes the route), counts it under that route and in
+    the sum, and never tries the other one; ``reset_launches`` zeroes all.
+    Meta tensors stand in for CUDA tensors; the bindings are recorders."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    calls = []
+    monkeypatch.setattr(ops.kernel, "flash_attention_bwd_sm90",
+                        lambda *a: calls.append(("sm90", tuple(a[6].shape))))
+    monkeypatch.setattr(ops.kernel, "flash_attention_bwd", lambda *a: calls.append(("simt",)))
+    monkeypatch.setattr(ops.torch.cuda, "device", lambda d: contextlib.nullcontext())
+    saved = (flash_attention_bwd.launches, ops.launches_by_route(flash_attention_bwd))
+    try:
+        ops.reset_launches()
+        for case in ("bf16-d128", "float32", "model-views", "dout-unaligned-stride",
+                     "dout-last-dim-strided", "d64"):
+            q, k, v, dout = _bwd_route_case(case, "meta")
+            lse = torch.zeros(q.shape[:3], dtype=torch.float32, device="meta")
+            out = torch.zeros(dout.shape, dtype=dout.dtype, device="meta")
+            dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+            assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+        assert [c[0] for c in calls] == ["sm90", "simt", "sm90", "simt", "simt", "sm90"]
+        # the scratch: 2 float32 rows per query of each (batch, head), Sq padded to 128
+        assert calls[0][1] == (2, 4, 384) and calls[2][1] == (2, 12, 384)
+        assert ops.launches_by_route(flash_attention_bwd) == {"sm90": 3, "simt": 3}
+        assert flash_attention_bwd.launches == 6
+        ops.reset_launches()
+        assert flash_attention_bwd.launches == 0
+        assert ops.launches_by_route(flash_attention_bwd) == {"sm90": 0, "simt": 0}
+    finally:
+        flash_attention_bwd.launches = saved[0]
+        for name, n in saved[1].items():
+            setattr(flash_attention_bwd, f"launches_{name}", n)

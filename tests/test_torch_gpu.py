@@ -1091,20 +1091,27 @@ def _autograd_want(q, k, v, do, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernel_matches_autograd(cuda_device, shape, causal, dtype):
     """``flash_attention`` under autograd on the card (forward with its
-    log-sum-exp on the route the rule gives, then the backward kernel)
-    against autograd through the float32 reference; one backward launch."""
+    log-sum-exp on the route the rule gives, then the backward on its route:
+    the tensor-core kernel for bf16 with D in {64, 128}, the SIMT kernel
+    otherwise) against autograd through the float32 reference; one backward
+    launch."""
     from repro_torch.kernels import flash_attention
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
 
     q, k, v, do = _bwd_inputs(shape, dtype, cuda_device, sum(shape))
     want = _autograd_want(q, k, v, do, causal)
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    route = "sm90" if dtype == torch.bfloat16 and shape[5] in (64, 128) else "simt"
+    assert ops.bwd_route(q, k, v, do) == route
     before = flash_attention_bwd.launches
+    by_route = ops.launches_by_route(flash_attention_bwd)
     fwd_before = flash_attention.launches
     out = flash_attention(qg, kg, vg, causal=causal)
     got = torch.autograd.grad(out, (qg, kg, vg), do)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == before + 1
+    by_route[route] += 1
+    assert ops.launches_by_route(flash_attention_bwd) == by_route
     assert flash_attention.launches == fwd_before + 1
     rtol, atol = BWD_TOL[dtype]
     for name, g, w in zip("qkv", got, want):
@@ -1121,7 +1128,10 @@ def test_flash_bwd_kernel_is_deterministic_and_matches_plain(cuda_device, dtype)
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
     from repro_torch.kernels.flash_attention.ops import _forward
 
+    from repro_torch.kernels.flash_attention.ops import bwd_route
+
     q, k, v, do = _bwd_inputs((1, 12, 4, 333, 333, 128), dtype, cuda_device, 5)
+    assert bwd_route(q, k, v, do) == ("sm90" if dtype == torch.bfloat16 else "simt")
     out, lse = _forward(q, k, v, True, 128 ** -0.5, with_lse=True)
     a = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
     b = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
@@ -1132,6 +1142,65 @@ def test_flash_bwd_kernel_is_deterministic_and_matches_plain(cuda_device, dtype)
         assert torch.equal(x, y)
         err = float((x.float() - p.float()).abs().max())
         assert err <= rtol * float(p.float().abs().max()) + atol
+
+
+def _simt_bwd(q, k, v, out, lse, do, causal):
+    """The SIMT backward kernel through its binding, whatever the route rule
+    would pick (uncounted)."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    kernel.flash_attention_bwd(q, k, v, out, do, lse, delta, dq, dk, dv, q.shape[3] ** -0.5,
+                               causal)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_sm90_and_simt_agree(cuda_device, d, causal):
+    """The tensor-core and SIMT backward kernels on the same bf16 inputs (GQA
+    3:1, ragged Sq < Skv): each within the bf16 limit of autograd through the
+    float32 reference, and of each other."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ops import _forward, bwd_route
+
+    q, k, v, do = _bwd_inputs((1, 6, 2, 200, 333, d), torch.bfloat16, cuda_device, d + causal)
+    assert bwd_route(q, k, v, do) == "sm90"
+    out, lse = _forward(q, k, v, causal, d ** -0.5, with_lse=True)
+    sm90 = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    simt = _simt_bwd(q, k, v, out, lse, do, causal)
+    want = _autograd_want(q, k, v, do, causal)
+    torch.cuda.synchronize()
+    rtol, atol = BWD_TOL[torch.bfloat16]
+    for name, a, b, w in zip("qkv", sm90, simt, want):
+        for got, ref in ((a, w), (b, w), (a, b.float())):
+            err = float((got.float() - ref).abs().max())
+            assert err <= rtol * float(ref.abs().max()) + atol, (name, err)
+
+
+def test_flash_bwd_unaligned_dout_takes_simt(cuda_device):
+    """A dO view whose rows are not a multiple of 16 bytes (no TMA map takes
+    it) goes to the SIMT kernel as it is, with no copy, and gives the
+    gradients the aligned dO gives on the tensor-core route within the bf16
+    limit."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
+
+    q, k, v, do = _bwd_inputs((1, 8, 2, 150, 150, 128), torch.bfloat16, cuda_device, 3)
+    view = torch.empty(1, 8, 150, 132, dtype=torch.bfloat16, device=cuda_device)[..., :128]
+    view.copy_(do)
+    assert ops.bwd_route(q, k, v, do) == "sm90" and ops.bwd_route(q, k, v, view) == "simt"
+    out, lse = ops._forward(q, k, v, True, 128 ** -0.5, with_lse=True)
+    by_route = ops.launches_by_route(flash_attention_bwd)
+    got = flash_attention_bwd(q, k, v, out, lse, view, causal=True)
+    aligned = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert ops.launches_by_route(flash_attention_bwd) == {"sm90": by_route["sm90"] + 1,
+                                                          "simt": by_route["simt"] + 1}
+    rtol, atol = BWD_TOL[torch.bfloat16]
+    for a, b in zip(got, aligned):
+        assert float((a.float() - b.float()).abs().max()) <= \
+            rtol * float(b.float().abs().max()) + atol
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.bfloat16, 64),
@@ -1224,3 +1293,37 @@ def test_two_layer_train_step_on_card_matches_cpu(cuda_device):
     assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
     for g_cpu, g_gpu in zip(*grads):
         assert float((g_gpu - g_cpu).abs().max()) <= 1e-4 * float(g_cpu.abs().max()) + 1e-7
+
+
+def test_bf16_train_step_backward_goes_to_sm90(cuda_device):
+    """A reduced phi4-mini with 64-wide heads, bf16 compute, remat on: one
+    loss and backward on the card launches every attention backward on the
+    tensor-core route (autograd's dO and the model's transposed projections
+    take no copy), and every gradient is finite."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
+    from repro_torch.models import build
+    from repro_torch.train.trainstep import make_loss_fn
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("phi4-mini-3.8b").reduced(compute_dtype="bfloat16", n_layers=2, d_head=64,
+                                                remat=True)
+    model = build(cfg, device=cuda_device)
+    params = model.init(0)
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    batch = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=96, global_batch=2)).batch_at(0)
+    b = {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()}
+    fwd = ops.launches_by_route()
+    bwd = ops.launches_by_route(flash_attention_bwd)
+    loss, _ = make_loss_fn(model)(params, b)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert ops.launches_by_route() == {"sm90": fwd["sm90"] + 2 * cfg.n_layers,
+                                       "simt": fwd["simt"]}
+    assert ops.launches_by_route(flash_attention_bwd) == {"sm90": bwd["sm90"] + cfg.n_layers,
+                                                          "simt": bwd["simt"]}
+    assert bool(torch.isfinite(loss.detach()))
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in tree_leaves(params))
