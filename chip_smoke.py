@@ -132,8 +132,10 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              exact against ``modeled_concurrent_restore_s`` at conc 1 and
              4, the 8 linspace variants restored verified and bit-identical
              to images made again from the seed, I6, the locality drive over
-             the full trace (profiles extrapolated 16x to the bench's 256
-             MiB), then every variant deleted and every pool byte back;
+             the first half of the trace's 45 s (``FLEET_DRIVE_SHARE``, to
+             keep the smoke in its budget with the moe phase; profiles
+             extrapolated 16x to the bench's 256 MiB), then every
+             variant deleted and every pool byte back;
              (c) the 1.5 GiB image published with ``compress_cold=True``:
              without ``zstandard`` the uncompressed publish, with it a
              compressed one restored verified.  Launch counts exact in each
@@ -154,11 +156,12 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              but the wall clocks and the brownout's breaker rejections
              (which follow the wall clock); every criterion true; each wrapper's
              launches as ``BENCH_LAUNCHES`` says, flash attention's 0.  (b)
-             the fault bench's bare run and four sweeps, two restores each,
+             the fault bench's bare run and four sweeps, ``FAULT_RESTORES``
+             restore each (cut from two to keep the smoke in its budget),
              at the 1.5 GiB image through its own ``make_stack`` /
              ``run_sweep``: every restore bit-identical and every page
              verified, armed-but-empty ledgers equal to the bare ones,
-             retries, one repair a poisoned restore, both brownout restores
+             retries, one repair a poisoned restore, every brownout restore
              degraded within 15% of the all-cold model, every pool byte
              back; launches as ``fault_cell_launches`` says.  Prints each
              twin's wall and headline (capacity multiplier, p50s, recovery,
@@ -166,8 +169,10 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              memory.
 
 14. coldstart — Phi-4-mini 3.8B's serverless cold start from the pool at
-             full width and depth, float32 weights from the seed (17.8 GB,
-             ~4.35 M pages): reference tokens from the original parameters
+             full width, cut to ``COLDSTART_LAYERS`` of its 32 layers to keep
+             the smoke in its budget (at full depth 17.8 GB, ~4.35 M pages),
+             float32 weights from the seed: reference tokens from the
+             original parameters
              (4 prompts of 16 tokens, 8 new tokens); the working set from 16
              profiled invocations of the compression workload's shape (every
              array whole, the token table's Zipf(1.4) prompt rows only);
@@ -208,7 +213,35 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              at full width, 2 layers, float32 (relative error < 2e-3).  One
              prefill forward and four decode steps run under torch.profiler.
 
-16. train   — training on the card.  (a) The flash-attention backward on
+16. moe     — the MoE family.  The flash forward at its two full-width
+             prefill shapes, each on its asserted route, against its float32
+             plain version on the upcast inputs (the model phase's limits):
+             OLMoE's B=1, Hq=Hkv=16, S=4096, D=128 bf16 on the tensor-core
+             kernel, MLA's B=1, Hq=Hkv=128, S=4096, Dk=192, Dv=128 bf16 on the
+             SIMT kernel, each timed in turns with
+             ``scaled_dot_product_attention`` (which takes Dk != Dv too); the
+             SIMT backward with Dk != Dv (float32 and bf16, causal
+             and not, ragged, GQA, Dk < Dv, and MLA's shape at S=2048) against
+             autograd and its plain version within the train phase's limits,
+             two launches bit-equal, and its time beside the library's.  Cell
+             (10): OLMoE-1B-7B at full width and depth (6.92 B float32
+             parameters from the seed): one 4,096-token ``Model.forward``
+             (16 flash launches, all sm90), 4 requests of 128 + 32 tokens
+             through ``generate`` at capacity factor 1.25 (decode drops tokens
+             by design; its prefill and decode walls taken apart), a profiled
+             forward and four decode steps, and float32
+             decode against forward on 2 layers at the no-drop capacity
+             (< 2e-3).  Cell (11): DeepSeek-V3 at full width on 2 layers (one
+             dense, one MoE; bf16 parameters) with its MTP head: float32 decode
+             against forward at the no-drop capacity first (< 2e-3; that model
+             freed), one 4,096-token ``lm_forward_mtp`` (3 flash launches on
+             SIMT), 4 requests of 128 + 16 tokens with ``mla_absorb`` off and
+             on (tokens printed).  The recognition workload's image built on
+             the card, published with the fused sweep and restored
+             bit-identically, every page verified, its zero/hot/cold shares
+             equal to the CPU run's.  Launch counts exact for every path.
+
+17. train   — training on the card.  (a) The flash-attention backward on
              both routes (``flash_attention_bwd_sm90.cu``: TMA, wgmma;
              ``flash_attention_bwd.cu``: SIMT) against autograd through the
              float32 reference on the upcast inputs (float32 within 1e-4
@@ -288,10 +321,18 @@ COLDSTART_CONC = 32         # co-located restores in examples/serve_coldstart.py
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 16, 8   # the cold-started server's requests
 PREFILL_SEQ = 8192          # prefill_32k cut to one 8,192-token sequence
 TRAIN_SEQ = 4096            # train_4k's sequence length (configs/shapes.py)
+COLDSTART_LAYERS = 8        # the cold start's Phi-4-mini cut to 8 of 32 layers in the smoke
+FAULT_RESTORES = 1          # benches (b): restores a fault sweep in the smoke
 TRAIN_LAYERS = 3            # Phi-4-mini's 32 layers cut to 3: the checkpoint's peak is 4x the state
 TRAIN_STEPS = 6
 TRAIN_CKPT_STEP = 3
 FLEET_SCALE_X = 64          # fleet (b): pages a variant over the bench's full configuration
+FLEET_DRIVE_SHARE = 0.5     # fleet (b): the locality drive over this share of the trace's span
+MOE_SEQ = 4096              # OLMoE's context length: the MoE cells' one-sequence forward
+MOE_SERVE = (4, 128, 32)    # OLMoE serving: requests, prompt tokens, new tokens
+MLA_SERVE = (4, 128, 16)    # DeepSeek-V3 serving, with mla_absorb off and on
+MLA_BWD_SEQ = 2048          # the Dk != Dv backward's check at MLA's width
+DSV3_CUT = dict(n_layers=2, n_dense_layers=1, param_dtype="bfloat16")   # cell (11)'s cuts
 # the evaluation benches' twins (scripts/<name>.py), in the order the benches phase runs them
 BENCHES = ("dedup_bench", "fault_bench", "adaptive_bench", "concurrency_bench", "breakdown",
            "serving_bench")
@@ -1943,10 +1984,10 @@ def fleet_scale(torch, np, fb, device, seed: int) -> dict:
                              f"rdma {pool.rdma.bytes_in_use}")
     del pool, master
     torch.cuda.empty_cache()
-    # the locality policy over the full configuration's trace, the profiles
-    # extrapolated to the bench's hot bytes
+    # the locality policy over the first FLEET_DRIVE_SHARE of the full
+    # configuration's trace span, the profiles extrapolated to the bench's hot bytes
     x = c["target_hot"] / (hot * PAGE)
-    trace = generate_trace(fleet, c["t_end"], seed=fb.SEED)
+    trace = generate_trace(fleet, c["t_end"] * FLEET_DRIVE_SHARE, seed=fb.SEED)
     t0 = time.perf_counter()
     res = fb.drive(fleet, {k: p.scaled(x) for k, p in profiles.items()}, trace, "locality",
                    c["n_hosts"], c["slots"], c["max_hosts"])
@@ -2352,7 +2393,7 @@ def benches_phase(torch, np, image, working_set, out_dir: Path) -> dict:
     torch.cuda.empty_cache()
     rep["a_s"] = time.perf_counter() - t_phase
     t0 = time.perf_counter()
-    rep["b"] = fault_cell(torch, np, image, working_set)
+    rep["b"] = fault_cell(torch, np, image, working_set, FAULT_RESTORES)
     rep["b_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
@@ -2436,11 +2477,13 @@ def check_regenerated(torch, cfg, seed: int, device, restored: dict, where: str)
 
 
 def coldstart_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
-    """Serverless cold start of Phi-4-mini 3.8B from the pool (see the module
+    """Serverless cold start of Phi-4-mini 3.8B, at full width and
+    ``COLDSTART_LAYERS`` of its layers, from the pool (see the module
     docstring): reference tokens, publish through ``save_checkpoint``, the
     five modeled strategies, ``SkeletonPool`` claim, ``restore_server`` with
     the cold tail prefetched, serving, a profiled second restore, bit
     identity against parameters regenerated from the seed, delete and gc."""
+    import dataclasses
     import gc
     import threading
 
@@ -2458,7 +2501,8 @@ def coldstart_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
     from repro_torch.serve.coldstart import SkeletonPool, restore_server
     from repro_torch.serve.strategies import STRATEGIES, WorkloadSpec, run_strategy
 
-    cfg = get_config(MODEL_ARCH)
+    cfg = dataclasses.replace(get_config(MODEL_ARCH), n_layers=COLDSTART_LAYERS,
+                              name=f"{MODEL_ARCH}-{COLDSTART_LAYERS}l")
     table = "params/embed/table"
     counted = data_plane_wrappers()
     rep = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -3048,23 +3092,10 @@ def model_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
     # decode vs forward, full width, 2 layers, float32 compute (tests/test_models.py's bound)
     cfg2 = dataclasses.replace(cfg, name=f"{cfg.name}-2l-f32", n_layers=2,
                                compute_dtype="float32")
-    m2 = build(cfg2, device=device)
-    p2 = m2.init(seed + 1)
-    toks = torch.randint(0, cfg.vocab, (2, 16), generator=g, device=device)
-    full, _ = m2.forward(p2, {"tokens": toks})
-    caches = m2.init_caches(p2, 2, 16)
-    dec = []
-    for t in range(16):
-        lg, caches = m2.decode_step(p2, {"tokens": toks[:, t:t + 1], "pos": t}, caches)
-        dec.append(lg[:, 0])
-    rel2 = float((torch.stack(dec, 1) - full).abs().max() / full.abs().max())
+    rel2 = decode_vs_forward(torch, cfg2, seed + 1, device, g)
     rep["f32_decode_vs_forward_rel"] = rel2
-    if not rel2 < 2e-3:
-        raise AssertionError(f"f32 decode vs forward relative error {rel2} >= 2e-3")
     log(f"  full width, 2 layers, float32: decode vs forward relative max error {rel2:.3g} "
         "(< 2e-3)")
-    del p2, m2, full, dec, caches
-    torch.cuda.empty_cache()
     return rep
 
 
@@ -3072,59 +3103,48 @@ def model_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
 # train: the flash-attention backward, Phi-4-mini training, the quickstart twin
 # ----------------------------------------------------------------------------
 
-def flash_bwd_bound_ms(q, k, causal: bool):
-    """Least time for one backward: 5 products (S, dP, dV, dQ, dK) of 2*D
-    operations per (query, key) pair the mask keeps, at the peak rate for
-    the inputs' type, against q, k, v, O, dO and lse read and dq, dk, dv
-    written once at the memory rate."""
+def flash_bwd_bound_ms(q, k, v, causal: bool):
+    """Least time for one backward: 5 products per (query, key) pair the
+    mask keeps, of 2*Dk operations (S, dQ, dK) or 2*Dv (dP, dV), at the peak
+    rate for the inputs' type, against q, k, v, O, dO and lse read and dq,
+    dk, dv written once at the memory rate."""
     import torch
 
-    b, hq, sq, d = q.shape
-    skv = k.shape[2]
-    ops = 10 * d * flash_pairs(b, hq, sq, skv, causal)
+    b, hq, sq, dk = q.shape
+    skv, dv = k.shape[2], v.shape[3]
+    ops = (6 * dk + 4 * dv) * flash_pairs(b, hq, sq, skv, causal)
     rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    # q, O, dO read and dq written; k, v read and dk, dv written; lse read
-    nbytes = 4 * (q.numel() + k.numel()) * q.element_size() + b * hq * sq * 4
+    # q read and dq written, O and dO read; k, v read and dk, dv written; lse read
+    nbytes = (2 * (q.numel() + k.numel() + v.numel() + b * hq * sq * dv) * q.element_size()
+              + b * hq * sq * 4)
     t, by = bound_ms(nbytes, 0)
     if ops / rate * 1e3 > t:
         t, by = ops / rate * 1e3, "operations"
     return t, by, ops, nbytes
 
 
-def check_flash_bwd(torch, device, seed: int) -> dict:
-    """The flash-attention backward on the card, on both of its routes
-    (``ops.bwd_route``): each case's forward under autograd on its asserted
-    route, then the backward on its asserted route, against autograd through
-    the float32 ``attention_ref`` on the upcast inputs (float32 within
-    1e-4 max|want| + 1e-6, bf16 within 2^-6 max|want| + 1e-4, per gradient)
-    and against ``flash_attention_bwd_ref`` on the same saved output and
-    log-sum-exp; two launches bit-equal.  bf16 cases take the tensor-core
-    kernel; float32, and bf16 with a dO view whose rows are not a multiple of
-    16 bytes, the SIMT kernel.  At the training shape the library's bf16
-    backward (``scaled_dot_product_attention`` with K and V repeated to Hq)
-    is held to the same limit too, printed as a yardstick of what bf16
-    products give; then, in turns, the tensor-core kernel, the SIMT kernel on
-    the same inputs, the plain version and the library's backward, beside
-    the bound."""
-    import torch.nn.functional as F
+BWD_TOL = {"float32": (1e-4, 1e-6), "bfloat16": (2.0 ** -6, 1e-4)}
 
+
+def flash_bwd_cases(torch, g, cases, out: dict) -> None:
+    """Each case of ``cases`` (name, (B, Hq, Hkv, Sq, Skv, Dk, Dv), dtype,
+    causal, forward route, backward route, dO as a view whose rows no TMA
+    map takes): the forward under autograd and the backward, each on its
+    asserted route, against autograd through the float32 ``attention_ref``
+    on the upcast inputs and against ``flash_attention_bwd_ref`` on the same
+    saved output and log-sum-exp, within ``BWD_TOL`` per gradient; a second
+    launch bit-equal.  Rows go to ``out["cases"]``."""
     from repro_torch.kernels.flash_attention import (attention_ref, flash_attention_bwd,
                                                      flash_attention_bwd_ref)
     from repro_torch.kernels.flash_attention import ops as fops
 
-    g = torch.Generator(device=device)
-    g.manual_seed(seed + 23)
-    bf, f32 = torch.bfloat16, torch.float32
-    tol = {f32: (1e-4, 1e-6), bf: (2.0 ** -6, 1e-4)}
+    device = g.device
 
-    def inputs(b, hq, hkv, sq, skv, d, dtype):
-        return (torch.randn(b, hq, sq, d, generator=g, device=device).to(dtype),
-                torch.randn(b, hkv, skv, d, generator=g, device=device).to(dtype),
-                torch.randn(b, hkv, skv, d, generator=g, device=device).to(dtype),
-                torch.randn(b, hq, sq, d, generator=g, device=device).to(dtype))
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=g, device=device).to(dtype)
 
     def share(got, want, dtype):
-        rtol, atol = tol[dtype]
+        rtol, atol = BWD_TOL[str(dtype).split(".")[-1]]
         err = float((got.float() - want.float()).abs().max())
         return err, err / (rtol * float(want.float().abs().max()) + atol)
 
@@ -3134,32 +3154,13 @@ def check_flash_bwd(torch, device, seed: int) -> dict:
         view = torch.empty(*t.shape[:3], t.shape[3] + 4, dtype=t.dtype, device=t.device)
         return view[..., :t.shape[3]].copy_(t)
 
-    def simt(q, k, v, o, lse, do, causal=True):
-        """The SIMT kernel through its binding (uncounted: timing only)."""
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        delta = torch.empty(q.shape[:3], dtype=f32, device=q.device)
-        fops.kernel.flash_attention_bwd(q, k, v, o, do, lse, delta, dq, dk, dv,
-                                        q.shape[3] ** -0.5, causal)
-        return dq, dk, dv
-
-    path = (1, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 128)
-    # name, shape, dtype, causal, forward route, backward route, dO as an unaligned view
-    cases = [("training shape bf16", path, bf, True, "sm90", "sm90", False),
-             ("training shape bf16, dO rows of 264 bytes", path, bf, True, "sm90", "simt", True),
-             ("training shape f32", path, f32, True, "simt", "simt", False),
-             ("D=64", (1, 24, 8, 2048, 2048, 64), bf, True, "sm90", "sm90", False),
-             ("S=1000, not a multiple of the tile", (1, 24, 8, 1000, 1000, 128), bf, True,
-              "sm90", "sm90", False),
-             ("ragged Sq=700<Skv=1100", (1, 24, 8, 700, 1100, 128), bf, True, "sm90", "sm90",
-              False),
-             ("non-causal", (1, 24, 8, 1000, 1000, 128), bf, False, "sm90", "sm90", False),
-             ("MHA", (1, 8, 8, 1024, 1024, 128), bf, True, "sm90", "sm90", False)]
-    out = {"cases": [], "tolerance": {"float32": tol[f32], "bfloat16": tol[bf]}}
     for name, shape, dtype, causal, want_route, want_bwd, view in cases:
-        q, k, v, do = inputs(*shape, dtype)
+        b, hq, hkv, sq, skv, dk, dv = shape
+        q, k = randn(b, hq, sq, dk, dtype=dtype), randn(b, hkv, skv, dk, dtype=dtype)
+        v, do = randn(b, hkv, skv, dv, dtype=dtype), randn(b, hq, sq, dv, dtype=dtype)
         if view:
             do = unaligned(do)
-        scale = shape[5] ** -0.5
+        scale = dk ** -0.5
         qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
         before = fops.launches_by_route()
         o = fops.flash_attention(qg, kg, vg, causal=causal)
@@ -3203,29 +3204,77 @@ def check_flash_bwd(torch, device, seed: int) -> dict:
             + ", ".join(f"{k} {r['max_abs_err']:.3g} ({r['share_of_limit']:.3f} of the limit; "
                         f"plain {r['vs_plain_share']:.3f})" for k, r in row["grads"].items())
             + "; two launches bit-equal")
-        if name == "training shape bf16":
+        if name == out.get("library_case"):
             # the library's bf16 backward on the same inputs, held to the same limit
             group = q.shape[1] // k.shape[1]
             ql = q.clone().requires_grad_(True)
             kl = k.repeat_interleave(group, 1).requires_grad_(True)
             vl = v.repeat_interleave(group, 1).requires_grad_(True)
-            lib = torch.autograd.grad(F.scaled_dot_product_attention(ql, kl, vl, is_causal=True),
-                                      (ql, kl, vl), do)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = torch.autograd.grad(sdpa(ql, kl, vl, is_causal=True), (ql, kl, vl), do)
             lib = (lib[0], *(x.float().unflatten(1, (k.shape[1], group)).sum(2)
                              for x in lib[1:]))
-            out["library_share_of_limit"] = {gname: share(x, w, bf)[1]
+            out["library_share_of_limit"] = {gname: share(x, w, dtype)[1]
                                              for gname, x, w in zip(("dq", "dk", "dv"), lib,
                                                                     want)}
-            log("  library backward (scaled_dot_product_attention, bf16) at the training "
-                "shape: " + ", ".join(f"{k} {v:.3f}" for k, v in
-                                      out["library_share_of_limit"].items())
+            log(f"  library backward (scaled_dot_product_attention, {dtype}) at {name}: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in out["library_share_of_limit"].items())
                 + " of the limit (dK, dV summed over each group in float32)")
             del ql, kl, vl, lib
         del q, k, v, do, qg, kg, vg, o, got, again, plain, want, qf, kf, vf, lse, o_saved
     torch.cuda.empty_cache()
 
+
+def check_flash_bwd(torch, device, seed: int) -> dict:
+    """The flash-attention backward on the card, on both of its routes
+    (``ops.bwd_route``), case by case through ``flash_bwd_cases``: bf16 cases
+    take the tensor-core kernel; float32, and bf16 with a dO view whose rows
+    are not a multiple of 16 bytes, the SIMT kernel.  At the training shape
+    the library's bf16 backward (``scaled_dot_product_attention`` with K and
+    V repeated to Hq) is held to the same limit too, printed as a yardstick
+    of what bf16 products give; then, in turns, the tensor-core kernel, the
+    SIMT kernel on the same inputs, the plain version and the library's
+    backward, beside the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 23)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def inputs(b, hq, hkv, sq, skv, d, dtype):
+        return (torch.randn(b, hq, sq, d, generator=g, device=device).to(dtype),
+                torch.randn(b, hkv, skv, d, generator=g, device=device).to(dtype),
+                torch.randn(b, hkv, skv, d, generator=g, device=device).to(dtype),
+                torch.randn(b, hq, sq, d, generator=g, device=device).to(dtype))
+
+    def simt(q, k, v, o, lse, do, causal=True):
+        """The SIMT kernel through its binding (uncounted: timing only)."""
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty(q.shape[:3], dtype=f32, device=q.device)
+        fops.kernel.flash_attention_bwd(q, k, v, o, do, lse, delta, dq, dk, dv,
+                                        q.shape[3] ** -0.5, causal)
+        return dq, dk, dv
+
+    path = (1, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 128, 128)
+    # name, shape, dtype, causal, forward route, backward route, dO as an unaligned view
+    cases = [("training shape bf16", path, bf, True, "sm90", "sm90", False),
+             ("training shape bf16, dO rows of 264 bytes", path, bf, True, "sm90", "simt", True),
+             ("training shape f32", path, f32, True, "simt", "simt", False),
+             ("D=64", (1, 24, 8, 2048, 2048, 64, 64), bf, True, "sm90", "sm90", False),
+             ("S=1000, not a multiple of the tile", (1, 24, 8, 1000, 1000, 128, 128), bf, True,
+              "sm90", "sm90", False),
+             ("ragged Sq=700<Skv=1100", (1, 24, 8, 700, 1100, 128, 128), bf, True, "sm90",
+              "sm90", False),
+             ("non-causal", (1, 24, 8, 1000, 1000, 128, 128), bf, False, "sm90", "sm90", False),
+             ("MHA", (1, 8, 8, 1024, 1024, 128, 128), bf, True, "sm90", "sm90", False)]
+    out = {"cases": [], "tolerance": BWD_TOL, "library_case": "training shape bf16"}
+    flash_bwd_cases(torch, g, cases, out)
+
     # at the training shape, in turns: tensor-core kernel, SIMT kernel, plain, library
-    q, k, v, do = inputs(*path, bf)
+    q, k, v, do = inputs(*path[:6], bf)
     o, lse = fops._forward(q, k, v, True, 128 ** -0.5, with_lse=True)
     group = q.shape[1] // k.shape[1]
     ql = q.clone().requires_grad_(True)
@@ -3247,7 +3296,7 @@ def check_flash_bwd(torch, device, seed: int) -> dict:
     flash_attention_bwd.launches = nb[0]        # timing launches are not the path's
     for r, n in nb[1].items():
         setattr(flash_attention_bwd, f"launches_{r}", n)
-    bound, by, ops, nbytes = flash_bwd_bound_ms(q, k, True)
+    bound, by, ops, nbytes = flash_bwd_bound_ms(q, k, v, True)
     out["timing"] = {"shape": f"B=1 Hq=24 Hkv=8 S={TRAIN_SEQ} D=128 causal bf16",
                      "turns_ms": turns, "order": ", ".join(order),
                      "ms": sum(turns["sm90"]) / 2, "simt_ms": sum(turns["simt"]) / 2,
@@ -3574,6 +3623,497 @@ def train_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
     return rep
 
 
+# ----------------------------------------------------------------------------
+# moe: OLMoE-1B-7B and DeepSeek-V3 (MLA, MoE, MTP) at full width
+# ----------------------------------------------------------------------------
+
+def check_flash_moe(torch, device, seed: int) -> dict:
+    """The flash forward at the MoE family's two full-width prefill shapes,
+    each on its asserted route, against its float32 plain version on the
+    upcast inputs (the model phase's limits: bf16 within one rounding,
+    2^-8|want| + 1e-4); then the kernel, its plain version and
+    ``scaled_dot_product_attention`` timed in turns, beside the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import chunked_attention_ref
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 41)
+    bf = torch.bfloat16
+    rtol, atol = 2.0 ** -8, 1e-4
+    out = {"tolerance": {"bfloat16": {"rtol": rtol, "atol": atol}}, "shapes": {}}
+    # name -> (B, Hq, Hkv, S, Dk, Dv), route; the float32 plain version is the
+    # chunked one (attention_ref's (128, 4096, 4096) float32 score matrices at
+    # MLA's shape would take ~34 GB)
+    for name, (b, hq, hkv, s, dk, dv), want_route in (
+            ("olmoe", (1, 16, 16, MOE_SEQ, 128, 128), "sm90"),
+            ("mla", (1, 128, 128, MOE_SEQ, 192, 128), "simt")):
+        q = torch.randn(b, hq, s, dk, generator=g, device=device).to(bf)
+        k = torch.randn(b, hkv, s, dk, generator=g, device=device).to(bf)
+        v = torch.randn(b, hkv, s, dv, generator=g, device=device).to(bf)
+        before = fops.launches_by_route()
+        got = flash_attention(q, k, v, causal=True)
+        took = [r for r, n in fops.launches_by_route().items() if n != before[r]]
+        if fops.route(q, k, v) != want_route or took != [want_route]:
+            raise AssertionError(f"flash_attention ({name}) took route {took}, want {want_route}")
+        want = chunked_attention_ref(q.float(), k.float(), v.float(), causal=True)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        share = float((err / (atol + rtol * want.abs())).max())
+        max_err = float(err.max())
+        if got.dtype != bf or got.shape != want.shape or share > 1:
+            raise AssertionError(f"flash_attention ({name}) differs from its float32 plain "
+                                 f"version: max_abs_err {max_err}, {share:.3f} of the limit")
+        del got, want, err
+
+        def kernel():
+            return flash_attention(q, k, v, causal=True)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        fns = {"kernel": kernel, "library": library}
+        counts = (flash_attention.launches, fops.launches_by_route())
+        order = ("kernel", "library", "library", "kernel")
+        iters = 20 if name == "olmoe" else 5
+        turns = {n: [] for n in fns}
+        for n in order:
+            turns[n].append(cuda_ms(fns[n], iters=iters))
+        flash_attention.launches = counts[0]           # timing launches are not a path's
+        for r, n in counts[1].items():
+            setattr(flash_attention, f"launches_{r}", n)
+        bound, by, ops, nbytes = flash_bound_ms(q, k, v, True)
+        row = {"shape": f"B={b} Hq={hq} Hkv={hkv} S={s} Dk={dk} Dv={dv} causal bf16",
+               "route": want_route, "max_abs_err": max_err, "share_of_limit": share,
+               "turns_ms": turns, "order": ", ".join(order),
+               "ms": sum(turns["kernel"]) / 2, "library_ms": sum(turns["library"]) / 2,
+               "library": "F.scaled_dot_product_attention(is_causal=True)",
+               "plain_ms": cuda_ms(lambda: chunked_attention_ref(q, k, v), iters=2, warmup=1),
+               "plain": "chunked_attention_ref (block_k=512)",
+               "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes}
+        out["shapes"][name] = row
+        log(f"  flash_attention {name} {row['shape']} route {want_route}: {share:.3f} of the "
+            f"limit; {row['ms']:.4f} ms ({', '.join(f'{t:.4f}' for t in turns['kernel'])}); "
+            f"library {row['library_ms']:.4f} ms; plain chunked {row['plain_ms']:.3f} ms; bound "
+            f"{bound:.4f} ms by {by}: {ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB")
+        del q, k, v, fns
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_flash_bwd_mla(torch, device, seed: int) -> dict:
+    """The SIMT backward with Dk != Dv (MLA: Dk = 192, Dv = 128; and Dk < Dv)
+    through ``flash_bwd_cases`` (float32 and bf16, causal and not, ragged,
+    GQA, the MLA shape at S = ``MLA_BWD_SEQ``; two launches bit-equal), then
+    at the MLA shape in bf16 the kernel, its plain version and the library's
+    backward in turns, beside the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 43)
+    bf, f32 = torch.bfloat16, torch.float32
+    mla = (1, 128, 128, MLA_BWD_SEQ, MLA_BWD_SEQ, 192, 128)
+    cases = [("MLA shape bf16", mla, bf, True, "simt", "simt", False),
+             ("MLA shape f32", mla, f32, True, "simt", "simt", False),
+             ("Dk=192 Dv=128 non-causal", (2, 4, 4, 150, 300, 192, 128), bf, False, "simt",
+              "simt", False),
+             ("Dk=192 Dv=128 non-causal f32", (1, 4, 4, 96, 96, 192, 128), f32, False, "simt",
+              "simt", False),
+             ("Dk=192 Dv=128 GQA ragged Sq=100<Skv=333", (1, 8, 2, 100, 333, 192, 128), f32,
+              True, "simt", "simt", False),
+             ("Dk=64 < Dv=128", (1, 4, 2, 130, 130, 64, 128), f32, True, "simt", "simt", False)]
+    out = {"cases": [], "tolerance": BWD_TOL}
+    flash_bwd_cases(torch, g, cases, out)
+
+    b, hq, hkv, s, _, dk, dv = mla
+    q = torch.randn(b, hq, s, dk, generator=g, device=device).to(bf)
+    k = torch.randn(b, hkv, s, dk, generator=g, device=device).to(bf)
+    v = torch.randn(b, hkv, s, dv, generator=g, device=device).to(bf)
+    do = torch.randn(b, hq, s, dv, generator=g, device=device).to(bf)
+    o, lse = fops._forward(q, k, v, True, dk ** -0.5, with_lse=True)
+    if fops.bwd_route(q, k, v, do) != "simt":
+        raise AssertionError("flash backward: the MLA shape does not take the SIMT route")
+    fns = {"simt": lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+           "plain": lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)}
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    fns["library"] = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
+    nb = (flash_attention_bwd.launches, fops.launches_by_route(flash_attention_bwd))
+    order = ("simt", "plain", "library", "library", "plain", "simt")
+    turns = {n: [] for n in fns}
+    for n in order:
+        turns[n].append(cuda_ms(fns[n], iters=2, warmup=1))
+    flash_attention_bwd.launches = nb[0]        # timing launches are not a path's
+    for r, n in nb[1].items():
+        setattr(flash_attention_bwd, f"launches_{r}", n)
+    bound, by, ops, nbytes = flash_bwd_bound_ms(q, k, v, True)
+    out["timing"] = {"shape": f"B=1 Hq=Hkv=128 S={s} Dk=192 Dv=128 causal bf16",
+                     "turns_ms": turns, "order": ", ".join(order),
+                     "ms": sum(turns["simt"]) / 2, "plain_ms": sum(turns["plain"]) / 2,
+                     "library_ms": sum(turns["library"]) / 2,
+                     "plain": "flash_attention_bwd_ref (block_k=512)",
+                     "library": "torch.autograd.grad through F.scaled_dot_product_attention("
+                                "is_causal=True), its backward alone",
+                     "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes}
+    out["max_abs_err"] = max(c["max_abs_err"] for c in out["cases"])
+    r = out["timing"]
+    log(f"  flash backward at {r['shape']}: simt {r['ms']:.3f} ms "
+        f"({', '.join(f'{t:.3f}' for t in turns['simt'])}); plain {r['plain_ms']:.3f} ms; "
+        f"library backward {r['library_ms']:.4f} ms; bound {bound:.4f} ms by {by}: "
+        f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB")
+    del q, k, v, do, o, lse, ql, kl, vl, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_vs_forward(torch, cfg, seed: int, device, g) -> float:
+    """Relative max error of 16 decode steps against the forward's logits,
+    2 sequences, on ``cfg`` (float32 compute): tests/test_models.py's parity."""
+    from repro_torch.models import build
+
+    model = build(cfg, device=device)
+    params = model.init(seed)
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=g, device=device)
+    full, _ = model.forward(params, {"tokens": toks})
+    caches = model.init_caches(params, 2, 16)
+    dec = []
+    for t in range(16):
+        lg, caches = model.decode_step(params, {"tokens": toks[:, t:t + 1], "pos": t}, caches)
+        dec.append(lg[:, 0])
+    rel = float((torch.stack(dec, 1) - full).abs().max() / full.abs().max())
+    del params, model, full, dec, caches
+    torch.cuda.empty_cache()
+    if not rel < 2e-3:
+        raise AssertionError(f"{cfg.name}: float32 decode vs forward relative error {rel} >= 2e-3")
+    return rel
+
+
+def _want_flash(where: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{where}: flash_attention launched {got}, want {want}")
+
+
+def olmoe_cell(torch, np, seed: int, device, out_dir: Path) -> dict:
+    """Cell (10): OLMoE-1B-7B at full width and depth from seeded random
+    weights: one ``MOE_SEQ``-token ``Model.forward`` (16 flash launches, all
+    on the tensor-core route), ``MOE_SERVE`` requests through
+    ``ServerInstance.generate`` at the reference's capacity factor, prefill
+    and decode timed apart, a profiled forward and four decode steps; then
+    float32 decode against forward on 2 layers at the no-drop capacity."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import build
+    from repro_torch.serve import new_instance
+
+    cfg = get_config("olmoe-1b-7b")
+    rep = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_experts": cfg.n_experts, "top_k": cfg.top_k, "param_count": cfg.param_count(),
+           "capacity_factor": cfg.capacity_factor, "reduced": []}
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 47)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, device=device)
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    rep["init_s"] = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab, (1, MOE_SEQ), generator=g, device=device)
+    fwd_s = []
+    for i in range(2):
+        fops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, aux = model.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - t0)
+        if i == 0:
+            rep["launches_by_route"] = fops.launches_by_route()
+            _want_flash("OLMoE forward", rep["launches_by_route"],
+                        {"sm90": cfg.n_layers, "simt": 0})
+        if (logits.shape != (1, MOE_SEQ, cfg.padded_vocab) or logits.dtype != torch.float32
+                or not bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+                or not bool(torch.isfinite(aux)) or float(aux) <= 0):
+            raise AssertionError(f"OLMoE forward: logits {tuple(logits.shape)} {logits.dtype}, "
+                                 f"aux {float(aux)}: not finite / of the expected shape")
+        rep["aux"] = float(aux)
+        del logits
+    rep["forward_s"] = fwd_s
+    rep["forward_tokens_per_s"] = MOE_SEQ / min(fwd_s)
+    rep["forward_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  OLMoE-1B-7B: {cfg.param_count():,} float32 parameters, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k} (init "
+        f"{rep['init_s']:.2f} s); Model.forward of {MOE_SEQ} tokens: {fwd_s[0]:.3f} s cold, "
+        f"{fwd_s[1]:.3f} s warm ({rep['forward_tokens_per_s']:.0f} tokens/s); flash_attention "
+        f"{rep['launches_by_route']}; aux {rep['aux']:.4f}; logits finite; peak device memory "
+        f"{rep['forward_peak_mem_bytes'] / 2**30:.3f} GiB")
+    rep["profile_prefill"] = profile_model(
+        torch, lambda: model.forward(params, {"tokens": tokens}), "olmoe_prefill", out_dir)
+
+    batch, prompt_len, n_new = MOE_SERVE
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g, device=device)
+    fops.reset_launches()
+    inst = new_instance(cfg, params, batch=batch, max_len=prompt_len + n_new, device=device)
+    prefill, walls = inst.prefill, {}
+
+    def timed_prefill(tokens):          # generate's own prefill, its wall taken apart
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(tokens)
+        torch.cuda.synchronize()
+        walls["prefill_s"] = time.perf_counter() - t0
+        return out
+
+    inst.prefill = timed_prefill
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    answer = inst.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if answer.shape != (batch, n_new) or inst.pos != prompt_len + n_new:
+        raise AssertionError(f"OLMoE generate gave {answer.shape} at pos {inst.pos}")
+    _want_flash("OLMoE serving", fops.launches_by_route(), {"sm90": 0, "simt": 0})
+    # the wrapper and the instance refer to each other: a cycle that would keep the
+    # instance's 12.9 GiB bf16 parameters alive until the cyclic collector runs
+    del inst.prefill, prefill
+    prefill_s = walls["prefill_s"]
+    decode_s = gen_s - prefill_s
+    rep["serve"] = {"batch": batch, "prompt_len": prompt_len, "new_tokens": n_new,
+                    "generate_s": gen_s, "prefill_s": prefill_s, "decode_s": decode_s,
+                    "decode_tokens_per_s": batch * n_new / decode_s,
+                    "prefill_tokens_per_s": batch * prompt_len / prefill_s,
+                    "answer_first_tokens": answer[:, :4].tolist()}
+    log(f"  OLMoE serve: {batch} requests x {prompt_len}-token prompts, {n_new} new tokens "
+        f"each at capacity factor {cfg.capacity_factor} through generate: {gen_s:.3f} s; its "
+        f"prefill {prefill_s:.3f} s ({rep['serve']['prefill_tokens_per_s']:.1f} tokens/s, one "
+        f"decode step a prompt token), its decode {decode_s:.3f} s "
+        f"({rep['serve']['decode_tokens_per_s']:.1f} tokens/s); no flash launch; first tokens "
+        f"{answer[:, :4].tolist()}")
+    del inst
+    inst = new_instance(cfg, params, batch=batch, max_len=8, device=device)
+    tok = prompts[:, :1].to(torch.int32)
+    for _ in range(2):
+        inst.decode(tok)
+
+    def four_steps():
+        for _ in range(4):
+            inst.decode(tok)
+    rep["profile_decode"] = profile_model(torch, four_steps, "olmoe_decode", out_dir)
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del inst, params, model
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, name=f"{cfg.name}-2l-f32", n_layers=2,
+                               compute_dtype="float32",
+                               capacity_factor=float(cfg.n_experts) / cfg.top_k)
+    fops.reset_launches()
+    rep["f32_decode_vs_forward_rel"] = decode_vs_forward(torch, cfg2, seed + 1, device, g)
+    _want_flash("OLMoE float32 parity", fops.launches_by_route(), {"sm90": 0, "simt": 2})
+    log(f"  OLMoE full width, 2 layers ({cfg2.param_count():,} parameters), float32, "
+        f"capacity factor {cfg2.capacity_factor}: decode vs forward relative max error "
+        f"{rep['f32_decode_vs_forward_rel']:.3g} (< 2e-3)")
+    return rep
+
+
+def deepseek_cell(torch, np, seed: int, device, out_dir: Path) -> dict:
+    """Cell (11): DeepSeek-V3 at full width on two layers (one dense, one
+    MoE) with its MTP head: float32 decode against forward at the no-drop
+    capacity first (the float32 model freed before the next), then the bf16
+    model (``param_dtype`` cut to bf16): one ``MOE_SEQ``-token
+    ``lm_forward_mtp`` (3 flash launches on the SIMT route: the trunk's two
+    layers and the MTP block) and ``MLA_SERVE`` requests through the engine
+    with ``mla_absorb`` off and on (tokens printed, not asserted)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import build
+    from repro_torch.models.transformer import lm_forward_mtp
+    from repro_torch.serve import new_instance
+
+    full = get_config("deepseek-v3-671b")
+    reduced = [f"depth {full.n_layers} -> {DSV3_CUT['n_layers']} "
+               f"(dense layers {full.n_dense_layers} -> {DSV3_CUT['n_dense_layers']})",
+               "param_dtype float32 -> bfloat16 (one MoE layer is 11.3 B parameters)"]
+    cfg = dataclasses.replace(full, name=f"{full.name}-2l", **DSV3_CUT)
+    rep = {"arch": full.name, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "n_experts": cfg.n_experts, "top_k": cfg.top_k, "n_layers": cfg.n_layers,
+           "n_dense_layers": cfg.n_dense_layers, "param_count": cfg.param_count(),
+           "reduced": reduced}
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 53)
+
+    cfg32 = dataclasses.replace(cfg, name=f"{cfg.name}-f32", param_dtype="float32",
+                                compute_dtype="float32",
+                                capacity_factor=float(cfg.n_experts) / cfg.top_k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fops.reset_launches()
+    t0 = time.perf_counter()
+    rep["f32_decode_vs_forward_rel"] = decode_vs_forward(torch, cfg32, seed + 1, device, g)
+    _want_flash("DeepSeek-V3 float32 parity", fops.launches_by_route(), {"sm90": 0, "simt": 2})
+    rep["f32_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  DeepSeek-V3 full width, 2 layers, float32 ({cfg32.param_count():,} parameters and "
+        f"the MTP module), capacity factor {cfg32.capacity_factor}: decode vs forward relative "
+        f"max error {rep['f32_decode_vs_forward_rel']:.3g} (< 2e-3); peak "
+        f"{rep['f32_peak_mem_bytes'] / 2**30:.3f} GiB; {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, device=device)
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    rep["init_s"] = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab, (1, MOE_SEQ), generator=g, device=device)
+    fwd_s = []
+    for i in range(2):
+        fops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, mtp_logits, aux = lm_forward_mtp(params, tokens, cfg)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - t0)
+        if i == 0:
+            rep["launches_by_route"] = fops.launches_by_route()
+            _want_flash("DeepSeek-V3 lm_forward_mtp", rep["launches_by_route"],
+                        {"sm90": 0, "simt": cfg.n_layers + 1})
+        want = (1, MOE_SEQ, cfg.padded_vocab)
+        if (logits.shape != want or mtp_logits.shape != want
+                or not bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+                or not bool(torch.isfinite(mtp_logits[..., :cfg.vocab]).all())
+                or not bool(torch.isfinite(aux)) or float(aux) <= 0):
+            raise AssertionError(f"DeepSeek-V3 lm_forward_mtp: {tuple(logits.shape)}, "
+                                 f"{tuple(mtp_logits.shape)}, aux {float(aux)}: not finite / "
+                                 "of the expected shape")
+        rep["aux"] = float(aux)
+        del logits, mtp_logits
+    rep["forward_s"] = fwd_s
+    rep["forward_tokens_per_s"] = MOE_SEQ / min(fwd_s)
+    rep["forward_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  DeepSeek-V3 {cfg.n_layers} layers ({cfg.param_count():,} bf16 parameters by "
+        f"param_count, and the MTP module; init {rep['init_s']:.2f} s): lm_forward_mtp of "
+        f"{MOE_SEQ} tokens {fwd_s[0]:.3f} s cold, {fwd_s[1]:.3f} s warm; flash_attention "
+        f"{rep['launches_by_route']}; aux {rep['aux']:.4f}; logits and MTP logits finite; peak "
+        f"{rep['forward_peak_mem_bytes'] / 2**30:.3f} GiB; cut: " + "; ".join(reduced))
+
+    batch, prompt_len, n_new = MLA_SERVE
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g, device=device)
+    rep["serve"] = {}
+    answers = {}
+    fops.reset_launches()
+    for absorb in (False, True):
+        c = dataclasses.replace(cfg, mla_absorb=absorb)
+        inst = new_instance(c, params, batch=batch, max_len=prompt_len + n_new, device=device)
+        toks, _pre, _last, prefill_s, decode_s = serve_timed(torch, np, inst, prompts, n_new)
+        if toks.shape != (batch, n_new) or inst.pos != prompt_len + n_new:
+            raise AssertionError(f"DeepSeek-V3 serving gave {toks.shape} at pos {inst.pos}")
+        key = "absorbed" if absorb else "re-expanded"
+        answers[key] = toks
+        rep["serve"][key] = {"prefill_s": prefill_s, "decode_s": decode_s,
+                             "decode_tokens_per_s": batch * n_new / decode_s,
+                             "tokens": toks.tolist()}
+        log(f"  DeepSeek-V3 serve ({key} MLA decode): {batch} x {prompt_len}-token prompts, "
+            f"{n_new} new tokens: prefill {prefill_s:.3f} s, decode {decode_s:.3f} s "
+            f"({batch * n_new / decode_s:.1f} tokens/s); first tokens {toks[:, :6].tolist()}")
+        del inst
+    _want_flash("DeepSeek-V3 serving", fops.launches_by_route(), {"sm90": 0, "simt": 0})
+    agree = float((answers["absorbed"] == answers["re-expanded"]).mean())
+    rep["serve"]["token_agreement"] = agree
+    rep["peak_mem_bytes"] = max(rep["f32_peak_mem_bytes"], torch.cuda.max_memory_allocated())
+    log(f"  DeepSeek-V3: absorbed and re-expanded decodes agree on {agree:.3f} of the tokens "
+        f"(printed, not asserted); peak {rep['peak_mem_bytes'] / 2**30:.3f} GiB")
+    del params, model
+    torch.cuda.empty_cache()
+    return rep
+
+
+def recognition_cell(torch, np, seed: int, device) -> dict:
+    """The recognition workload (DeepSeek-V3 reduced; an invocation touches
+    only its routed experts' pages) built on the card, published with the
+    fused sweep and restored: bit-identical, every page verified, launches
+    exact; its zero/hot/cold shares equal to the CPU run's."""
+    import workloads
+
+    from repro_torch.core import HierarchicalPool, build_snapshot, free_snapshot
+    from repro_torch.kernels.snapshot_fuse import ops
+
+    def shares(w):
+        zero = w.image.zero_page_bitmap()
+        hot = np.zeros(zero.size, bool)
+        hot[w.profile.working_set] = True
+        return {"zero": float(zero.mean()), "hot": float((hot & ~zero).mean()),
+                "cold": float((~hot & ~zero).mean()), "pages": int(zero.size)}
+
+    t0 = time.perf_counter()
+    w = workloads.build_workload("recognition", seed=seed, device=device)
+    cpu = workloads.build_workload("recognition", seed=seed, device="cpu")
+    rep = {"build_s": time.perf_counter() - t0, "shares": shares(w), "cpu_shares": shares(cpu)}
+    if rep["shares"] != rep["cpu_shares"] or not np.array_equal(
+            w.profile.working_set, cpu.profile.working_set):
+        raise AssertionError(f"recognition: the card's image classes {rep['shares']} differ "
+                             f"from the CPU run's {rep['cpu_shares']}")
+    del cpu
+    counted = data_plane_wrappers()     # the shares' zero scan above is a check, not the path
+    for k in counted.values():
+        k.launches = 0
+    n = w.image.manifest.total_pages
+    pool = HierarchicalPool(cxl_capacity=(n + 64) * PAGE, rdma_capacity=(n + 64) * PAGE,
+                            device=device)
+    regions = build_snapshot(pool, w.image, w.profile.working_set, "recognition",
+                             publish_fn=ops.make_fused_publish_fn())
+    r = restore_once(torch, pool, regions, w.image.buf, w.image.manifest, ops.FusedScatter())
+    check_routes("recognition restore", r["walk_routes"])
+    launches = {n: k.launches for n, k in counted.items()}
+    want = {"fused_publish": 1, "fused_restore": 2 * r["walk_routes"]["batched"],
+            "zero_detect": 0, "page_checksum": 0, "page_gather": 0, "page_scatter": 0}
+    if launches != want:
+        raise AssertionError(f"recognition: launches {launches}, want {want}")
+    free_snapshot(pool, regions)
+    rep.update(launches=launches, restore_s=r["restore_s"], pages_verified=r["pages_verified"],
+               n_hot=regions.n_hot, n_cold=regions.n_cold, n_zero=regions.n_zero)
+    s, c = rep["shares"], rep["cpu_shares"]
+    log(f"  recognition workload ({s['pages']} pages): zero {s['zero']:.4f} hot {s['hot']:.4f} "
+        f"cold {s['cold']:.4f} on the card, {c['zero']:.4f} / {c['hot']:.4f} / "
+        f"{c['cold']:.4f} on the CPU (equal); fused publish and restore "
+        f"{r['restore_s'] * 1e3:.2f} ms: bit-identical, pages verified {r['pages_verified']}; "
+        f"launches {launches}")
+    return rep
+
+
+def moe_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
+    """The MoE family on the card (see the module docstring): the flash
+    forward at both full-width shapes and the Dk != Dv backward, cell (10)
+    OLMoE-1B-7B, cell (11) DeepSeek-V3 on two layers, and the recognition
+    workload's image, each with its launch counts reset just before it."""
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 means float32 here
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    rep = {"flash": check_flash_moe(torch, device, seed),
+           "backward": check_flash_bwd_mla(torch, device, seed)}
+    rep["kernel_checks_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep["olmoe"] = olmoe_cell(torch, np, seed, device, out_dir)
+    rep["olmoe"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep["deepseek"] = deepseek_cell(torch, np, seed, device, out_dir)
+    rep["deepseek"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep["recognition"] = recognition_cell(torch, np, seed, device)
+    rep["recognition"]["wall_s"] = time.perf_counter() - t0
+    log(f"  moe walls: kernel checks {rep['kernel_checks_s']:.2f} s, OLMoE "
+        f"{rep['olmoe']['wall_s']:.2f} s, DeepSeek-V3 {rep['deepseek']['wall_s']:.2f} s, "
+        f"recognition {rep['recognition']['wall_s']:.2f} s")
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3843,7 +4383,14 @@ def main() -> int:
     report["model"] = model_phase(torch, np, args.seed, device, out.parent)
     phase_done("model")
 
-    # 16. training: the attention backward's checks and timings, Phi-4-mini's
+    # 16. the MoE family: the flash kernels at its shapes, OLMoE-1B-7B served at
+    # full width and depth, DeepSeek-V3 on two layers, the recognition image
+    # (counts reset inside just before each path)
+    log("moe:")
+    report["moe"] = moe_phase(torch, np, args.seed, device, out.parent)
+    phase_done("moe")
+
+    # 17. training: the attention backward's checks and timings, Phi-4-mini's
     # train steps, checkpoint, crash and resume, the quickstart twin (counts
     # reset inside just before each path)
     log("train:")
@@ -3926,17 +4473,28 @@ def main() -> int:
                 "walk_bound_ms": r["walk_bound_ms"]})})
     r = report["flash"]["timing"]
     by_route = report["model"]["launches_by_route"]
+    moe = report["moe"]
+
+    def at_shape(t):
+        return {k: t[k] for k in ("shape", "route", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms") if k in t}
+
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SRC["sm90"],
         "replaces": FLASH_TPU, "launches": by_route["sm90"],
         "launches_by_route": by_route,
         "launches_by_path": {"prefill_forward": report["model"]["launches"],
                              "benches": report["benches"]["launches_flash"],
+                             "olmoe_forward": moe["olmoe"]["launches_by_route"],
+                             "deepseek_mtp_forward": moe["deepseek"]["launches_by_route"],
                              "train": report["train"]["launches"]["flash_attention"]},
         "bit_equal": False, "tolerance": report["flash"]["tolerance"],
-        "max_abs_err": report["flash"]["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "max_abs_err": max(report["flash"]["max_abs_err"],
+                           *(t["max_abs_err"] for t in moe["flash"]["shapes"].values())),
+        "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "simt_ms": r["simt_ms"], "simt_source": FLASH_SRC["simt"], "shape": r["shape"]})
+        "simt_ms": r["simt_ms"], "simt_source": FLASH_SRC["simt"], "shape": r["shape"],
+        "at_moe_shapes": {n: at_shape(t) for n, t in moe["flash"]["shapes"].items()}})
     tr = report["train"]
     b = tr["backward"]["timing"]
     bwd_replaces = (f"none: the backward of {FLASH_TPU}, which the JAX package gets by "
@@ -3955,9 +4513,13 @@ def main() -> int:
             "replaces": bwd_replaces, "launches": launches,
             "launches_by_path": {"train": train_bwd[route], "quickstart": qs_bwd[route]},
             "bit_equal": False, "deterministic": True, "tolerance": tr["backward"]["tolerance"],
-            "max_abs_err": tr["backward"]["max_abs_err"][route], "ms": ms,
-            "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-            "library_ms": b["library_ms"], "shape": b["shape"]})
+            "max_abs_err": (tr["backward"]["max_abs_err"][route] if route == "sm90" else
+                            max(tr["backward"]["max_abs_err"][route],
+                                moe["backward"]["max_abs_err"])),
+            "ms": ms, "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": b["library_ms"], "shape": b["shape"],
+            **({"at_mla_shape": at_shape(moe["backward"]["timing"])} if route == "simt"
+               else {})})
     report["kernels"] = kernels
     report["smoke_s"] = sum(report["phase_s"].values())
     log(f"smoke: {report['smoke_s']:.2f} s over {len(report['phase_s'])} phases on {card}")

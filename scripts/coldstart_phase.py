@@ -4,9 +4,10 @@
     python3 scripts/coldstart_phase.py [--seed 0] [--out build/coldstart] [--recurate]
 
 Builds the kernels, then runs ``chip_smoke.coldstart_phase``: Phi-4-mini
-3.8B at full width from the seed, published through ``save_checkpoint``,
-the five modeled strategies, a ``SkeletonPool`` claim, ``restore_server``
-with the cold tail prefetched, serving, a profiled second restore, every
+3.8B at full width from the seed, cut to the smoke's
+``chip_smoke.COLDSTART_LAYERS`` layers, published through
+``save_checkpoint``, the five modeled strategies, a ``SkeletonPool``
+claim, ``restore_server`` with the cold tail prefetched, serving, a profiled second restore, every
 array against the regenerated parameters, delete and gc, with every check
 of the smoke.  ``--recurate`` first runs the smoke's recurate phase on its
 1.5 GiB image (same pages, same working set).  Prints the phase's lines;

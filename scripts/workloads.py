@@ -2,7 +2,8 @@
 
 The port's twin of ``benchmarks/workloads.py``: each workload is a
 reduced-config model server whose paged state image holds the model's
-parameters (always read by an invocation, so hot, except embedding rows), a
+parameters (always read by an invocation, so hot, except embedding rows and,
+for the MoE model, the experts no invocation routes to), a
 ``runtime`` segment (non-zero bytes of which a small scattered fraction is
 touched: the cold mass), and a KV arena and activation workspace (zero at
 snapshot time: the zero-page mass).  Page classes are measured by the
@@ -17,9 +18,11 @@ them is all zero unless the reference's is too, e.g. zero-initialised
 biases), or from ``params=`` (nested dicts of numpy arrays, e.g. the
 reference's own), which makes the image byte-identical to the reference's.
 
-Only the dense families are ported: ``chameleon``, ``compression``,
-``json`` and ``matmul``.  The other five raise ``NotImplementedError``
-(ROADMAP A11); ``all_workloads()`` still lists all nine.
+The dense and MoE families are ported: ``chameleon``, ``compression``,
+``json``, ``matmul`` and ``recognition`` (DeepSeek-V3, whose invocations
+touch only their routed experts' pages, found by the ``"/moe/w"`` names of
+``flatten_state``).  The other four raise ``NotImplementedError`` (ROADMAP
+A11); ``all_workloads()`` still lists all nine.
 """
 from __future__ import annotations
 
@@ -75,8 +78,9 @@ WORKLOADS: Dict[str, WorkloadDef] = {w.name: w for w in [
     WorkloadDef("recognition", "deepseek-v3-671b",   "ml",         52, 26, 12, 0.30, 128, 1024, 2.00),
 ]}
 
-# the workloads whose model family is ported (dense decoder-only GQA)
+# the workloads whose model family is dense decoder-only GQA, and all ported ones
 DENSE = ("chameleon", "compression", "json", "matmul")
+PORTED = (*DENSE, "recognition")
 
 
 @dataclasses.dataclass
@@ -100,11 +104,22 @@ class BuiltWorkload:
 
 def _check_ported(name: str) -> WorkloadDef:
     wdef = WORKLOADS[name]
-    if name not in DENSE:
+    if name not in PORTED:
         raise NotImplementedError(
             f"workload {name!r} runs {wdef.arch}, whose model family is not ported yet "
-            "(ROADMAP A11); ported: " + ", ".join(DENSE))
+            "(ROADMAP A11); ported: " + ", ".join(PORTED))
     return wdef
+
+
+def _expert_elements(extent, layer: int, expert: int, n_layers: int, n_experts: int):
+    """Element range [lo, hi) of one expert of one stacked MoE layer in an
+    (L, E, ...) array."""
+    per_layer = 1
+    for d in extent.shape[1:]:
+        per_layer *= d
+    per_expert = per_layer // n_experts
+    base = layer * per_layer + expert * per_expert
+    return base, base + per_expert
 
 
 def build_workload(name: str, seed: int = 0, n_invocations: int = 16, device="cuda",
@@ -133,6 +148,8 @@ def build_workload(name: str, seed: int = 0, n_invocations: int = 16, device="cu
     image = StateImage.build(arrays, device=device)
     del params
     extents = image.manifest.by_name()
+    moe_names = [n for n in arrays if "/moe/w" in n]
+    n_moe_layers = extents[moe_names[0]].shape[0] if moe_names else 0
 
     def one_invocation(rec: AccessRecorder, i: int) -> List[int]:
         r = np.random.default_rng((seed, i))
@@ -140,12 +157,20 @@ def build_workload(name: str, seed: int = 0, n_invocations: int = 16, device="cu
         # 1) token embeddings: Zipf-distributed rows of the (padded) table
         toks = np.minimum(r.zipf(1.4, size=wdef.prompt_len) - 1, cfg.vocab - 1)
         rec.touch_rows("embed/table", np.unique(toks))
-        # 2) layer weights: everything except embeddings (no routed experts
-        # in the dense families)
+        # 2) layer weights: everything except embeddings and routed experts
         for n in arrays:
             if n.startswith(("embed",)) or n in ("runtime", "kv_arena", "workspace"):
                 continue
+            if "/moe/w" in n:
+                continue
             rec.touch_array(n)
+        # 3) MoE: only routed experts (top-k per layer, Zipf-hot experts)
+        for layer in range(n_moe_layers):
+            hot_e = np.minimum(r.zipf(1.3, size=cfg.top_k) - 1, cfg.n_experts - 1)
+            for n in moe_names:
+                for e in set(int(x) for x in hot_e):
+                    lo, hi = _expert_elements(extents[n], layer, e, n_moe_layers, cfg.n_experts)
+                    rec.touch_elements(n, lo, hi)
         # 4) runtime/libs: scattered short spans (Fig-4 fragmentation); 85%
         # from a workload-stable rng, a small per-input tail
         rt_pages = extents["runtime"].page_count

@@ -1,2 +1,3 @@
 """Model configurations: the ``ModelConfig`` dataclass, its registry, the
-workload shapes and the ported architectures (the dense-GQA family)."""
+workload shapes and the ported architectures (the dense-GQA and the MoE/MLA
+families)."""

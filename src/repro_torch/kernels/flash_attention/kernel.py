@@ -4,7 +4,8 @@ forward kernels, both replacing ``flash_attention_pallas``,
 Dk == Dv in {64, 128}) and ``csrc/flash_attention.cu`` (float32 FMAs on the
 CUDA cores; every other call), ``ops.route`` picking one; and the two
 backward kernels, ``csrc/flash_attention_bwd_sm90.cu`` (TMA, wgmma; the same
-calls) and ``csrc/flash_attention_bwd.cu`` (SIMT; every other call),
+calls) and ``csrc/flash_attention_bwd.cu`` (SIMT; every other call, Dk != Dv
+among them),
 ``ops.bwd_route`` picking one.  Each takes CUDA tensors that ``ops.py`` has
 checked and allocated, launches on PyTorch's current stream without
 synchronising, and raises when the launch is refused.
@@ -20,7 +21,7 @@ from ..build import F32, I32, I64, PTR
 
 _ARGS = (PTR, PTR, PTR, PTR, PTR, *(I64,) * 7, *(I64,) * 9, F32, I32, I32, PTR)
 _SM90_ARGS = (PTR, PTR, PTR, PTR, PTR, *(I64,) * 6, *(I64,) * 9, F32, I32, PTR)
-_BWD_ARGS = (*(PTR,) * 10, *(I64,) * 6, *(I64,) * 12, F32, I32, I32, PTR)
+_BWD_ARGS = (*(PTR,) * 10, *(I64,) * 7, *(I64,) * 12, F32, I32, I32, PTR)
 _BWD_SM90_ARGS = (*(PTR,) * 10, *(I64,) * 6, *(I64,) * 12, F32, I32, PTR)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the sm90 backward's float32 scratch holds 2 rows (lse in log2 units, and
@@ -64,16 +65,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                         dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                         dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, scale: float,
                         causal: bool) -> None:
-    """dq, dk, dv (contiguous, the inputs' dtype) of attention from q, k, v
-    and ``dout`` (each contiguous in its last dim), ``out`` and the float32
-    ``lse`` (contiguous); ``delta`` is float32 (B, Hq, Sq) scratch.  Three
-    kernels in order on the current stream: rowsum(dO * O), dK/dV, dQ."""
-    b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    """dq, dk, dv (contiguous, the inputs' dtype) of attention from q, k
+    (Dk wide), v and ``dout`` (Dv wide; each contiguous in its last dim),
+    ``out`` and the float32 ``lse`` (contiguous); ``delta`` is float32
+    (B, Hq, Sq) scratch.  Three kernels in order on the current stream:
+    rowsum(dO * O), dK/dV, dQ."""
+    b, hq, sq, dk_ = q.shape
+    hkv, skv, dv_ = k.shape[1], k.shape[2], v.shape[3]
     build.call("flash_attention_bwd", "aq_flash_attention_bwd", _BWD_ARGS,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-               b, hq, hkv, sq, skv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               b, hq, hkv, sq, skv, dk_, dv_, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *dout.stride()[:3], scale, int(causal), DTYPES[q.dtype], build.stream_of(q))
 
 

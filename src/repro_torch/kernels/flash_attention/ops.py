@@ -163,11 +163,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def _check_bwd_cuda(q, k, v, out, lse, dout, causal: bool) -> None:
     _check_cuda(q, k, v, causal)
-    dk = q.shape[3]
-    if v.shape[3] != dk:
-        raise ValueError(f"flash_attention_bwd: the kernel takes Dk == Dv, got Dk={dk}, "
-                         f"Dv={v.shape[3]} (MLA's backward is ROADMAP A11's)")
-    want = (*q.shape[:3], dk)
+    want = (*q.shape[:3], v.shape[3])        # (B, Hq, Sq, Dv)
     for name, t, dtype in (("out", out, q.dtype), ("dout", dout, q.dtype)):
         if tuple(t.shape) != want or t.dtype != dtype or t.device != q.device:
             raise ValueError(f"flash_attention_bwd: {name} is {tuple(t.shape)} {t.dtype} on "
@@ -183,9 +179,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     """``(dq, dk, dv)`` of ``flash_attention`` from its inputs, its output
     ``out``, the forward's float32 log-sum-exp ``lse`` (B, Hq, Sq) and the
     output's gradient ``dout``.  CPU tensors take ``flash_attention_bwd_ref``;
-    CUDA tensors launch the kernel ``bwd_route`` names (Dk == Dv <= 256,
-    float32 or bf16) or raise.  The gradients come back contiguous, in the
-    inputs' dtypes; two launches on the same inputs give the same bits."""
+    CUDA tensors launch the kernel ``bwd_route`` names (Dk, Dv <= 256, Dk !=
+    Dv on the SIMT kernel; float32 or bf16) or raise.  The gradients come
+    back contiguous, in the inputs' dtypes; two launches on the same inputs
+    give the same bits."""
     if scale is None:
         scale = q.shape[3] ** -0.5
     if q.device.type == "cpu":

@@ -99,7 +99,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o
     ``dV = P^T dO``, ``dS = P * (dO V^T - D)``, ``dQ += dS K * scale``,
     ``dK = dS^T Q * scale``; the query heads of a group add into their KV
     head.  ``o`` is the forward's output and ``lse`` its float32 log-sum-exp
-    (B, Hq, Sq)."""
+    (B, Hq, Sq).  Dk and Dv may differ (MLA): dq and dk are Dk wide, dv and
+    ``o``, ``do`` Dv wide."""
     b, hq, sq, dk = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -123,7 +124,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o
         dk_c = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
         n = kk.shape[2]
         dv_parts.append(dv_c.reshape(b, hkv, group, n, -1).sum(dim=2))
-        dk_parts.append(dk_c.reshape(b, hkv, group, n, dk).sum(dim=2))
+        dk_parts.append(dk_c.reshape(b, hkv, group, n, -1).sum(dim=2))
     if not dk_parts:                      # no keys: every gradient is 0
         return dq.to(q.dtype), torch.zeros_like(k), torch.zeros_like(v)
     return (dq.to(q.dtype), torch.cat(dk_parts, dim=2).to(k.dtype),

@@ -1,15 +1,20 @@
-"""Attention: GQA (with optional QKV bias) and the dispatch functions.
+"""Attention variants: GQA (with optional QKV bias), DeepSeek-V3's MLA, and
+the dispatch functions.
 
-The full-sequence path (train/prefill) routes through the flash-attention op
+The full-sequence paths (train/prefill) route through the flash-attention op
 (``kernels/flash_attention``: the hand-written CUDA kernels on a CUDA tensor,
 its plain versions on a CPU one; differentiable, its backward a kernel of
-its own); the decode path is einsum attention over the
-KV cache (one query, no flash needed), as in the JAX package.
+its own); the decode paths are einsum attention over the cache (one query,
+no flash needed), as in the JAX package.
 
-KV cache per layer: k, v (B, Hkv, max_len, Dh).  The JAX package's sharding
-constraints (``constrain``, ``cache_constrain``) are the identity without a
-mesh and are dropped on one card.  MLA (``attn_kind == "mla"``) comes with the
-MoE/MLA family and raises here.
+Caches per layer:
+  GQA : k, v (B, Hkv, max_len, Dh).
+  MLA : the latent cache (B, max_len, kv_lora + qk_rope_head_dim): the
+        compressed latent and the rope key, nothing re-expanded.
+Decode writes the new entry into the cache in place (the JAX package returns
+an updated copy).  The JAX package's sharding constraints (``constrain``,
+``cache_constrain``) are the identity without a mesh and are dropped on one
+card.
 """
 from __future__ import annotations
 
@@ -20,9 +25,6 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
 from .common import apply_mrope, apply_rope, dense_init
-
-_MLA = ("attn_kind 'mla' is not ported yet: it comes with the MoE/MLA family "
-        "(ROADMAP A11)")
 
 
 # ==========================================================================
@@ -119,30 +121,150 @@ def gqa_decode(params: Dict, x: torch.Tensor, cache: Dict, pos: int, cfg: ModelC
 
 
 # ==========================================================================
+# MLA (DeepSeek-V3)
+# ==========================================================================
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype, layers: Tuple[int, ...] = ()) -> Dict:
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dqn, dqr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": dense_init(gen, (*layers, d, qr), dtype, fan_in=d),              # down
+        "wq_b": dense_init(gen, (*layers, qr, h * (dqn + dqr)), dtype, fan_in=qr),
+        "wkv_a": dense_init(gen, (*layers, d, kr + dqr), dtype, fan_in=d),       # latent + rope-k
+        "wkv_b": dense_init(gen, (*layers, kr, h * (dqn + dv)), dtype, fan_in=kr),
+        "wo": dense_init(gen, (*layers, h * dv, d), dtype, fan_in=h * dv),
+    }
+
+
+def _mla_q(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """x (B, S, D) -> q_nope (B, h, S, dqn), q_rope (B, h, S, dqr) roped."""
+    b, s, _ = x.shape
+    dqn = cfg.qk_nope_head_dim
+    q = ((x @ params["wq_a"]) @ params["wq_b"]).view(b, s, cfg.n_heads, -1).transpose(1, 2)
+    return q[..., :dqn], apply_rope(q[..., dqn:], positions, cfg.rope_theta)
+
+
+def _mla_qkv(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    b, s, _ = x.shape
+    h, dqn, dqr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    kr = cfg.kv_lora_rank
+    q_nope, q_rope = _mla_q(params, x, positions, cfg)
+    kv = x @ params["wkv_a"]
+    latent, k_rope = kv[..., :kr], kv[..., kr:]
+    k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta)     # (B, 1, S, dqr)
+    kvu = (latent @ params["wkv_b"]).view(b, s, h, -1).transpose(1, 2)  # (B, h, S, dqn + dv)
+    k_nope, v = kvu[..., :dqn], kvu[..., dqn:]
+    k = torch.cat([k_nope, k_rope.expand(b, h, s, dqr)], dim=-1)
+    return torch.cat([q_nope, q_rope], dim=-1), k, v, latent, k_rope
+
+
+def mla_attention(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                  positions: Optional[torch.Tensor] = None, causal: bool = True) -> torch.Tensor:
+    """Full-sequence MLA: flash attention with Dk = dqn + dqr, Dv = v_head_dim
+    (192 and 128 at DeepSeek-V3's width: the SIMT kernel's route)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q, k, v, _, _ = _mla_qkv(params, x, positions, cfg)
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    o = flash_attention(q, k, v, causal=causal, scale=scale)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.v_head_dim)
+    return o @ params["wo"]
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
+                   layers: Tuple[int, ...] = ()) -> Dict:
+    shape = (*layers, batch, max_len, cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+    return {"latent": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _mla_step(params, x: torch.Tensor, cache: Dict, pos: int, cfg: ModelConfig):
+    """The query of the new token and its latent entry written into the
+    cache: -> (q_nope (B, h, 1, dqn), q_rope (B, h, 1, dqr), the cache's
+    latent part (B, S, kr), its rope-key part (B, S, dqr), the valid mask)."""
+    kr = cfg.kv_lora_rank
+    p1 = torch.full((1,), pos, device=x.device)
+    q_nope, q_rope = _mla_q(params, x, p1, cfg)
+    kv = x @ params["wkv_a"]                                           # (B, 1, kr + dqr)
+    k_rope_new = apply_rope(kv[:, None, :, kr:], p1, cfg.rope_theta)   # (B, 1, 1, dqr)
+    lat = cache["latent"]
+    lat[:, pos] = torch.cat([kv[:, 0, :kr], k_rope_new[:, 0, 0]], dim=-1).to(lat.dtype)
+    valid = torch.arange(lat.shape[1], device=x.device) <= pos
+    return q_nope, q_rope, lat[..., :kr], lat[..., kr:], valid
+
+
+def mla_decode_absorbed(params: Dict, x: torch.Tensor, cache: Dict, pos: int,
+                        cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """Weight-absorbed MLA decode (the JAX package's ``cfg.mla_absorb``):
+    wkv_b's key half is absorbed into the query (rank kr) and attention runs
+    over the cached latent itself; the value half is applied after the
+    softmax.  Products in float32, as the JAX package's
+    ``preferred_element_type``."""
+    b = x.shape[0]
+    h, dqn, dqr, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kr = cfg.kv_lora_rank
+    q_nope, q_rope, latent_all, k_rope_all, valid = _mla_step(params, x, cache, pos, cfg)
+    wkv_b = params["wkv_b"].reshape(kr, h, dqn + dv)
+    w_k, w_v = wkv_b[..., :dqn], wkv_b[..., dqn:]                      # (kr, h, dqn / dv)
+    lat_f = latent_all.float()
+    q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, :, 0].float(), w_k.float())
+    s_nope = torch.einsum("bhr,bsr->bhs", q_eff.to(latent_all.dtype).float(), lat_f)
+    s_rope = torch.einsum("bhqd,bsd->bhs", q_rope.float(), k_rope_all.float())
+    s = ((s_nope + s_rope) * (dqn + dqr) ** -0.5).masked_fill(~valid, -1e30)
+    p = torch.softmax(s, dim=-1)                                       # (B, h, S)
+    ctx = torch.einsum("bhs,bsr->bhr", p.to(latent_all.dtype).float(), lat_f)
+    o = torch.einsum("bhr,rhd->bhd", ctx.to(w_v.dtype).float(), w_v.float())
+    o = o.reshape(b, 1, h * dv).to(x.dtype)
+    return o @ params["wo"], cache
+
+
+def mla_decode(params: Dict, x: torch.Tensor, cache: Dict, pos: int,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """Latent-cache decode: re-expands K and V from the cached latent
+    (B, S, kr) every step; ``cfg.mla_absorb`` takes the absorbed form."""
+    if cfg.mla_absorb:
+        return mla_decode_absorbed(params, x, cache, pos, cfg)
+    b = x.shape[0]
+    h, dqn, dqr, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope, latent_all, k_rope_all, valid = _mla_step(params, x, cache, pos, cfg)
+    kvu = latent_all @ params["wkv_b"].to(latent_all.dtype)
+    kvu = kvu.view(b, -1, h, dqn + dv).transpose(1, 2)                 # (B, h, S, dqn + dv)
+    k_nope, v = kvu[..., :dqn], kvu[..., dqn:]
+    s_nope = torch.einsum("bhqd,bhsd->bhqs", q_nope.float(), k_nope.float())
+    s_rope = torch.einsum("bhqd,bsd->bhqs", q_rope.float(), k_rope_all.float())
+    s = ((s_nope + s_rope) * (dqn + dqr) ** -0.5).masked_fill(~valid, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqs,bhsd->bhqd", p.to(v.dtype).float(), v.float())
+    o = o.transpose(1, 2).reshape(b, 1, h * dv).to(x.dtype)
+    return o @ params["wo"], cache
+
+
+# ==========================================================================
 # dispatch
 # ==========================================================================
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
                    layers: Tuple[int, ...] = ()) -> Dict:
     if cfg.attn_kind == "mla":
-        raise NotImplementedError(_MLA)
+        return init_mla(gen, cfg, dtype, layers)
     return init_gqa(gen, cfg, dtype, layers)
 
 
 def attention(params, x, cfg: ModelConfig, positions=None, mrope_pos=None, causal=True):
     if cfg.attn_kind == "mla":
-        raise NotImplementedError(_MLA)
+        return mla_attention(params, x, cfg, positions, causal=causal)
     return gqa_attention(params, x, cfg, positions, mrope_pos, causal=causal)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
                layers: Tuple[int, ...] = ()):
     if cfg.attn_kind == "mla":
-        raise NotImplementedError(_MLA)
+        return init_mla_cache(cfg, batch, max_len, dtype, device, layers)
     return init_gqa_cache(cfg, batch, max_len, dtype, device, layers)
 
 
 def decode(params, x, cache, pos: int, cfg: ModelConfig, mrope_pos3=None):
     if cfg.attn_kind == "mla":
-        raise NotImplementedError(_MLA)
+        return mla_decode(params, x, cache, pos, cfg)
     return gqa_decode(params, x, cache, pos, cfg, mrope_pos3=mrope_pos3)

@@ -8,7 +8,10 @@
   input_specs(shape) -> {name: TensorSpec}          # shapes and dtypes, no data
   make_batch(rng, shape) -> concrete small batch    # numpy rng, tensors on the device
 
-Decoder-only dense configs are ported; encoder-decoder configs raise.
+Decoder-only dense and MoE configs are ported (``forward``'s aux is the MoE
+blocks' summed load-balancing loss, 0 for the dense family); the SSM,
+hybrid and VLM families raise when a model is initialised, encoder-decoder
+configs in ``build``.
 """
 from __future__ import annotations
 

@@ -1,11 +1,10 @@
-"""Train step builder: loss (cross-entropy + z-loss), gradients, AdamW — the
-twin of the JAX package's ``train/trainstep.py`` for the dense family.
+"""Train step builder: loss (cross-entropy + z-loss + MoE aux + optional
+MTP), gradients, AdamW — the twin of the JAX package's ``train/trainstep.py``.
 
 The step is a function of ``(state, batch) -> (state, metrics)``, as in the
 reference; ``torch.autograd`` takes the place of ``jax.value_and_grad``.  The
 reference's sharding constraint (``constrain``) is the identity on one
-device and is dropped.  The MoE and MTP objectives come with their families
-(ROADMAP A11) and raise.
+device and is dropped.
 """
 from __future__ import annotations
 
@@ -14,12 +13,10 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..models import transformer as tf_mod
 from ..models.model_zoo import Model
 from ..tree import tree_map
 from .optimizer import AdamWConfig, AdamWState, adamw_update, init_adamw
-
-_NOT_PORTED = ("training family {!r}{} is not ported yet: it comes with the MoE family "
-               "(ROADMAP A11)")
 
 
 class TrainState(NamedTuple):
@@ -58,13 +55,21 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def make_loss_fn(model: Model, loss_cfg: LossConfig = LossConfig()) -> Callable:
     cfg = model.cfg
-    if cfg.family == "moe":
-        raise NotImplementedError(_NOT_PORTED.format(cfg.family, " (MTP)" if cfg.mtp else ""))
 
     def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict]:
         labels = batch["labels"]
+        if cfg.family == "moe" and cfg.mtp:
+            logits, mtp_logits, aux = tf_mod.lm_forward_mtp(params, batch["tokens"], cfg)
+            # shift-1 main objective
+            loss = cross_entropy(logits[:, :-1], labels[:, 1:], loss_cfg.z_loss)
+            # MTP predicts t+2
+            mtp = cross_entropy(mtp_logits[:, :-2], labels[:, 2:], 0.0)
+            loss = loss + loss_cfg.mtp_weight * mtp + loss_cfg.aux_weight * aux
+            return loss, {"aux": aux, "mtp": mtp}
         logits, aux = model.forward(params, batch)
         loss = cross_entropy(logits[:, :-1], labels[:, 1:], loss_cfg.z_loss)
+        if cfg.family == "moe":
+            loss = loss + loss_cfg.aux_weight * aux
         return loss, {"aux": aux}
 
     return loss_fn

@@ -1,12 +1,14 @@
 """The port's workloads (``scripts/workloads.py``) against the JAX package's
-(``benchmarks/workloads.py``) on the CPU, for the four dense workloads.
+(``benchmarks/workloads.py``) on the CPU, for the four dense workloads and
+``recognition`` (DeepSeek-V3: an invocation touches only its routed
+experts' pages, found by ``flatten_state``'s ``"/moe/w"`` names).
 
 On the port's own seeded parameters (not bit-equal to JAX's), everything a
 bench models is the reference's: the manifest, the zero, hot and cold page
 sets, the profiled working set, the measured invocation's touches, the
 scale, and the region layout of a publish.  On the reference's parameters
 (carried across as numpy arrays) the image is byte-identical.  The other
-five workloads raise, naming ROADMAP A11."""
+four workloads raise, naming ROADMAP A11."""
 import dataclasses
 
 import jax
@@ -21,13 +23,13 @@ from repro.core import HierarchicalPool as RefPool  # noqa: E402
 from repro.core import build_snapshot as ref_build_snapshot  # noqa: E402
 from repro_torch.core import HierarchicalPool, build_snapshot  # noqa: E402
 
-DENSE = ("chameleon", "compression", "json", "matmul")
+PORTED = ("chameleon", "compression", "json", "matmul", "recognition")
 
 
 @pytest.fixture(scope="module")
 def built():
-    """Each dense workload through the reference and the twin (own params)."""
-    return {n: (ref.build_workload(n), twin.build_workload(n, device="cpu")) for n in DENSE}
+    """Each ported workload through the reference and the twin (own params)."""
+    return {n: (ref.build_workload(n), twin.build_workload(n, device="cpu")) for n in PORTED}
 
 
 def _classes(zero, ws):
@@ -36,7 +38,7 @@ def _classes(zero, ws):
     return zero, hot & ~zero, ~hot & ~zero
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_page_classes_touches_and_scale_are_the_references(name, built):
     r, p = built[name]
     assert p.image.manifest.to_dict() == r.image.manifest.to_dict()
@@ -52,7 +54,7 @@ def test_page_classes_touches_and_scale_are_the_references(name, built):
     assert spec.compute_s == rspec.compute_s and spec.scale == rspec.scale
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_publish_lays_out_the_references_regions(name, built):
     r, p = built[name]
     cap = dict(cxl_capacity=256 << 20, rdma_capacity=512 << 20)
@@ -62,7 +64,7 @@ def test_publish_lays_out_the_references_regions(name, built):
     assert got.to_dict() == want.to_dict()
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_reference_parameters_give_a_byte_identical_image(name, built):
     r, _ = built[name]
     cfg = ref.get_config(ref.WORKLOADS[name].arch).reduced()
@@ -72,10 +74,14 @@ def test_reference_parameters_give_a_byte_identical_image(name, built):
     assert np.array_equal(p.profile.working_set, r.profile.working_set)
 
 
-@pytest.mark.parametrize("name", sorted(set(twin.WORKLOADS) - set(DENSE)))
+@pytest.mark.parametrize("name", sorted(set(twin.WORKLOADS) - set(PORTED)))
 def test_other_families_raise_naming_a11(name):
     with pytest.raises(NotImplementedError, match="A11"):
         twin.build_workload(name, device="cpu")
+
+
+def test_twin_ports_what_its_tuple_says():
+    assert twin.PORTED == PORTED and set(twin.DENSE) < set(twin.PORTED)
 
 
 def test_all_workloads_lists_all_nine_and_get_workload_builds_once():

@@ -422,6 +422,45 @@ def test_autograd_function_matches_jax_grad(shape, causal, dtype):
         assert _within(g, w, dtype)
 
 
+# (B, Hq, Hkv, Sq, Skv, Dk, Dv): MLA's Dk > Dv (reduced DeepSeek-V3's 48 and
+# 32, and 192 and 128), GQA with ragged Sq < Skv, and Dk < Dv
+BWD_DK_DV_SHAPES = {"mla-reduced": (1, 4, 4, 24, 24, 48, 32),
+                    "mla-192-128": (1, 2, 2, 20, 20, 192, 128),
+                    "gqa-sq<skv": (2, 4, 2, 9, 30, 48, 32), "dk<dv": (1, 4, 2, 17, 17, 16, 40)}
+
+
+@pytest.mark.parametrize("shape", list(BWD_DK_DV_SHAPES), ids=list(BWD_DK_DV_SHAPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"], ids=["f32", "bf16"])
+def test_plain_backward_dk_ne_dv_matches_jax_grad(shape, causal, dtype):
+    """``flash_attention_bwd_ref`` with Dk != Dv (MLA) against ``jax.grad``
+    of the JAX package's reference attention on the float32 inputs (the
+    limits of ``BWD_TOL``); dq, dk Dk wide, dv Dv wide; through the dispatch
+    under autograd the same gradients."""
+    import jax
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+
+    b, hq, hkv, sq, skv, dk, dv = BWD_DK_DV_SHAPES[shape]
+    q, k, v = _qkv(37, b, hq, hkv, sq, skv, dk, dv)
+    do = np.random.default_rng(38).standard_normal((b, hq, sq, dv)).astype(np.float32)
+    ts = [torch.from_numpy(a) for a in (q, k, v, do)]
+    if dtype == "bf16":
+        ts = [t.to(torch.bfloat16) for t in ts]
+    q, k, v, do = ts
+    scale = dk ** -0.5
+    out, lse = attention_ref(q, k, v, causal=causal, scale=scale, return_lse=True)
+    got = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, scale=scale, block_k=8)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    via = torch.autograd.grad(flash_attention(qg, kg, vg, causal=causal), (qg, kg, vg), do)
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
+    want = jax.grad(lambda a, b_, c: jnp.sum(jax_attention_ref(a, b_, c, causal=causal) * jdo),
+                    argnums=(0, 1, 2))(jq, jk, jv)
+    for g, d, w, t in zip(got, via, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape == d.shape
+        assert _within(g, w, dtype) and _within(d, w, dtype)
+
+
 def test_forward_under_autograd_equals_the_plain_forward():
     """Under grad the forward gives the bits it gives without, and its
     log-sum-exp is ``logsumexp`` of the scaled scores."""
@@ -440,8 +479,9 @@ def test_forward_under_autograd_equals_the_plain_forward():
 
 def test_backward_wrapper_counts_launches_and_refuses(monkeypatch):
     """On CUDA tensors the backward launches its kernel once (meta tensors
-    stand in; the bindings are recorders) and refuses Dk != Dv; without keys
-    it returns zeros and launches nothing."""
+    stand in; the bindings are recorders), takes Dk != Dv on the SIMT kernel
+    (dO and the output at Dv) and refuses a dO at Dk; without keys it
+    returns zeros and launches nothing."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
     calls = []
@@ -458,14 +498,21 @@ def test_backward_wrapper_counts_launches_and_refuses(monkeypatch):
                                      z(1, 4, 8, 64))
     assert len(calls) == 1 and flash_attention_bwd.launches == before + 1
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
-    with pytest.raises(ValueError, match="Dk == Dv"):
+    simt = flash_attention_bwd.launches_simt
+    dq, dk, dv = flash_attention_bwd(q, k, z(1, 2, 8, 32), z(1, 4, 8, 32),
+                                     z(1, 4, 8, dtype=torch.float32), z(1, 4, 8, 32))
+    assert len(calls) == 2 and flash_attention_bwd.launches_simt == simt + 1
+    assert len(calls[1]) == 12 and calls[1][9].shape == (1, 2, 8, 32)       # dv at Dv
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, (1, 2, 8, 32))
+    with pytest.raises(ValueError, match="dout"):
         flash_attention_bwd(q, k, z(1, 2, 8, 32), z(1, 4, 8, 32),
-                            z(1, 4, 8, dtype=torch.float32), z(1, 4, 8, 32))
+                            z(1, 4, 8, dtype=torch.float32), z(1, 4, 8, 64))
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(q, k, v, z(1, 4, 8, 64), z(1, 4, 9, dtype=torch.float32),
                             z(1, 4, 8, 64))
-    assert len(calls) == 1 and flash_attention_bwd.launches == before + 1
+    assert len(calls) == 2 and flash_attention_bwd.launches == before + 2
     flash_attention_bwd.launches = before
+    flash_attention_bwd.launches_simt = simt - 1
 
 
 def test_cpu_path_still_differentiates():

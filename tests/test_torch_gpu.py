@@ -1248,7 +1248,10 @@ def test_flash_bwd_refuses_what_the_kernel_does_not_take(cuda_device):
         return torch.zeros(shape, dtype=dtype, device=cuda_device)
 
     before = flash_attention_bwd.launches
-    q, k, v = z(1, 4, 8, 16), z(1, 2, 8, 16), z(1, 2, 8, 8)        # Dk != Dv
+    q, k, v = z(1, 4, 8, 16), z(1, 2, 8, 16), z(1, 2, 8, 8)        # dO at Dk, not Dv
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, z(1, 4, 8, 8), z(1, 4, 8), z(1, 4, 8, 16))
+    q, k, v = z(1, 4, 8, 320), z(1, 2, 8, 320), z(1, 2, 8, 8)      # Dk past 256
     with pytest.raises(ValueError):
         flash_attention_bwd(q, k, v, z(1, 4, 8, 8), z(1, 4, 8), z(1, 4, 8, 8))
     q, k, v = z(1, 4, 8, 16), z(1, 2, 8, 16), z(1, 2, 8, 16)
@@ -1327,3 +1330,137 @@ def test_bf16_train_step_backward_goes_to_sm90(cuda_device):
     assert bool(torch.isfinite(loss.detach()))
     assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
                for t in tree_leaves(params))
+
+
+# (B, Hq, Hkv, Sq, Skv, Dk, Dv): MLA's Dk = 192 > Dv = 128 (MHA, GQA with
+# ragged Sq < Skv), Dk < Dv, and the widest Dk with a narrower Dv
+MLA_BWD_CASES = [
+    (1, 4, 4, 128, 128, 192, 128),
+    (2, 8, 2, 100, 300, 192, 128),
+    (1, 4, 2, 70, 90, 64, 128),
+    (1, 2, 2, 65, 65, 256, 128),
+]
+
+
+@pytest.mark.parametrize("shape", MLA_BWD_CASES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_dk_ne_dv_matches_autograd(cuda_device, shape, causal, dtype):
+    """The backward with Dk != Dv (MLA) on the SIMT kernel, under autograd,
+    against autograd through the float32 reference (``BWD_TOL``); a second
+    launch on the same saved output and log-sum-exp gives the same bits and
+    agrees with ``flash_attention_bwd_ref``."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention import ops
+
+    b, hq, hkv, sq, skv, dk, dv = shape
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    q = torch.randn(b, hq, sq, dk, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(b, hkv, skv, dk, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(b, hkv, skv, dv, generator=g, device=cuda_device).to(dtype)
+    do = torch.randn(b, hq, sq, dv, generator=g, device=cuda_device).to(dtype)
+    want = _autograd_want(q, k, v, do, causal)
+    assert ops.route(q, k, v) == ops.bwd_route(q, k, v, do) == "simt"
+    by_route = ops.launches_by_route(flash_attention_bwd)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_attention(qg, kg, vg, causal=causal)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    _, lse = ops._forward(q, k, v, causal, dk ** -0.5, with_lse=True)
+    again = flash_attention_bwd(q, k, v, out.detach(), lse, do, causal=causal)
+    plain = flash_attention_bwd_ref(q, k, v, out.detach(), lse, do, causal=causal)
+    torch.cuda.synchronize()
+    by_route["simt"] += 2
+    assert ops.launches_by_route(flash_attention_bwd) == by_route
+    rtol, atol = BWD_TOL[dtype]
+    for name, x, y, p, w in zip("qkv", got, again, plain, want):
+        assert x.dtype == dtype and x.shape == w.shape
+        assert torch.equal(x, y), name
+        for ref in (w, p):
+            err = float((x.float() - ref.float()).abs().max())
+            assert err <= rtol * float(ref.float().abs().max()) + atol, (name, err)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_moe_train_steps_on_card_match_cpu(cuda_device, arch):
+    """Three train steps of a reduced MoE model (DeepSeek-V3 with MLA and its
+    MTP objective), float32 compute, on the card against the same steps on
+    the CPU from the same parameters: every loss, aux, MTP loss and gradient
+    norm within 1e-4 relative (summation order on the card; routing is the
+    same on both); each step's attention backwards all on the SIMT kernel
+    (float32, and MLA's Dk != Dv), one a layer (and one for the MTP block)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import init_adamw
+    from repro_torch.train.trainstep import TrainState, make_train_step
+
+    cfg = get_config(arch).reduced(compute_dtype="float32", vocab=128,
+                                   name=f"{arch}-card-train")
+    host = params_to_numpy(build(cfg, device="cpu").init(0))
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2))
+    n_attn = cfg.n_layers + (1 if cfg.mtp else 0)
+    runs = []
+    for device in ("cpu", cuda_device):
+        model = build(cfg, device=device)
+        params = params_from_numpy(host, device=device)
+        state = TrainState(params, init_adamw(params))
+        step = make_train_step(model)
+        fwd, bwd = ops.launches_by_route(), ops.launches_by_route(flash_attention_bwd)
+        metrics = []
+        for i in range(3):
+            batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(i).items()}
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert ops.launches_by_route() == {"sm90": fwd["sm90"],
+                                               "simt": fwd["simt"] + 3 * n_attn}
+            assert ops.launches_by_route(flash_attention_bwd) == {
+                "sm90": bwd["sm90"], "simt": bwd["simt"] + 3 * n_attn}
+        runs.append(metrics)
+    keys = {"loss", "aux", "grad_norm"} | ({"mtp"} if cfg.mtp else set())
+    for cpu, card in zip(*runs):
+        assert keys <= set(cpu) and set(cpu) == set(card)
+        assert cpu["aux"] > 0
+        for k in keys:
+            assert abs(card[k] - cpu[k]) <= 1e-4 * abs(cpu[k]), (k, card[k], cpu[k])
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_reduced_moe_model_on_card_matches_cpu(cuda_device, arch):
+    """A reduced MoE model's forward (its aux loss too) and ``generate``, and
+    DeepSeek-V3's ``lm_forward_mtp``, on the card against the same
+    parameters on the CPU: float32 compute within 1e-4 relative, tokens
+    equal; the forward's flash launches one a layer (MLA on the SIMT
+    route), none in serving."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import build
+    from repro_torch.models.transformer import lm_forward_mtp
+    from repro_torch.serve import new_instance
+
+    cfg = get_config(arch).reduced(compute_dtype="float32", name=f"{arch}-card-fwd")
+    p_cpu = build(cfg, device="cpu").init(0)
+    p_gpu = params_from_numpy(params_to_numpy(p_cpu), device=cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)))
+    want, want_aux = build(cfg, device="cpu").forward(p_cpu, {"tokens": tokens})
+    before = ops.launches_by_route()
+    got, aux = build(cfg, device=cuda_device).forward(p_gpu, {"tokens": tokens.to(cuda_device)})
+    torch.cuda.synchronize()
+    assert ops.launches_by_route() == {"sm90": before["sm90"],
+                                       "simt": before["simt"] + cfg.n_layers}
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) < 1e-4
+    assert abs(float(aux) - float(want_aux)) <= 1e-4 * float(want_aux)
+    if cfg.mtp:
+        _, w_mtp, _ = lm_forward_mtp(p_cpu, tokens, cfg)
+        _, g_mtp, _ = lm_forward_mtp(p_gpu, tokens.to(cuda_device), cfg)
+        assert float((g_mtp.cpu() - w_mtp).abs().max() / w_mtp.abs().max()) < 1e-4
+    before = ops.launches_by_route()
+    out_cpu = new_instance(cfg, p_cpu, 2, 48, device="cpu").generate(tokens[:, :32], 8)
+    out_gpu = new_instance(cfg, p_gpu, 2, 48, device=cuda_device).generate(tokens[:, :32], 8)
+    assert ops.launches_by_route() == before
+    np.testing.assert_array_equal(out_gpu, out_cpu)

@@ -17,7 +17,6 @@ and every gradient leaf within 1e-5 relative (summation order), and each of
 (bf16 rounds at other points in the two frameworks); int8 bits and scales
 ``==`` (both round half to even); data batches ``==``.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -275,16 +274,68 @@ def test_loss_decreases_from_the_ports_own_init():
     assert not np.isnan(losses[-1])
 
 
-@pytest.mark.parametrize("arch,mtp", [("qwen2.5-14b", False), ("qwen2.5-14b", True)],
-                         ids=["moe", "moe-mtp"])
-def test_moe_and_mtp_steps_raise_naming_a11(arch, mtp):
-    """The MoE aux-loss and MTP objectives come with the MoE family."""
-    cfg = dataclasses.replace(get_config(arch).reduced(**TINY_KW), family="moe", mtp=mtp)
-    model = build(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_train_step(model)
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_loss_fn(model)
+def _moe_setup(arch: str) -> dict:
+    """The reference test's MoE configs (``tests/test_train.py:79-101``:
+    reduced, vocab 128, float32 compute here), both packages' models, the
+    JAX train state and a batch of 4 x 32 tokens."""
+    kw = dict(vocab=128, compute_dtype="float32", name=f"{arch}-train-parity")
+    jcfg, tcfg = jax_get_config(arch).reduced(**kw), get_config(arch).reduced(**kw)
+    jm, tm = jax_build(jcfg), build(tcfg, device="cpu")
+    jstate = jax_init_train_state(jm, jax.random.PRNGKey(0))
+    data = SyntheticLMData(DataConfig(vocab=tcfg.vocab, seq_len=32, global_batch=4))
+    return {"jm": jm, "tm": tm, "jstate": jstate, "tree": jax.tree.map(np.asarray, jstate),
+            "batch": data.batch_at(0)}
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"], ids=["moe", "moe-mtp"])
+def test_moe_and_mtp_loss_and_grads_match_jax(arch):
+    """The twins of ``TestTraining.test_moe_train_step_runs_with_aux`` and
+    ``test_mtp_train_step``: the MoE objective (CE + z-loss + aux) and
+    DeepSeek-V3's (+ the MTP loss on token t+2), ``jax.value_and_grad`` of
+    the reference loss against the port's loss and ``backward`` on the same
+    parameters and batch: loss, aux, mtp and every gradient leaf within 1e-5
+    relative in float32."""
+    m = _moe_setup(arch)
+    jm, jstate = m["jm"], m["jstate"]
+    (jl, jx), jg = jax.value_and_grad(jax_make_loss_fn(jm), has_aux=True)(
+        jstate.params, {k: jnp.asarray(v) for k, v in m["batch"].items()})
+    leaves = params_from_numpy(m["tree"].params, "cpu")
+    for t in tree_leaves(leaves):
+        t.requires_grad_(True)
+    tl, extra = make_loss_fn(m["tm"])(leaves, {k: torch.from_numpy(v)
+                                               for k, v in m["batch"].items()})
+    tl.backward()
+    tl = tl.detach()
+    assert set(extra) == set(jx) == ({"aux", "mtp"} if m["tm"].cfg.mtp else {"aux"})
+    assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
+    for k, v in extra.items():
+        v = float(v.detach())
+        assert v > 0 and abs(v - float(jx[k])) <= 1e-5 * abs(float(jx[k])), k
+    n = 0
+    for (path, g), t in zip(jax.tree_util.tree_leaves_with_path(jg), tree_leaves(leaves)):
+        assert t.grad is not None and t.grad.shape == g.shape, jax.tree_util.keystr(path)
+        assert _rel(t.grad.numpy(), g) < 1e-5, jax.tree_util.keystr(path)
+        n += 1
+    assert n == len(jax.tree.leaves(jg))
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"], ids=["moe", "moe-mtp"])
+def test_moe_and_mtp_train_steps_track_jax(arch):
+    """Three train steps (AdamW included) through both packages from the same
+    state: the metrics' keys, and each step's loss, aux, mtp and gradient
+    norm within 1e-4 relative (as the dense 30-step test)."""
+    m = _moe_setup(arch)
+    jstep, tstep = jax.jit(jax_make_train_step(m["jm"])), make_train_step(m["tm"])
+    jstate, tstate = m["jstate"], train_state_from_numpy(m["tree"], device="cpu")
+    data = SyntheticLMData(DataConfig(vocab=m["tm"].cfg.vocab, seq_len=32, global_batch=4))
+    for i in range(3):
+        b = data.batch_at(i)
+        jstate, jmet = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        tstate, tmet = tstep(tstate, {k: torch.from_numpy(v) for k, v in b.items()})
+        assert set(tmet) == set(jmet)
+        for k in set(jmet) - {"lr"}:
+            assert abs(float(tmet[k]) - float(jmet[k])) <= 1e-4 * abs(float(jmet[k])), (i, k)
+    assert int(tstate.opt.step) == 3
 
 
 def test_train_step_remat_recomputes_each_block(monkeypatch):
