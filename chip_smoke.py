@@ -192,9 +192,9 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 
 15. model   — flash attention against its plain versions on the card, each
              case on the route ``ops.route`` gives it and asserted so: bf16
-             with Dk == Dv in {64, 128} on the tensor-core kernel
-             (``flash_attention_sm90.cu``), float32 and Dk != Dv on the SIMT
-             kernel (``flash_attention.cu``); the prefill path's shape B=1,
+             with (Dk, Dv) in ``ops.SM90_DK_DV`` on the tensor-core kernel
+             (``flash_attention_sm90.cu``), float32 and other pairs on the
+             SIMT kernel (``flash_attention.cu``); the prefill path's shape B=1,
              Hq=24, Hkv=8, S=8192, D=128, causal, one tile, keys not a
              multiple of 128, ragged Sq < Skv and non-causal cases; bf16
              within one rounding of the float32 reference on the upcast
@@ -216,14 +216,17 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 16. moe     — the MoE family.  The flash forward at its two full-width
              prefill shapes, each on its asserted route, against its float32
              plain version on the upcast inputs (the model phase's limits):
-             OLMoE's B=1, Hq=Hkv=16, S=4096, D=128 bf16 on the tensor-core
-             kernel, MLA's B=1, Hq=Hkv=128, S=4096, Dk=192, Dv=128 bf16 on the
-             SIMT kernel, each timed in turns with
-             ``scaled_dot_product_attention`` (which takes Dk != Dv too); the
-             SIMT backward with Dk != Dv (float32 and bf16, causal
-             and not, ragged, GQA, Dk < Dv, and MLA's shape at S=2048) against
-             autograd and its plain version within the train phase's limits,
-             two launches bit-equal, and its time beside the library's.  Cell
+             OLMoE's B=1, Hq=Hkv=16, S=4096, D=128 and MLA's B=1,
+             Hq=Hkv=128, S=4096, Dk=192, Dv=128, both bf16 on the tensor-core
+             kernel, each timed in turns with ``scaled_dot_product_attention``
+             (which takes Dk != Dv too), MLA's also with the SIMT kernel on
+             the same inputs; the backward with Dk != Dv (float32 and Dk < Dv
+             on SIMT, bf16 at (192, 128) on the tensor cores; causal and not,
+             ragged, GQA, and MLA's shape at S=2048) against autograd and its
+             plain version within the train phase's limits, two launches
+             bit-equal, and its time beside the SIMT kernel's and the
+             library's; registers, spills and HGMMA counts of both tensor-core
+             libraries' (192, 128) kernels (``cuobjdump``), no spill.  Cell
              (10): OLMoE-1B-7B at full width and depth (6.92 B float32
              parameters from the seed): one 4,096-token ``Model.forward``
              (16 flash launches, all sm90), 4 requests of 128 + 32 tokens
@@ -234,8 +237,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              (< 2e-3).  Cell (11): DeepSeek-V3 at full width on 2 layers (one
              dense, one MoE; bf16 parameters) with its MTP head: float32 decode
              against forward at the no-drop capacity first (< 2e-3; that model
-             freed), one 4,096-token ``lm_forward_mtp`` (3 flash launches on
-             SIMT), 4 requests of 128 + 16 tokens with ``mla_absorb`` off and
+             freed), one 4,096-token ``lm_forward_mtp`` (3 flash launches, all
+             sm90), 4 requests of 128 + 16 tokens with ``mla_absorb`` off and
              on (tokens printed).  The recognition workload's image built on
              the card, published with the fused sweep and restored
              bit-identically, every page verified, its zero/hot/cold shares
@@ -373,6 +376,9 @@ FLASH_SRC = {"bwd": f"{FLASH_CSRC}/flash_attention_bwd.cu",
              "bwd_sm90": f"{FLASH_CSRC}/flash_attention_bwd_sm90.cu",
              "sm90": f"{FLASH_CSRC}/flash_attention_sm90.cu",
              "simt": f"{FLASH_CSRC}/flash_attention.cu"}
+# the tensor-core libraries' (Dk, Dv) instantiations as their mangled names
+# spell them: (64, 64), (128, 128) and MLA's (192, 128), the new one
+SM90_PAIRS = ("ILi64ELi64E", "ILi128ELi128E", "ILi192ELi128E")
 
 
 def log(msg: str) -> None:
@@ -2773,32 +2779,72 @@ def _cuobjdump():
     return str(tool) if tool.exists() else shutil.which("cuobjdump")
 
 
+_DUMPS: dict = {}
+
+
+def _dump(lib_path: Path, flag: str):
+    """``cuobjdump <flag>`` of the library, run once a library a process;
+    None where the toolkit has no ``cuobjdump``."""
+    key = (str(lib_path), flag)
+    if key not in _DUMPS:
+        tool = _cuobjdump()
+        _DUMPS[key] = None if tool is None else subprocess.run(
+            [tool, flag, str(lib_path)], capture_output=True, text=True, timeout=120).stdout
+    return _DUMPS[key]
+
+
 def sass_counts(lib_path: Path) -> dict:
     """How many HGMMA (wgmma) and UTMALDG (TMA load) instructions the
     library's SASS holds, where the toolkit has ``cuobjdump``."""
-    tool = _cuobjdump()
-    if tool is None:
+    sass = _dump(lib_path, "-sass")
+    if sass is None:
         return {"cuobjdump": None}
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
-                          timeout=120).stdout
-    return {"cuobjdump": tool, "HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
+    return {"cuobjdump": _cuobjdump(), "HGMMA": sass.count("HGMMA"),
+            "UTMALDG": sass.count("UTMALDG")}
 
 
-def res_usage(lib_path: Path, function: str) -> dict:
-    """Registers, stack, local (spill) and shared bytes of the kernel whose
-    mangled name holds ``function``, as ``cuobjdump -res-usage`` reads them."""
+def res_usage(lib_path: Path, functions: tuple, sass: bool = False) -> dict:
+    """For each kernel whose mangled name holds one of ``functions``: its
+    registers, stack, local (spill) and shared bytes, as ``cuobjdump
+    -res-usage`` reads them, and with ``sass`` its HGMMA and UTMALDG counts."""
     import re
 
-    tool = _cuobjdump()
-    if tool is None:
+    res = _dump(lib_path, "-res-usage")
+    if res is None:
         return {"cuobjdump": None}
-    text = subprocess.run([tool, "-res-usage", str(lib_path)], capture_output=True, text=True,
-                          timeout=120).stdout
-    at = text.find(function)
-    m = re.search(r"REG:\d+[^\n]*", text[at:]) if at >= 0 else None
-    if m is None:
-        raise AssertionError(f"cuobjdump -res-usage lists no kernel named {function}")
-    return {k: int(v) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", m.group(0))}
+    code = {}
+    if sass:
+        code = {part.split(None, 1)[0]: part
+                for part in _dump(lib_path, "-sass").split("Function : ")[1:]}
+    out = {}
+    for fn in functions:
+        at = res.find(fn)
+        m = re.search(r"REG:\d+[^\n]*", res[at:]) if at >= 0 else None
+        if m is None:
+            raise AssertionError(f"cuobjdump -res-usage lists no kernel named {fn}")
+        out[fn] = {k: int(v) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", m.group(0))}
+        if sass:
+            text = next((part for name, part in code.items() if fn in name), None)
+            if text is None:
+                raise AssertionError(f"cuobjdump -sass lists no kernel named {fn}")
+            out[fn].update(HGMMA=text.count("HGMMA"), UTMALDG=text.count("UTMALDG"))
+    return out
+
+
+def tensor_cores_no_spill(lib: str, functions: tuple, new: tuple) -> dict:
+    """``res_usage`` of ``functions`` in library ``lib`` with their SASS
+    counts; raises unless each of ``new`` has HGMMA instructions and no local
+    bytes."""
+    from repro_torch.kernels import build
+
+    out = res_usage(build.lib_path(lib), functions, sass=True)
+    if "cuobjdump" in out:
+        raise AssertionError(f"{lib}: no cuobjdump to read the kernels' spills")
+    for fn in new:
+        if out[fn]["LOCAL"] != 0 or out[fn]["HGMMA"] == 0:
+            raise AssertionError(f"{lib} {fn}: {out[fn]}, want no local bytes and HGMMA > 0")
+    log(f"  {lib} kernels by (Dk, Dv): {out}")
+    return out
 
 
 def check_flash(torch, device, seed: int) -> dict:
@@ -3225,6 +3271,18 @@ def flash_bwd_cases(torch, g, cases, out: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def simt_bwd(torch, q, k, v, o, lse, do, causal: bool = True):
+    """The SIMT backward kernel through its binding, whatever route the rule
+    gives (uncounted: timing only)."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    fkernel.flash_attention_bwd(q, k, v, o, do, lse, delta, dq, dk, dv, q.shape[3] ** -0.5,
+                                causal)
+    return dq, dk, dv
+
+
 def check_flash_bwd(torch, device, seed: int) -> dict:
     """The flash-attention backward on the card, on both of its routes
     (``ops.bwd_route``), case by case through ``flash_bwd_cases``: bf16 cases
@@ -3250,14 +3308,6 @@ def check_flash_bwd(torch, device, seed: int) -> dict:
                 torch.randn(b, hkv, skv, d, generator=g, device=device).to(dtype),
                 torch.randn(b, hq, sq, d, generator=g, device=device).to(dtype))
 
-    def simt(q, k, v, o, lse, do, causal=True):
-        """The SIMT kernel through its binding (uncounted: timing only)."""
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        delta = torch.empty(q.shape[:3], dtype=f32, device=q.device)
-        fops.kernel.flash_attention_bwd(q, k, v, o, do, lse, delta, dq, dk, dv,
-                                        q.shape[3] ** -0.5, causal)
-        return dq, dk, dv
-
     path = (1, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 128, 128)
     # name, shape, dtype, causal, forward route, backward route, dO as an unaligned view
     cases = [("training shape bf16", path, bf, True, "sm90", "sm90", False),
@@ -3282,7 +3332,7 @@ def check_flash_bwd(torch, device, seed: int) -> dict:
     vl = v.repeat_interleave(group, 1).requires_grad_(True)
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
     fns = {"sm90": lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
-           "simt": lambda: simt(q, k, v, o, lse, do),
+           "simt": lambda: simt_bwd(torch, q, k, v, o, lse, do),
            "plain": lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True),
            "library": lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)}
     if fops.bwd_route(q, k, v, do) != "sm90":
@@ -3629,14 +3679,18 @@ def train_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
 
 def check_flash_moe(torch, device, seed: int) -> dict:
     """The flash forward at the MoE family's two full-width prefill shapes,
-    each on its asserted route, against its float32 plain version on the
-    upcast inputs (the model phase's limits: bf16 within one rounding,
-    2^-8|want| + 1e-4); then the kernel, its plain version and
-    ``scaled_dot_product_attention`` timed in turns, beside the bound."""
+    each on its asserted route (both sm90), against its float32 plain version
+    on the upcast inputs (the model phase's limits: bf16 within one rounding,
+    2^-8|want| + 1e-4); then the kernel, ``scaled_dot_product_attention``
+    and, at MLA's shape, the SIMT kernel on the same inputs through its
+    binding (held to the same limit) timed in turns, beside the plain version
+    and the bound; the registers, spills and SASS of the tensor-core
+    library's kernels."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import chunked_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention import ops as fops
 
     g = torch.Generator(device=device)
@@ -3644,12 +3698,17 @@ def check_flash_moe(torch, device, seed: int) -> dict:
     bf = torch.bfloat16
     rtol, atol = 2.0 ** -8, 1e-4
     out = {"tolerance": {"bfloat16": {"rtol": rtol, "atol": atol}}, "shapes": {}}
+
+    def share_of(got, want):
+        err = (got.float() - want).abs()
+        return float(err.max()), float((err / (atol + rtol * want.abs())).max())
+
     # name -> (B, Hq, Hkv, S, Dk, Dv), route; the float32 plain version is the
     # chunked one (attention_ref's (128, 4096, 4096) float32 score matrices at
     # MLA's shape would take ~34 GB)
     for name, (b, hq, hkv, s, dk, dv), want_route in (
             ("olmoe", (1, 16, 16, MOE_SEQ, 128, 128), "sm90"),
-            ("mla", (1, 128, 128, MOE_SEQ, 192, 128), "simt")):
+            ("mla", (1, 128, 128, MOE_SEQ, 192, 128), "sm90")):
         q = torch.randn(b, hq, s, dk, generator=g, device=device).to(bf)
         k = torch.randn(b, hkv, s, dk, generator=g, device=device).to(bf)
         v = torch.randn(b, hkv, s, dv, generator=g, device=device).to(bf)
@@ -3660,27 +3719,32 @@ def check_flash_moe(torch, device, seed: int) -> dict:
             raise AssertionError(f"flash_attention ({name}) took route {took}, want {want_route}")
         want = chunked_attention_ref(q.float(), k.float(), v.float(), causal=True)
         torch.cuda.synchronize()
-        err = (got.float() - want).abs()
-        share = float((err / (atol + rtol * want.abs())).max())
-        max_err = float(err.max())
+        max_err, share = share_of(got, want)
         if got.dtype != bf or got.shape != want.shape or share > 1:
             raise AssertionError(f"flash_attention ({name}) differs from its float32 plain "
                                  f"version: max_abs_err {max_err}, {share:.3f} of the limit")
-        del got, want, err
+        del got
+        o = torch.empty(b, hq, s, dv, dtype=bf, device=device)
 
         def kernel():
             return flash_attention(q, k, v, causal=True)
 
+        def simt():      # the SIMT kernel on the same inputs, through its binding
+            fkernel.flash_attention(q, k, v, o, dk ** -0.5, True)
+
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
-        fns = {"kernel": kernel, "library": library}
+        fns = {"sm90": kernel, "library": library}
+        order = ("sm90", "library", "library", "sm90")
+        if name == "mla":      # 66 ms a launch: two a turn
+            fns["simt"] = simt
+            order = ("sm90", "simt", "library", "library", "simt", "sm90")
+        iters = {"sm90": 20, "library": 20, "simt": 2}
         counts = (flash_attention.launches, fops.launches_by_route())
-        order = ("kernel", "library", "library", "kernel")
-        iters = 20 if name == "olmoe" else 5
         turns = {n: [] for n in fns}
         for n in order:
-            turns[n].append(cuda_ms(fns[n], iters=iters))
+            turns[n].append(cuda_ms(fns[n], iters=iters[n], warmup=1 if n == "simt" else 2))
         flash_attention.launches = counts[0]           # timing launches are not a path's
         for r, n in counts[1].items():
             setattr(flash_attention, f"launches_{r}", n)
@@ -3688,27 +3752,49 @@ def check_flash_moe(torch, device, seed: int) -> dict:
         row = {"shape": f"B={b} Hq={hq} Hkv={hkv} S={s} Dk={dk} Dv={dv} causal bf16",
                "route": want_route, "max_abs_err": max_err, "share_of_limit": share,
                "turns_ms": turns, "order": ", ".join(order),
-               "ms": sum(turns["kernel"]) / 2, "library_ms": sum(turns["library"]) / 2,
+               "ms": sum(turns["sm90"]) / 2, "library_ms": sum(turns["library"]) / 2,
                "library": "F.scaled_dot_product_attention(is_causal=True)",
                "plain_ms": cuda_ms(lambda: chunked_attention_ref(q, k, v), iters=2, warmup=1),
                "plain": "chunked_attention_ref (block_k=512)",
-               "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes}
+               "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes,
+               # the split P: P_hi V and P_lo V
+               "issued_flop": ops // (2 * (dk + dv)) * (2 * dk + 4 * dv)}
+        simt_note = ""
+        if "simt" in turns:
+            torch.cuda.synchronize()
+            row["simt_ms"] = sum(turns["simt"]) / 2
+            row["simt_max_abs_err"], row["simt_share_of_limit"] = share_of(o, want)
+            if row["simt_share_of_limit"] > 1:
+                raise AssertionError(f"the SIMT kernel ({name}): {row['simt_share_of_limit']:.3f} "
+                                     "of the limit")
+            simt_note = (f"; SIMT kernel {row['simt_ms']:.3f} ms "
+                         f"({', '.join(f'{t:.3f}' for t in turns['simt'])}, "
+                         f"{row['simt_share_of_limit']:.3f} of the limit), "
+                         f"{row['simt_ms'] / row['ms']:.1f}x the sm90 kernel")
         out["shapes"][name] = row
         log(f"  flash_attention {name} {row['shape']} route {want_route}: {share:.3f} of the "
-            f"limit; {row['ms']:.4f} ms ({', '.join(f'{t:.4f}' for t in turns['kernel'])}); "
-            f"library {row['library_ms']:.4f} ms; plain chunked {row['plain_ms']:.3f} ms; bound "
-            f"{bound:.4f} ms by {by}: {ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB")
-        del q, k, v, fns
+            f"limit; {row['ms']:.4f} ms ({', '.join(f'{t:.4f}' for t in turns['sm90'])}); "
+            f"library {row['library_ms']:.4f} ms "
+            f"({', '.join(f'{t:.4f}' for t in turns['library'])}){simt_note}; plain chunked "
+            f"{row['plain_ms']:.3f} ms; bound {bound:.4f} ms by {by}: {ops / 1e9:.1f} GFLOP "
+            f"({row['issued_flop'] / 1e9:.1f} issued), {nbytes / 1e6:.1f} MB")
+        del q, k, v, o, want, fns
         torch.cuda.empty_cache()
+    out["resources"] = tensor_cores_no_spill(
+        "flash_attention_sm90", tuple(f"flash_sm90_kernel{p}" for p in SM90_PAIRS),
+        new=(f"flash_sm90_kernel{SM90_PAIRS[-1]}",))
     return out
 
 
 def check_flash_bwd_mla(torch, device, seed: int) -> dict:
-    """The SIMT backward with Dk != Dv (MLA: Dk = 192, Dv = 128; and Dk < Dv)
-    through ``flash_bwd_cases`` (float32 and bf16, causal and not, ragged,
-    GQA, the MLA shape at S = ``MLA_BWD_SEQ``; two launches bit-equal), then
-    at the MLA shape in bf16 the kernel, its plain version and the library's
-    backward in turns, beside the bound."""
+    """The backward with Dk != Dv through ``flash_bwd_cases``: bf16 at MLA's
+    Dk = 192, Dv = 128 on the tensor cores (the MLA shape at S =
+    ``MLA_BWD_SEQ``, non-causal, GQA with ragged Sq < Skv; a dO view no TMA
+    map takes on SIMT), float32 and Dk = 64 < Dv = 128 on the SIMT kernel;
+    two launches bit-equal.  Then at the MLA shape in bf16, in turns, the
+    tensor-core kernel, the SIMT kernel on the same inputs, the plain version
+    and the library's backward, beside the bound; the registers, spills and
+    SASS of the tensor-core library's kernels."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
@@ -3718,15 +3804,21 @@ def check_flash_bwd_mla(torch, device, seed: int) -> dict:
     g.manual_seed(seed + 43)
     bf, f32 = torch.bfloat16, torch.float32
     mla = (1, 128, 128, MLA_BWD_SEQ, MLA_BWD_SEQ, 192, 128)
-    cases = [("MLA shape bf16", mla, bf, True, "simt", "simt", False),
+    gqa = (1, 8, 2, 100, 333, 192, 128)
+    cases = [("MLA shape bf16", mla, bf, True, "sm90", "sm90", False),
              ("MLA shape f32", mla, f32, True, "simt", "simt", False),
-             ("Dk=192 Dv=128 non-causal", (2, 4, 4, 150, 300, 192, 128), bf, False, "simt",
-              "simt", False),
+             ("Dk=192 Dv=128 non-causal", (2, 4, 4, 150, 300, 192, 128), bf, False, "sm90",
+              "sm90", False),
              ("Dk=192 Dv=128 non-causal f32", (1, 4, 4, 96, 96, 192, 128), f32, False, "simt",
               "simt", False),
-             ("Dk=192 Dv=128 GQA ragged Sq=100<Skv=333", (1, 8, 2, 100, 333, 192, 128), f32,
-              True, "simt", "simt", False),
-             ("Dk=64 < Dv=128", (1, 4, 2, 130, 130, 64, 128), f32, True, "simt", "simt", False)]
+             ("Dk=192 Dv=128 GQA ragged Sq=100<Skv=333", gqa, bf, True, "sm90", "sm90", False),
+             ("Dk=192 Dv=128 GQA ragged Sq=100<Skv=333 f32", gqa, f32, True, "simt", "simt",
+              False),
+             ("Dk=192 Dv=128, dO rows of 264 bytes", (1, 8, 8, 256, 256, 192, 128), bf, True,
+              "sm90", "simt", True),
+             ("Dk=64 < Dv=128", (1, 4, 2, 130, 130, 64, 128), f32, True, "simt", "simt", False),
+             ("Dk=64 < Dv=128 bf16", (1, 4, 2, 130, 130, 64, 128), bf, True, "simt", "simt",
+              False)]
     out = {"cases": [], "tolerance": BWD_TOL}
     flash_bwd_cases(torch, g, cases, out)
 
@@ -3736,38 +3828,52 @@ def check_flash_bwd_mla(torch, device, seed: int) -> dict:
     v = torch.randn(b, hkv, s, dv, generator=g, device=device).to(bf)
     do = torch.randn(b, hq, s, dv, generator=g, device=device).to(bf)
     o, lse = fops._forward(q, k, v, True, dk ** -0.5, with_lse=True)
-    if fops.bwd_route(q, k, v, do) != "simt":
-        raise AssertionError("flash backward: the MLA shape does not take the SIMT route")
-    fns = {"simt": lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+    if fops.bwd_route(q, k, v, do) != "sm90":
+        raise AssertionError("flash backward: the MLA shape does not take the sm90 route")
+    fns = {"sm90": lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+           "simt": lambda: simt_bwd(torch, q, k, v, o, lse, do),
            "plain": lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)}
     ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
     fns["library"] = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
     nb = (flash_attention_bwd.launches, fops.launches_by_route(flash_attention_bwd))
-    order = ("simt", "plain", "library", "library", "plain", "simt")
+    order = ("sm90", "simt", "plain", "library", "library", "plain", "simt", "sm90")
+    iters = {"sm90": 10, "simt": 2, "plain": 2, "library": 10}
     turns = {n: [] for n in fns}
     for n in order:
-        turns[n].append(cuda_ms(fns[n], iters=2, warmup=1))
+        turns[n].append(cuda_ms(fns[n], iters=iters[n], warmup=1))
     flash_attention_bwd.launches = nb[0]        # timing launches are not a path's
     for r, n in nb[1].items():
         setattr(flash_attention_bwd, f"launches_{r}", n)
     bound, by, ops, nbytes = flash_bwd_bound_ms(q, k, v, True)
+    pairs = flash_pairs(b, hq, s, s, True)
     out["timing"] = {"shape": f"B=1 Hq=Hkv=128 S={s} Dk=192 Dv=128 causal bf16",
-                     "turns_ms": turns, "order": ", ".join(order),
-                     "ms": sum(turns["simt"]) / 2, "plain_ms": sum(turns["plain"]) / 2,
+                     "route": "sm90", "turns_ms": turns, "order": ", ".join(order),
+                     "ms": sum(turns["sm90"]) / 2, "simt_ms": sum(turns["simt"]) / 2,
+                     "plain_ms": sum(turns["plain"]) / 2,
                      "library_ms": sum(turns["library"]) / 2,
                      "plain": "flash_attention_bwd_ref (block_k=512)",
                      "library": "torch.autograd.grad through F.scaled_dot_product_attention("
                                 "is_causal=True), its backward alone",
-                     "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes}
-    out["max_abs_err"] = max(c["max_abs_err"] for c in out["cases"])
+                     "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes,
+                     # 7 products: S^T, dP^T, dV, dK, then S, dP again and dQ
+                     "issued_flop": (8 * dk + 6 * dv) * pairs}
+    out["max_abs_err"] = {route: max(c["max_abs_err"] for c in out["cases"]
+                                     if c["bwd_route"] == route) for route in ("sm90", "simt")}
     r = out["timing"]
-    log(f"  flash backward at {r['shape']}: simt {r['ms']:.3f} ms "
-        f"({', '.join(f'{t:.3f}' for t in turns['simt'])}); plain {r['plain_ms']:.3f} ms; "
-        f"library backward {r['library_ms']:.4f} ms; bound {bound:.4f} ms by {by}: "
-        f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB")
-    del q, k, v, do, o, lse, ql, kl, vl, fns
+    log(f"  flash backward at {r['shape']}: sm90 {r['ms']:.4f} ms "
+        f"({', '.join(f'{t:.4f}' for t in turns['sm90'])}), "
+        f"{r['ms'] / r['library_ms']:.2f}x the library; simt {r['simt_ms']:.3f} ms "
+        f"({', '.join(f'{t:.3f}' for t in turns['simt'])}), {r['simt_ms'] / r['ms']:.1f}x "
+        f"the sm90 kernel; plain {r['plain_ms']:.3f} ms; library backward "
+        f"{r['library_ms']:.4f} ms; bound {bound:.4f} ms by {by}: {ops / 1e9:.1f} GFLOP "
+        f"({r['issued_flop'] / 1e9:.1f} issued), {nbytes / 1e6:.1f} MB")
+    del q, k, v, do, o, lse, ql, kl, vl, lib_out, fns
     torch.cuda.empty_cache()
+    out["resources"] = tensor_cores_no_spill(
+        "flash_attention_bwd_sm90",
+        tuple(f"{kern}_kernel{p}" for kern in ("dkdv", "dq") for p in SM90_PAIRS),
+        new=(f"dkdv_kernel{SM90_PAIRS[-1]}", f"dq_kernel{SM90_PAIRS[-1]}"))
     return out
 
 
@@ -3928,7 +4034,7 @@ def deepseek_cell(torch, np, seed: int, device, out_dir: Path) -> dict:
     MoE) with its MTP head: float32 decode against forward at the no-drop
     capacity first (the float32 model freed before the next), then the bf16
     model (``param_dtype`` cut to bf16): one ``MOE_SEQ``-token
-    ``lm_forward_mtp`` (3 flash launches on the SIMT route: the trunk's two
+    ``lm_forward_mtp`` (3 flash launches on the sm90 route: the trunk's two
     layers and the MTP block) and ``MLA_SERVE`` requests through the engine
     with ``mla_absorb`` off and on (tokens printed, not asserted)."""
     import dataclasses
@@ -3984,7 +4090,7 @@ def deepseek_cell(torch, np, seed: int, device, out_dir: Path) -> dict:
         if i == 0:
             rep["launches_by_route"] = fops.launches_by_route()
             _want_flash("DeepSeek-V3 lm_forward_mtp", rep["launches_by_route"],
-                        {"sm90": 0, "simt": cfg.n_layers + 1})
+                        {"sm90": cfg.n_layers + 1, "simt": 0})
         want = (1, MOE_SEQ, cfg.padded_vocab)
         if (logits.shape != want or mtp_logits.shape != want
                 or not bool(torch.isfinite(logits[..., :cfg.vocab]).all())
@@ -4105,6 +4211,15 @@ def moe_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
     t0 = time.perf_counter()
     rep["deepseek"] = deepseek_cell(torch, np, seed, device, out_dir)
     rep["deepseek"]["wall_s"] = time.perf_counter() - t0
+    # the forward's flash launches run at the timed MLA shape exactly
+    ds, mla_ms = rep["deepseek"], rep["flash"]["shapes"]["mla"]["ms"]
+    n_flash = sum(ds["launches_by_route"].values())
+    ds["flash_ms_est"] = n_flash * mla_ms
+    ds["flash_share_est"] = ds["flash_ms_est"] / 1e3 / min(ds["forward_s"])
+    log(f"  DeepSeek-V3 lm_forward_mtp: its {n_flash} flash launches at {mla_ms:.4f} ms "
+        f"each (the timed MLA shape) "
+        f"make {ds['flash_ms_est']:.3f} ms, {ds['flash_share_est']:.4f} of the "
+        f"{min(ds['forward_s']):.4f} s warm forward")
     t0 = time.perf_counter()
     rep["recognition"] = recognition_cell(torch, np, seed, device)
     rep["recognition"]["wall_s"] = time.perf_counter() - t0
@@ -4223,7 +4338,8 @@ def main() -> int:
     # timings at the main path's shapes
     nnz = int((~zero_np).sum())
     pub = time_publish(torch, ops, ref, pm, ws_full, nnz)
-    pub["resources"] = res_usage(build.lib_path("fused_publish"), "publish_kernel")
+    usage = res_usage(build.lib_path("fused_publish"), ("publish_kernel",))
+    pub["resources"] = usage.get("publish_kernel", usage)
     report["publish"] = pub
     log(f"  fused_publish  {pub['ms']:.4f} ms a launch ({pub['bound_ms'] / pub['ms']:.3f} of the "
         f"bound {pub['bound_ms']:.4f} ms by {pub['bound_by']}); through the wrapper "
@@ -4476,8 +4592,8 @@ def main() -> int:
     moe = report["moe"]
 
     def at_shape(t):
-        return {k: t[k] for k in ("shape", "route", "ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms") if k in t}
+        return {k: t[k] for k in ("shape", "route", "ms", "simt_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms", "issued_flop") if k in t}
 
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SRC["sm90"],
@@ -4494,7 +4610,8 @@ def main() -> int:
         "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "simt_ms": r["simt_ms"], "simt_source": FLASH_SRC["simt"], "shape": r["shape"],
-        "at_moe_shapes": {n: at_shape(t) for n, t in moe["flash"]["shapes"].items()}})
+        "at_moe_shapes": {n: at_shape(t) for n, t in moe["flash"]["shapes"].items()},
+        "resources": moe["flash"]["resources"]})
     tr = report["train"]
     b = tr["backward"]["timing"]
     bwd_replaces = (f"none: the backward of {FLASH_TPU}, which the JAX package gets by "
@@ -4513,13 +4630,12 @@ def main() -> int:
             "replaces": bwd_replaces, "launches": launches,
             "launches_by_path": {"train": train_bwd[route], "quickstart": qs_bwd[route]},
             "bit_equal": False, "deterministic": True, "tolerance": tr["backward"]["tolerance"],
-            "max_abs_err": (tr["backward"]["max_abs_err"][route] if route == "sm90" else
-                            max(tr["backward"]["max_abs_err"][route],
-                                moe["backward"]["max_abs_err"])),
+            "max_abs_err": max(tr["backward"]["max_abs_err"][route],
+                               moe["backward"]["max_abs_err"][route]),
             "ms": ms, "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": b["library_ms"], "shape": b["shape"],
-            **({"at_mla_shape": at_shape(moe["backward"]["timing"])} if route == "simt"
-               else {})})
+            **({"at_mla_shape": at_shape(moe["backward"]["timing"]),
+                "resources": moe["backward"]["resources"]} if route == "sm90" else {})})
     report["kernels"] = kernels
     report["smoke_s"] = sum(report["phase_s"].values())
     log(f"smoke: {report['smoke_s']:.2f} s over {len(report['phase_s'])} phases on {card}")

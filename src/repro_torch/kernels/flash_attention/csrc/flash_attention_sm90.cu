@@ -4,8 +4,9 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:91
 // `flash_attention_pallas` (body `_flash_kernel`, kernel.py:34) for the calls
-// that `ops.route` sends here: bf16 q, k, v with Dk == Dv in {64, 128}, base
-// pointers and the strides of dims 0..2 16-byte aligned, dim 3 contiguous.
+// that `ops.route` sends here: bf16 q, k, v with (Dk, Dv) one of (64, 64),
+// (128, 128) and MLA's (192, 128), base pointers and the strides of dims 0..2
+// 16-byte aligned, dim 3 contiguous.
 // It computes what that kernel computes: scores (q . k) * scale in float32,
 // the scale applied after the product; online softmax with the finite mask
 // value -1e30; the causal mask suffix-aligned (key j is kept for query i when
@@ -18,7 +19,10 @@
 // Bound: 2 * (Dk + Dv) operations per (query, key) pair.  At the Phi-4-mini
 // prefill shape (B = 1, Hq = 24, Hkv = 8, S = 8192, D = 128, causal) that is
 // 412 GFLOP, 0.42 ms at the 989 TFLOP/s bf16 tensor-core peak, against 134 MB
-// (0.04 ms at 3.35 TB/s): bound by operations.
+// (0.04 ms at 3.35 TB/s): bound by operations.  At MLA's shape (B = 1,
+// Hq = Hkv = 128, S = 4096, Dk = 192, Dv = 128, causal) 687 GFLOP, 0.695 ms;
+// the kernel issues 2 Dk + 4 Dv = 896 operations a pair (the split P below),
+// 962 GFLOP there.
 //
 // Numerics.  The TPU kernel multiplies P by V with P in float32.  Rounding P
 // to bf16 for the tensor cores (as FlashAttention does), or to TF32, misses
@@ -30,7 +34,9 @@
 // tensor-core work of bf16 P.  The row sums l are taken from the float32 P.
 //
 // Design.  One block of three warpgroups per (128-query tile, batch * head),
-// the longest causal tiles first:
+// the longest causal tiles first within each head.  Blocks start in the
+// order of their linear index, x fastest, and the tile index is blockIdx.x,
+// so a wave holds few heads and their K and V tiles stay in L2:
 // - warpgroup 0, the producer, gives its registers away (setmaxnreg) and one
 //   thread issues TMA loads: the Q tile once, then K and V tiles of 128 keys
 //   into a two-stage ring with full and empty mbarriers.  The tensor maps are
@@ -40,7 +46,7 @@
 //   loaded.
 // - warpgroups 1 and 2, the consumers, own 64 query rows each.  Per key
 //   tile: S = Q K^T by wgmma m64n128k16 with both operands in shared memory
-//   (K's [keys, D] tile is the K-major B operand); scale, mask (keys past
+//   (K's [keys, Dk] tile is the K-major B operand); scale, mask (keys past
 //   Skv, and the causal diagonal, only on tiles that need it) and the online
 //   base-2 softmax in registers on the accumulator layout, the row max and sum
 //   reduced over the four threads of a quad; O rescaled by alpha in float32;
@@ -48,8 +54,10 @@
 //   accumulator fragment of 16 keys is the A fragment of one k16 step) and
 //   V's [keys, Dv] tile as the MN-major (transposed) B operand.
 // - Shared memory holds bf16 tiles of 128 rows x 64 columns, 128-byte
-//   swizzled as TMA writes them and wgmma reads them: Q 128 x D, K and V two
-//   stages each, 160 KB at D = 128, one block an SM.
+//   swizzled as TMA writes them and wgmma reads them: Q 128 x Dk, K (Dk wide)
+//   and V (Dv wide) two stages each, 160 KB at D = 128 and 208 KB at (192,
+//   128), one block an SM.  Dk only adds k16 steps to S = Q K^T: a consumer
+//   thread holds O (Dv / 2 floats), S and P_hi / P_lo at every width.
 // - Epilogue: O / l rounded to bf16, rows < Sq stored as 4-byte pairs;
 //   given an `lse` pointer (training), each row's log-sum-exp
 //   m ln2 + log(l) in natural units, float32, for the backward kernels.
@@ -67,18 +75,18 @@ constexpr int kThreads = 384;      // producer warpgroup + two consumer warpgrou
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 constexpr int kBoxBytes = kBM * kBox * 2;  // 16 KB: one [128 rows][64 cols] bf16 box
 
-template <int D>
+template <int DK, int DV>
 struct __align__(1024) Smem {
-  __nv_bfloat16 q[D / kBox][kBM * kBox];
-  __nv_bfloat16 k[kStages][D / kBox][kBN * kBox];
-  __nv_bfloat16 v[kStages][D / kBox][kBN * kBox];
+  __nv_bfloat16 q[DK / kBox][kBM * kBox];
+  __nv_bfloat16 k[kStages][DK / kBox][kBN * kBox];
+  __nv_bfloat16 v[kStages][DV / kBox][kBN * kBox];
   uint64_t q_full;
   uint64_t k_full[kStages], k_empty[kStages];
   uint64_t v_full[kStages], v_empty[kStages];
 };
 
 struct Params {
-  __nv_bfloat16* o;  // contiguous (B, Hq, Sq, D)
+  __nv_bfloat16* o;  // contiguous (B, Hq, Sq, Dv)
   float* lse;        // contiguous (B, Hq, Sq), or null
   int hq, group, sq, skv;
   float scale;
@@ -98,21 +106,22 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uin
 // Accumulator layout of a wgmma m64nN float32 result, for thread `lane` of
 // warp w of the warpgroup: register i holds row 16w + lane/4 + 8*((i/2)%2)
 // and column 8*(i/4) + 2*(lane%4) + i%2.
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  constexpr int kChunks = D / kBox;
-  constexpr uint32_t kTileBytes = kChunks * kBoxBytes;
+  constexpr int kKChunks = DK / kBox, kVChunks = DV / kBox;
+  constexpr uint32_t kKTileBytes = kKChunks * kBoxBytes;  // a Q or K tile
+  constexpr uint32_t kVTileBytes = kVChunks * kBoxBytes;  // a V tile
   extern __shared__ uint8_t smem_raw[];
   // swizzle atoms start 1024-aligned
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw + pad);
+  Smem<DK, DV>& sm = *reinterpret_cast<Smem<DK, DV>*>(smem_raw + pad);
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.y, tile = gridDim.x - 1 - blockIdx.x;
   const int b = bh / p.hq, h = bh % p.hq, hk = h / p.group;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;  // longest causal tiles first
+  const int q0 = tile * kBM;  // longest causal tiles first
   const int off = p.skv - p.sq;
   const int kend = p.causal ? min(q0 + kBM, p.sq) + off : p.skv;  // keys this tile's rows see
   const int n_tiles = (kend + kBN - 1) / kBN;
@@ -135,21 +144,21 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---- producer: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(&sm.q_full, kTileBytes);
+      mbar_expect_tx(&sm.q_full, kKTileBytes);
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) tma_load(sm.q[c], &tm_q, &sm.q_full, c * kBox, q0, h, b);
+      for (int c = 0; c < kKChunks; ++c) tma_load(sm.q[c], &tm_q, &sm.q_full, c * kBox, q0, h, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         const uint32_t ph = (t / kStages) & 1;
         mbar_wait(&sm.k_empty[s], ph ^ 1);
-        mbar_expect_tx(&sm.k_full[s], kTileBytes);
+        mbar_expect_tx(&sm.k_full[s], kKTileBytes);
 #pragma unroll
-        for (int c = 0; c < kChunks; ++c)
+        for (int c = 0; c < kKChunks; ++c)
           tma_load(sm.k[s][c], &tm_k, &sm.k_full[s], c * kBox, t * kBN, hk, b);
         mbar_wait(&sm.v_empty[s], ph ^ 1);
-        mbar_expect_tx(&sm.v_full[s], kTileBytes);
+        mbar_expect_tx(&sm.v_full[s], kVTileBytes);
 #pragma unroll
-        for (int c = 0; c < kChunks; ++c)
+        for (int c = 0; c < kVChunks; ++c)
           tma_load(sm.v[s][c], &tm_v, &sm.v_full[s], c * kBox, t * kBN, hk, b);
       }
     }
@@ -165,9 +174,9 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int col = 2 * (lane % 4);
     const uint32_t q_addr = smem_u32(sm.q[0]) + cw * 64 * 128;  // 64 rows of 128 bytes a box
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // row max in log2 units, row sum
     const float scale_log2 = p.scale * 1.4426950408889634f;   // scale * log2(e)
     mbar_wait(&sm.q_full, 0);
@@ -177,7 +186,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t ph = (t / kStages) & 1;
       const int k0 = t * kBN;
 
-      // S = Q K^T: k16 steps along D; a step inside a 128-byte row moves the
+      // S = Q K^T: k16 steps along Dk; a step inside a 128-byte row moves the
       // start address by 32 bytes, the next 64 columns are the next box
       float sc[64];
 #pragma unroll
@@ -187,7 +196,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       pin(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DK / 16; ++kk) {
         const uint32_t step = (kk / 4) * kBoxBytes + (kk % 4) * 32;
         wgmma_ss_n128(sc, sw128_desc(q_addr + step, 16, 1024), sw128_desc(k_addr + step, 16, 1024),
                       kk > 0);
@@ -236,7 +245,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       l0 = a0 * l0 + quad_sum(sum0);
       l1 = a1 * l1 + quad_sum(sum1);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= (i / 2) % 2 ? a1 : a0;
+      for (int i = 0; i < DV / 2; ++i) o[i] *= (i / 2) % 2 ? a1 : a0;
 
       // P = P_hi + P_lo; the 8 registers of 16 keys are one k16 A fragment
       uint32_t phi[kBN / 16][4], plo[kBN / 16][4];
@@ -256,8 +265,8 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk) {
         const uint64_t desc = sw128_desc(v_addr + kk * 16 * 128, kBoxBytes, 1024);
-        wgmma_rs<D>(o, phi[kk], desc);
-        wgmma_rs<D>(o, plo[kk], desc);
+        wgmma_rs<DV>(o, phi[kk], desc);
+        wgmma_rs<DV>(o, plo[kk], desc);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -270,20 +279,20 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // epilogue: O / l in bf16, rows < Sq; the log-sum-exp when asked, from
     // the row max in log2 units: m ln2 + log(l)
     const float d0 = l0 == 0.f ? 1.f : l0, d1 = l1 == 0.f ? 1.f : l1;
-    __nv_bfloat16* out = p.o + static_cast<int64_t>(bh) * p.sq * D;
+    __nv_bfloat16* out = p.o + static_cast<int64_t>(bh) * p.sq * DV;
     if (p.lse != nullptr && lane % 4 == 0) {
       float* lse = p.lse + static_cast<int64_t>(bh) * p.sq;
       if (r0 < p.sq) lse[r0] = m0 * 0.6931471805599453f + logf(l0);
       if (r1 < p.sq) lse[r1] = m1 * 0.6931471805599453f + logf(l1);
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int c = j * 8 + col;
       if (r0 < p.sq)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<int64_t>(r0) * D + c) =
+        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<int64_t>(r0) * DV + c) =
             __floats2bfloat162_rn(o[4 * j] / d0, o[4 * j + 1] / d0);
       if (r1 < p.sq)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<int64_t>(r1) * D + c) =
+        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<int64_t>(r1) * DV + c) =
             __floats2bfloat162_rn(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
     }
   }
@@ -291,17 +300,18 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ------------------------------------------------------------------- host
 
-template <int D>
+template <int DK, int DV>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const Params& p,
            int64_t b, cudaStream_t stream) {
-  const size_t smem = sizeof(Smem<D>) + 1024;  // + room to align the base to 1024
-  cudaError_t err = cudaFuncSetAttribute(flash_sm90_kernel<D>,
+  const size_t smem = sizeof(Smem<DK, DV>) + 1024;  // + room to align the base to 1024
+  cudaError_t err = cudaFuncSetAttribute(flash_sm90_kernel<DK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned int>((p.sq + kBM - 1) / kBM),
-                  static_cast<unsigned int>(b * p.hq));
-  flash_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
+  const unsigned int tiles = static_cast<unsigned int>((p.sq + kBM - 1) / kBM);
+  const unsigned int heads = static_cast<unsigned int>(b * p.hq);
+  const dim3 grid(tiles, heads);
+  flash_sm90_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -309,31 +319,36 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
 
 extern "C" const char* aq_error_string(int code) { return aq_sm90::error_string(code); }
 
-// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), all bf16, with element strides
-// (sb, sh, ss) of dims 0..2 that are multiples of 8 and dim 3 contiguous,
-// bases 16-byte aligned; o: a contiguous (B, Hq, Sq, D) bf16 output; lse:
-// null, or a contiguous float32 (B, Hq, Sq) output of the rows' log-sum-exp.
-// Requires D in {64, 128}, Skv >= 1, Hq % Hkv == 0, B * Hq < 65536 and
-// Sq <= Skv when causal (ops.route and the wrapper check).  Returns the CUDA
-// error, or kErrNoEncode / kErrEncode + CUresult.
+// q (B, Hq, Sq, Dk), k (B, Hkv, Skv, Dk) and v (B, Hkv, Skv, Dv), all bf16,
+// with element strides (sb, sh, ss) of dims 0..2 that are multiples of 8 and
+// dim 3 contiguous, bases 16-byte aligned; o: a contiguous (B, Hq, Sq, Dv)
+// bf16 output; lse: null, or a contiguous float32 (B, Hq, Sq) output of the
+// rows' log-sum-exp.  Requires (Dk, Dv) in {(64, 64), (128, 128), (192, 128)},
+// Skv >= 1, Hq % Hkv == 0, B * Hq < 65536 and Sq <= Skv when causal
+// (ops.route and the wrapper check).  Returns the CUDA error, or
+// kErrNoEncode / kErrEncode + CUresult.
 extern "C" int aq_flash_attention_sm90(const void* q, const void* k, const void* v, void* o,
                                        float* lse, int64_t b, int64_t hq, int64_t hkv, int64_t sq,
-                                       int64_t skv, int64_t d, int64_t q_sb, int64_t q_sh,
-                                       int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
-                                       int64_t v_sb, int64_t v_sh, int64_t v_ss, float scale,
-                                       int causal, void* stream) {
+                                       int64_t skv, int64_t dk, int64_t dv, int64_t q_sb,
+                                       int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
+                                       int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
+                                       float scale, int causal, void* stream) {
   if (b <= 0 || hq <= 0 || sq <= 0) return 0;
-  if ((d != 64 && d != 128) || skv <= 0 || hkv <= 0 || hq % hkv != 0 || b * hq >= 65536 ||
+  const bool widths = (dk == 64 && dv == 64) || (dk == 128 && dv == 128) ||
+                      (dk == 192 && dv == 128);
+  if (!widths || skv <= 0 || hkv <= 0 || hq % hkv != 0 || b * hq >= 65536 ||
       sq >= (1 << 30) || skv >= (1 << 30) || (causal && sq > skv))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  int rc = make_map(&tq, q, d, sq, hq, b, q_ss, q_sh, q_sb, kBN);
-  if (rc == 0) rc = make_map(&tk, k, d, skv, hkv, b, k_ss, k_sh, k_sb, kBN);
-  if (rc == 0) rc = make_map(&tv, v, d, skv, hkv, b, v_ss, v_sh, v_sb, kBN);
+  int rc = make_map(&tq, q, dk, sq, hq, b, q_ss, q_sh, q_sb, kBN);
+  if (rc == 0) rc = make_map(&tk, k, dk, skv, hkv, b, k_ss, k_sh, k_sb, kBN);
+  if (rc == 0) rc = make_map(&tv, v, dv, skv, hkv, b, v_ss, v_sh, v_sb, kBN);
   if (rc != 0) return rc;
   const Params p{static_cast<__nv_bfloat16*>(o), lse, static_cast<int>(hq),
                  static_cast<int>(hq / hkv), static_cast<int>(sq), static_cast<int>(skv), scale,
                  causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch<64>(tq, tk, tv, p, b, s) : launch<128>(tq, tk, tv, p, b, s);
+  if (dk == 64) return launch<64, 64>(tq, tk, tv, p, b, s);
+  if (dk == 128) return launch<128, 128>(tq, tk, tv, p, b, s);
+  return launch<192, 128>(tq, tk, tv, p, b, s);
 }

@@ -1,12 +1,12 @@
 """ctypes bindings of the hand-written CUDA flash-attention kernels: the two
 forward kernels, both replacing ``flash_attention_pallas``,
 ``csrc/flash_attention_sm90.cu`` (TMA, wgmma, warp-specialised; bf16,
-Dk == Dv in {64, 128}) and ``csrc/flash_attention.cu`` (float32 FMAs on the
-CUDA cores; every other call), ``ops.route`` picking one; and the two
-backward kernels, ``csrc/flash_attention_bwd_sm90.cu`` (TMA, wgmma; the same
-calls) and ``csrc/flash_attention_bwd.cu`` (SIMT; every other call, Dk != Dv
-among them),
-``ops.bwd_route`` picking one.  Each takes CUDA tensors that ``ops.py`` has
+(Dk, Dv) in ``ops.SM90_DK_DV``: (64, 64), (128, 128), (192, 128)) and
+``csrc/flash_attention.cu`` (float32 FMAs on the CUDA cores; every other
+call), ``ops.route`` picking one; and the two backward kernels,
+``csrc/flash_attention_bwd_sm90.cu`` (TMA, wgmma; the same calls) and
+``csrc/flash_attention_bwd.cu`` (SIMT; every other call), ``ops.bwd_route``
+picking one.  Each takes CUDA tensors that ``ops.py`` has
 checked and allocated, launches on PyTorch's current stream without
 synchronising, and raises when the launch is refused.
 """
@@ -20,9 +20,9 @@ from .. import build
 from ..build import F32, I32, I64, PTR
 
 _ARGS = (PTR, PTR, PTR, PTR, PTR, *(I64,) * 7, *(I64,) * 9, F32, I32, I32, PTR)
-_SM90_ARGS = (PTR, PTR, PTR, PTR, PTR, *(I64,) * 6, *(I64,) * 9, F32, I32, PTR)
+_SM90_ARGS = (PTR, PTR, PTR, PTR, PTR, *(I64,) * 7, *(I64,) * 9, F32, I32, PTR)
 _BWD_ARGS = (*(PTR,) * 10, *(I64,) * 7, *(I64,) * 12, F32, I32, I32, PTR)
-_BWD_SM90_ARGS = (*(PTR,) * 10, *(I64,) * 6, *(I64,) * 12, F32, I32, PTR)
+_BWD_SM90_ARGS = (*(PTR,) * 10, *(I64,) * 7, *(I64,) * 12, F32, I32, PTR)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the sm90 backward's float32 scratch holds 2 rows (lse in log2 units, and
 # rowsum(dO * O)) per query of each (batch, head), Sq rounded up to this
@@ -51,13 +51,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torc
 def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                          scale: float, causal: bool, lse: Optional[torch.Tensor] = None) -> None:
     """The same function on the tensor cores, for calls ``ops.route`` gives
-    ``"sm90"``: bf16, Dk == Dv in {64, 128}, 16-byte aligned bases and
-    strides of dims 0..2 (any order: the tensor maps take them as they are)."""
-    b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    ``"sm90"``: bf16, (Dk, Dv) in {(64, 64), (128, 128), (192, 128)}, 16-byte
+    aligned bases and strides of dims 0..2 (any order: the tensor maps take
+    them as they are)."""
+    b, hq, sq, dk = q.shape
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     build.call("flash_attention_sm90", "aq_flash_attention_sm90", _SM90_ARGS,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-               b, hq, hkv, sq, skv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               b, hq, hkv, sq, skv, dk, dv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                scale, int(causal), build.stream_of(q))
 
 
@@ -90,15 +91,16 @@ def flash_attention_bwd_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              aux: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
                              dv: torch.Tensor, scale: float, causal: bool) -> None:
     """The same gradients on the tensor cores, for calls ``ops.bwd_route``
-    gives ``"sm90"``: bf16 q, k, v and ``dout``, Dk == Dv in {64, 128},
-    16-byte aligned bases and strides of dims 0..2 (any order).  ``out`` and
+    gives ``"sm90"``: bf16 q, k, v and ``dout``, (Dk, Dv) in {(64, 64),
+    (128, 128), (192, 128)}, 16-byte aligned bases and strides of dims 0..2
+    (any order).  ``out`` and
     ``lse`` contiguous; ``aux`` a contiguous float32 scratch of
     ``bwd_sm90_scratch_shape(q)``.  Three kernels in order on the current
     stream: the prologue (rowsum(dO * O), lse in log2 units), dK/dV, dQ."""
-    b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    b, hq, sq, dk_ = q.shape
+    hkv, skv, dv_ = k.shape[1], k.shape[2], v.shape[3]
     build.call("flash_attention_bwd_sm90", "aq_flash_attention_bwd_sm90", _BWD_SM90_ARGS,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                lse.data_ptr(), aux.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-               b, hq, hkv, sq, skv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               b, hq, hkv, sq, skv, dk_, dv_, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *dout.stride()[:3], scale, int(causal), build.stream_of(q))

@@ -31,8 +31,9 @@ from .ref import attention_ref, chunked_attention_ref, flash_attention_bwd_ref
 # Above this KV length the CPU path uses the chunked online-softmax form.
 CHUNKED_THRESHOLD = 2048
 MAX_HEAD_DIM = 256
-# head dims the tensor-core kernel is instantiated for (Dk == Dv)
-SM90_HEAD_DIMS = (64, 128)
+# (Dk, Dv) pairs the tensor-core libraries are instantiated for: the dense
+# family's heads and DeepSeek-V3's MLA (qk_nope + qk_rope = 192, v 128)
+SM90_DK_DV = ((64, 64), (128, 128), (192, 128))
 ROUTES = ("sm90", "simt")
 
 
@@ -67,16 +68,17 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     dtypes, shapes, base addresses and strides alone.
 
     ``"sm90"`` (``csrc/flash_attention_sm90.cu``: TMA, wgmma) when q, k and v
-    are bf16, Dk == Dv in ``SM90_HEAD_DIMS``, Skv >= 1, and each tensor has
-    a 16-byte aligned base, positive strides of dims 0..2 that are multiples
-    of 16 bytes (what a TMA tensor map takes) and a contiguous dim 3.
-    ``"simt"`` (``csrc/flash_attention.cu``) for every other call: float32,
-    whose 1e-5 bound neither bf16 nor TF32 tensor-core products meet,
-    Dk != Dv, other head dims, unaligned views.
+    are bf16, (Dk, Dv) is one of ``SM90_DK_DV`` ((64, 64), (128, 128) and
+    MLA's (192, 128)), Skv >= 1, and each tensor has a 16-byte aligned base,
+    positive strides of dims 0..2 that are multiples of 16 bytes (what a TMA
+    tensor map takes) and a contiguous dim 3.  ``"simt"``
+    (``csrc/flash_attention.cu``) for every other call: float32, whose 1e-5
+    bound neither bf16 nor TF32 tensor-core products meet, other (Dk, Dv)
+    pairs such as (64, 128) or (192, 192), unaligned views.
     """
     if q.dtype != torch.bfloat16 or k.shape[2] == 0:
         return "simt"
-    if q.shape[3] != v.shape[3] or q.shape[3] not in SM90_HEAD_DIMS:
+    if (q.shape[3], v.shape[3]) not in SM90_DK_DV:
         return "simt"
     return "sm90" if all(_tma_legal(t) for t in (q, k, v)) else "simt"
 
@@ -95,8 +97,8 @@ def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Ten
     TMA, wgmma) when ``route(q, k, v)`` gives ``"sm90"`` and ``dout`` is bf16
     with a 16-byte aligned base, positive strides of dims 0..2 that are
     multiples of 16 bytes and a contiguous dim 3; ``"simt"``
-    (``csrc/flash_attention_bwd.cu``) for every other call: float32, Dk != Dv,
-    other head dims, unaligned views."""
+    (``csrc/flash_attention_bwd.cu``) for every other call: float32, other
+    (Dk, Dv) pairs, unaligned views."""
     if route(q, k, v) == "sm90" and dout.dtype == torch.bfloat16 and _tma_legal(dout):
         return "sm90"
     return "simt"
@@ -179,8 +181,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     """``(dq, dk, dv)`` of ``flash_attention`` from its inputs, its output
     ``out``, the forward's float32 log-sum-exp ``lse`` (B, Hq, Sq) and the
     output's gradient ``dout``.  CPU tensors take ``flash_attention_bwd_ref``;
-    CUDA tensors launch the kernel ``bwd_route`` names (Dk, Dv <= 256, Dk !=
-    Dv on the SIMT kernel; float32 or bf16) or raise.  The gradients come
+    CUDA tensors launch the kernel ``bwd_route`` names (Dk, Dv <= 256;
+    float32 or bf16) or raise.  The gradients come
     back contiguous, in the inputs' dtypes; two launches on the same inputs
     give the same bits."""
     if scale is None:

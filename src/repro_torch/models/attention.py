@@ -162,7 +162,9 @@ def _mla_qkv(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig)
 def mla_attention(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                   positions: Optional[torch.Tensor] = None, causal: bool = True) -> torch.Tensor:
     """Full-sequence MLA: flash attention with Dk = dqn + dqr, Dv = v_head_dim
-    (192 and 128 at DeepSeek-V3's width: the SIMT kernel's route)."""
+    (192 and 128 at DeepSeek-V3's width: in bf16 the tensor-core kernel's
+    route, ``ops.route``; q and k come from ``torch.cat``, v is a view of the
+    up-projection 256 bytes in, all TMA-legal as they are)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)

@@ -73,12 +73,13 @@ def _round_tf32(x):
 
 
 def _sm90_arithmetic(q, k, v, causal, p_as="split", block=128):
-    """The sm90 kernel's arithmetic on bf16 q, k, v: scores in float32 times
-    scale * log2(e) after the product, 128-key tiles in order with the online
-    softmax in base 2 (mask -1e30), P fed to the P.V product as ``p_as`` says
-    ("split": bf16(P) + bf16(P - bf16(P)), the kernel's; "bf16" or "tf32": P
-    rounded), products of bf16 values summed in float32, output rounded to
-    bf16."""
+    """The sm90 kernel's arithmetic on bf16 q, k (Dk wide), v (Dv wide):
+    scores in float32 times scale * log2(e) after the product (scale Dk^-0.5,
+    ``flash_attention``'s default and the 192^-0.5 MLA passes),
+    128-key tiles in order with the online softmax in base 2 (mask -1e30), P
+    fed to the P.V product as ``p_as`` says ("split": bf16(P) + bf16(P -
+    bf16(P)), the kernel's; "bf16" or "tf32": P rounded), products of bf16
+    values summed in float32, output rounded to bf16."""
     b, hq, sq, _ = q.shape
     skv = k.shape[2]
     group = hq // k.shape[1]
@@ -118,10 +119,14 @@ def _bf16_qkv(seed, *shape):
     ((1, 4, 2, 256, 256, 128, 128), True),     # causal, GQA 2:1, two tiles
     ((1, 4, 1, 128, 384, 128, 128), True),     # ragged: Sq < Skv, suffix-aligned, MQA
     ((1, 4, 4, 128, 256, 64, 64), False),      # non-causal, D = 64
-], ids=["causal", "ragged-sq<skv", "non-causal-d64"])
+    ((1, 4, 2, 256, 256, 192, 128), True),     # MLA's Dk = 192, Dv = 128: causal, GQA 2:1
+    ((1, 4, 1, 128, 384, 192, 128), True),     # MLA's widths, ragged Sq < Skv, MQA
+], ids=["causal", "ragged-sq<skv", "non-causal-d64", "mla-causal-gqa", "mla-ragged-sq<skv"])
 def test_sm90_arithmetic_matches_pallas_kernel(shape, causal):
     """The split-P design is within one bf16 rounding of the Pallas kernel's
-    float32 result on the upcast inputs (interpret mode, 128-blocks)."""
+    float32 result on the upcast inputs (interpret mode, 128-blocks), at
+    Dk == Dv and at MLA's Dk = 192, Dv = 128 (both at the default scale
+    Dk^-0.5, the one MLA passes)."""
     q, k, v = _bf16_qkv(21, *shape)
     want = flash_attention_pallas(*(a.float().numpy() for a in (q, k, v)), causal=causal,
                                   interpret=True, block_q=128, block_k=128)
@@ -304,20 +309,32 @@ def _route_case(case):
         v = z(1, 2, 128, 300).transpose(2, 3)
     elif case == "skv=0":
         q, k, v = z(1, 4, 8, 128), z(1, 2, 0, 128), z(1, 2, 0, 128)
+    elif case == "mla":              # DeepSeek-V3's Dk = 128 + 64, Dv = 128
+        q, k, v = z(1, 4, 300, 192), z(1, 4, 300, 192), z(1, 4, 300, 128)
+    elif case == "mla-model-views":  # as models/attention.py's _mla_qkv makes them
+        kvu = z(2, 300, 4, 256).transpose(1, 2)            # the up-projection (B, h, S, 128 + 128)
+        rope = z(2, 1, 300, 64).expand(2, 4, 300, 64)
+        q = torch.cat([z(2, 300, 4, 192).transpose(1, 2)[..., :128], rope], dim=-1)
+        k = torch.cat([kvu[..., :128], rope], dim=-1)
+        v = kvu[..., 128:]                                 # 256 bytes into each row
+    elif case == "dk192-dv192":
+        q, k, v = z(1, 4, 300, 192), z(1, 2, 300, 192), z(1, 2, 300, 192)
     return q, k, v
 
 
 ROUTE_CASES = {"bf16-d128": "sm90", "d64": "sm90", "model-views": "sm90", "float32": "simt",
                "dk!=dv": "simt", "d256": "simt", "d96": "simt", "unaligned-base": "simt",
                "unaligned-stride": "simt", "expanded-kv": "simt", "last-dim-strided": "simt",
-               "skv=0": "simt"}
+               "skv=0": "simt", "mla": "sm90", "mla-model-views": "sm90", "dk192-dv192": "simt"}
 
 
 @pytest.mark.parametrize("case", list(ROUTE_CASES))
 def test_route_rule(case):
-    """bf16 with Dk == Dv in {64, 128} and TMA-legal bases and strides go to
-    the tensor-core kernel, whatever the order of the strides (the model's
-    transposed views take no copy); everything else to the SIMT kernel."""
+    """bf16 with (Dk, Dv) in {(64, 64), (128, 128), (192, 128)} and TMA-legal
+    bases and strides go to the tensor-core kernel, whatever the order of the
+    strides (the model's transposed views, and MLA's v 256 bytes into the
+    up-projection's rows, take no copy); everything else to the SIMT kernel:
+    float32, other pairs ((128, 64), (192, 192)), unaligned views."""
     q, k, v = _route_case(case)
     assert route(q, k, v) == ROUTE_CASES[case]
 
@@ -334,13 +351,13 @@ def test_launch_counters_by_route(monkeypatch):
     saved = (flash_attention.launches, ops.launches_by_route())
     try:
         ops.reset_launches()
-        for case in ("bf16-d128", "model-views", "float32", "dk!=dv", "d64"):
+        for case in ("bf16-d128", "model-views", "float32", "dk!=dv", "d64", "mla"):
             q, k, v = (t.to("meta") for t in _route_case(case))
             out = flash_attention(q, k, v, causal=True)
             assert out.shape == (*q.shape[:3], v.shape[3]) and out.dtype == q.dtype
-        assert calls == ["sm90", "sm90", "simt", "simt", "sm90"]
-        assert ops.launches_by_route() == {"sm90": 3, "simt": 2}
-        assert flash_attention.launches == 5
+        assert calls == ["sm90", "sm90", "simt", "simt", "sm90", "sm90"]
+        assert ops.launches_by_route() == {"sm90": 4, "simt": 2}
+        assert flash_attention.launches == 6
         ops.reset_launches()
         assert flash_attention.launches == 0 and ops.launches_by_route() == {"sm90": 0, "simt": 0}
     finally:
@@ -363,8 +380,10 @@ BWD_TOL = {np.float32: (1e-4, 1e-6), "bf16": (2.0 ** -6, 1e-4)}
 
 
 def _bwd_case(shape, dtype, seed=31):
-    q, k, v = _qkv(seed, *shape[:5], shape[5], shape[5])
-    do = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(np.float32)
+    """q, k, v, dO of ``shape`` (B, Hq, Hkv, Sq, Skv, D) or (..., Dk, Dv)."""
+    dk, dv = shape[5], shape[-1]
+    q, k, v = _qkv(seed, *shape[:5], dk, dv)
+    do = np.random.default_rng(seed + 1).standard_normal((*q.shape[:3], dv)).astype(np.float32)
     ts = [torch.from_numpy(a) for a in (q, k, v, do)]
     if dtype == "bf16":
         ts = [t.to(torch.bfloat16) for t in ts]
@@ -538,22 +557,24 @@ def test_cpu_path_still_differentiates():
 LOG2E = np.float32(np.log2(np.e))
 
 
-def _sm90_bwd_arithmetic(q, k, v, out, lse, do, causal, fault=None):
-    """The sm90 backward's arithmetic on bf16 q, k, v, ``do`` (``out`` the
-    forward's bf16 output, ``lse`` its float32 log-sum-exp in natural units):
-    D = rowsum(dO * O) and lse2 = lse * log2(e) in float32 once a row; the
-    dK/dV kernel by 128-key tiles, the query heads of each group in order and
-    64-query tiles in order: S^T = K Q^T in float32, P^T = 2^(S^T * scale *
-    log2(e) - lse2), 0 where the causal mask drops a key, dP^T = V dO^T,
-    dS^T = P^T (dP^T - D), then dV += bf16(P^T) dO and dK += bf16(dS^T) Q in
-    float32; the dQ kernel by 64-key tiles: S, dP, dS again and dQ +=
-    bf16(dS) K.  dK and dQ times scale, all three rounded to bf16.  ``fault``
-    (for the limit's own test): "no-delta" drops the - D of dS, "lse-units"
-    takes lse as if it were in log2 units."""
+def _sm90_bwd_arithmetic(q, k, v, out, lse, do, causal, scale, fault=None):
+    """The sm90 backward's arithmetic on bf16 q, k (Dk wide), v, ``do`` (Dv
+    wide) (``out`` the forward's bf16 output, ``lse`` its float32 log-sum-exp
+    in natural units; ``scale`` the caller's): D =
+    rowsum(dO * O) and lse2 = lse * log2(e) in float32 once a row; the dK/dV
+    kernel by 128-key tiles, the query heads of each group in order and query
+    tiles in order (64 queries, 32 at Dk = 192): S^T = K Q^T in float32, P^T =
+    2^(S^T * scale * log2(e) - lse2), 0 where the causal mask drops a key,
+    dP^T = V dO^T, dS^T = P^T (dP^T - D), then dV += bf16(P^T) dO and dK +=
+    bf16(dS^T) Q in float32; the dQ kernel by 64-key tiles: S, dP, dS again
+    and dQ += bf16(dS) K.  dK and dQ times scale, all three rounded to bf16.
+    ``fault`` (for the limit's own test): "no-delta" drops the - D of dS,
+    "lse-units" takes lse as if it were in log2 units."""
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    hkv, skv, dv_ = k.shape[1], k.shape[2], v.shape[3]
     group = hq // hkv
-    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    q_tile = 32 if d > 128 else 64
+    scale = torch.tensor(scale, dtype=torch.float32)
     scale_log2 = scale * torch.tensor(LOG2E)
     qf, kf, vf, gf = (t.float() for t in (q, k, v, do))
     lse2 = lse if fault == "lse-units" else lse * torch.tensor(LOG2E)
@@ -571,20 +592,21 @@ def _sm90_bwd_arithmetic(q, k, v, out, lse, do, causal, fault=None):
         return p.masked_fill(keys[None, :] > rows[:, None] + off, 0.0)
 
     dk = torch.zeros(b, hkv, skv, d)
-    dv = torch.zeros(b, hkv, skv, d)
+    dv = torch.zeros(b, hkv, skv, dv_)
     for k0 in range(0, skv, 128):
         keys = torch.arange(k0, min(k0 + 128, skv))
         kt, vt = kf[:, :, k0:k0 + 128], vf[:, :, k0:k0 + 128]
         for g in range(group):
             heads = torch.arange(hkv) * group + g
-            for q0 in range(0, sq, 64):
-                rows = torch.arange(q0, min(q0 + 64, sq))
-                qt, gt = qf[:, heads, q0:q0 + 64], gf[:, heads, q0:q0 + 64]
+            for q0 in range(0, sq, q_tile):
+                q1 = q0 + q_tile
+                rows = torch.arange(q0, min(q1, sq))
+                qt, gt = qf[:, heads, q0:q1], gf[:, heads, q0:q1]
                 st = kt @ qt.transpose(-1, -2)                         # (b, hkv, keys, rows)
-                pt = torch.exp2(st * scale_log2 - lse2[:, heads, q0:q0 + 64][..., None, :])
+                pt = torch.exp2(st * scale_log2 - lse2[:, heads, q0:q1][..., None, :])
                 pt = masked(pt.transpose(-1, -2), rows, keys).transpose(-1, -2)
                 dpt = vt @ gt.transpose(-1, -2)
-                dst = pt * (dpt - delta[:, heads, q0:q0 + 64][..., None, :])
+                dst = pt * (dpt - delta[:, heads, q0:q1][..., None, :])
                 dv[:, :, k0:k0 + 128] += bf(pt) @ gt
                 dk[:, :, k0:k0 + 128] += bf(dst) @ qt
     kx, vx = kf.repeat_interleave(group, 1), vf.repeat_interleave(group, 1)
@@ -602,7 +624,7 @@ def _sm90_bwd_arithmetic(q, k, v, out, lse, do, causal, fault=None):
 
 
 def _sm90_bwd_case(shape, causal, seed=41):
-    """bf16 q, k, v, dO of ``shape`` (B, Hq, Hkv, Sq, Skv, D), the sm90
+    """bf16 q, k, v, dO of ``shape`` (B, Hq, Hkv, Sq, Skv, D or Dk, Dv), the sm90
     forward's output (``_sm90_arithmetic``) and the float32 log-sum-exp, and
     ``jax.grad`` through the JAX reference attention on the upcast inputs."""
     import jax
@@ -617,8 +639,12 @@ def _sm90_bwd_case(shape, causal, seed=41):
 
 
 # BWD_SHAPES plus GQA 3:1 at D = 128 with ragged tiles (Sq = 100 fills no
-# 64-query tile, Skv = 300 no 128-key tile)
-SM90_BWD_SHAPES = {**BWD_SHAPES, "gqa3-d128-ragged": (1, 6, 2, 100, 300, 128)}
+# 64-query tile, Skv = 300 no 128-key tile), and MLA's Dk = 192, Dv = 128
+# (32-query tiles in the dK/dV kernel): MHA, and GQA 2:1 with ragged
+# Sq = 70 < Skv = 200
+SM90_BWD_SHAPES = {**BWD_SHAPES, "gqa3-d128-ragged": (1, 6, 2, 100, 300, 128),
+                   "mla-192-128": (1, 2, 2, 96, 96, 192, 128),
+                   "mla-gqa-ragged": (1, 4, 2, 70, 200, 192, 128)}
 
 
 @pytest.mark.parametrize("shape", list(SM90_BWD_SHAPES), ids=list(SM90_BWD_SHAPES))
@@ -626,9 +652,10 @@ SM90_BWD_SHAPES = {**BWD_SHAPES, "gqa3-d128-ragged": (1, 6, 2, 100, 300, 128)}
 def test_sm90_bwd_arithmetic_matches_jax_grad(shape, causal):
     """The tensor-core backward's arithmetic (bf16 P and dS into float32
     accumulators) within the bf16 limit, 2^-6 max|want| + 1e-4 per gradient,
-    of ``jax.grad`` through the JAX reference on the upcast inputs."""
+    of ``jax.grad`` through the JAX reference on the upcast inputs; at MLA's
+    widths dV is Dv wide and dQ, dK Dk wide."""
     args, want = _sm90_bwd_case(SM90_BWD_SHAPES[shape], causal)
-    got = _sm90_bwd_arithmetic(*args, causal)
+    got = _sm90_bwd_arithmetic(*args, causal, args[0].shape[3] ** -0.5)
     for g, w, t in zip(got, want, args[:3]):
         assert g.dtype == torch.bfloat16 and g.shape == t.shape
         assert _within(g, w, "bf16")
@@ -640,15 +667,18 @@ def test_bf16_bwd_limit_rejects_known_faults(fault):
     term and lse taken in the wrong units, where the kernel's arithmetic
     passes."""
     args, want = _sm90_bwd_case(SM90_BWD_SHAPES["gqa3-d128-ragged"], True)
-    assert all(_within(g, w, "bf16") for g, w in zip(_sm90_bwd_arithmetic(*args, True), want))
-    bad = _sm90_bwd_arithmetic(*args, True, fault=fault)
+    scale = args[0].shape[3] ** -0.5
+    assert all(_within(g, w, "bf16")
+               for g, w in zip(_sm90_bwd_arithmetic(*args, True, scale), want))
+    bad = _sm90_bwd_arithmetic(*args, True, scale, fault=fault)
     assert not all(_within(g, w, "bf16") for g, w in zip(bad, want))
 
 
 def _bwd_route_case(case, device="cpu"):
     """(q, k, v, dout) for one case of the backward's route rule, on
     ``device`` (the CPU, or "meta" standing in for a card)."""
-    qkv = case if case in ("d64", "model-views", "float32", "dk!=dv", "d256") else "bf16-d128"
+    qkv = case if case in ("d64", "model-views", "float32", "dk!=dv", "d256", "mla",
+                           "mla-model-views", "dk192-dv192") else "bf16-d128"
     q, k, v = (t.to(device) for t in _route_case(qkv))    # dense: `to` keeps their strides
 
     def z(*shape, dtype=torch.bfloat16):
@@ -656,7 +686,7 @@ def _bwd_route_case(case, device="cpu"):
 
     shape = q.shape[:3] + (v.shape[3],)
     dout = z(*shape, dtype=q.dtype)
-    if case == "model-views":       # autograd's gradient of a (B, S, H, D) view
+    if case in ("model-views", "mla-model-views"):  # autograd's gradient of a (B, S, H, D) view
         dout = z(shape[0], shape[2], shape[1], shape[3]).transpose(1, 2)
     elif case == "dout-unaligned-base":
         dout = z(dout.numel() + 1)[1:].view(shape)
@@ -675,7 +705,8 @@ BWD_ROUTE_CASES = {"bf16-d128": "sm90", "d64": "sm90", "model-views": "sm90",
                    "float32": "simt", "dk!=dv": "simt", "d256": "simt",
                    "dout-unaligned-base": "simt", "dout-unaligned-stride": "simt",
                    "dout-last-dim-strided": "simt", "dout-expanded": "simt",
-                   "dout-float32": "simt"}
+                   "dout-float32": "simt", "mla": "sm90", "mla-model-views": "sm90",
+                   "dk192-dv192": "simt"}
 
 
 @pytest.mark.parametrize("case", list(BWD_ROUTE_CASES))

@@ -667,8 +667,9 @@ FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -8, 1e-4)}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, dk, dv, causal, dtype):
     """Each call against the float32 reference on the upcast inputs, on the
-    route the rule gives it: bf16 with Dk == Dv in {64, 128} on the tensor
-    cores, everything else on the SIMT kernel."""
+    route the rule gives it: bf16 with (Dk, Dv) in ``ops.SM90_DK_DV`` ((64,
+    64), (128, 128), MLA's (192, 128)) on the tensor cores, everything else
+    on the SIMT kernel."""
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import attention_ref, ops
 
@@ -676,7 +677,7 @@ def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, dk, dv, ca
     q = torch.randn(b, hq, sq, dk, generator=g, device=cuda_device).to(dtype)
     k = torch.randn(b, hkv, skv, dk, generator=g, device=cuda_device).to(dtype)
     v = torch.randn(b, hkv, skv, dv, generator=g, device=cuda_device).to(dtype)
-    want_route = "sm90" if dtype == torch.bfloat16 and dk == dv and dk in (64, 128) else "simt"
+    want_route = "sm90" if dtype == torch.bfloat16 and (dk, dv) in ops.SM90_DK_DV else "simt"
     assert ops.route(q, k, v) == want_route
     before, by_route = flash_attention.launches, ops.launches_by_route()
     got = flash_attention(q, k, v, causal=causal)
@@ -1092,16 +1093,16 @@ def _autograd_want(q, k, v, do, causal):
 def test_flash_bwd_kernel_matches_autograd(cuda_device, shape, causal, dtype):
     """``flash_attention`` under autograd on the card (forward with its
     log-sum-exp on the route the rule gives, then the backward on its route:
-    the tensor-core kernel for bf16 with D in {64, 128}, the SIMT kernel
-    otherwise) against autograd through the float32 reference; one backward
-    launch."""
+    the tensor-core kernel for bf16 with (D, D) in ``ops.SM90_DK_DV``, the
+    SIMT kernel otherwise) against autograd through the float32 reference;
+    one backward launch."""
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
 
     q, k, v, do = _bwd_inputs(shape, dtype, cuda_device, sum(shape))
     want = _autograd_want(q, k, v, do, causal)
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
-    route = "sm90" if dtype == torch.bfloat16 and shape[5] in (64, 128) else "simt"
+    route = "sm90" if dtype == torch.bfloat16 and (shape[5],) * 2 in ops.SM90_DK_DV else "simt"
     assert ops.bwd_route(q, k, v, do) == route
     before = flash_attention_bwd.launches
     by_route = ops.launches_by_route(flash_attention_bwd)
@@ -1179,6 +1180,49 @@ def test_flash_bwd_sm90_and_simt_agree(cuda_device, d, causal):
             assert err <= rtol * float(ref.abs().max()) + atol, (name, err)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_mla_sm90_and_simt_agree(cuda_device, causal):
+    """At MLA's Dk = 192, Dv = 128 (bf16, GQA 2:1, ragged Sq < Skv) the
+    tensor-core forward and backward and the SIMT kernels on the same inputs:
+    each within the bf16 limit of the float32 reference (the forward within
+    2^-8 |want| + 1e-4, each gradient within 2^-6 max|want| + 1e-4), and two
+    launches of each tensor-core kernel bit-equal."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_bwd, kernel
+    from repro_torch.kernels.flash_attention.ops import _forward, bwd_route, route
+
+    g = torch.Generator(device=cuda_device).manual_seed(192 + causal)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(torch.bfloat16)
+
+    q, k, v, do = randn(1, 8, 200, 192), randn(1, 4, 333, 192), randn(1, 4, 333, 128), \
+        randn(1, 8, 200, 128)
+    assert route(q, k, v) == bwd_route(q, k, v, do) == "sm90"
+    scale = 192 ** -0.5
+    out, lse = _forward(q, k, v, causal, scale, with_lse=True)
+    out2, lse2 = _forward(q, k, v, causal, scale, with_lse=True)
+    simt_out = torch.empty_like(out)
+    kernel.flash_attention(q, k, v, simt_out, scale, causal)
+    want_out = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    sm90 = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    again = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    simt = _simt_bwd(q, k, v, out, lse, do, causal)
+    want = _autograd_want(q, k, v, do, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    for got in (out, simt_out):
+        assert got.shape == want_out.shape
+        assert torch.allclose(got.float(), want_out, rtol=rtol, atol=atol)
+    rtol, atol = BWD_TOL[torch.bfloat16]
+    for name, a, a2, b, w in zip("qkv", sm90, again, simt, want):
+        assert torch.equal(a, a2), name
+        assert a.shape == b.shape == w.shape
+        for got in (a, b):
+            err = float((got.float() - w).abs().max())
+            assert err <= rtol * float(w.abs().max()) + atol, (name, err)
+
+
 def test_flash_bwd_unaligned_dout_takes_simt(cuda_device):
     """A dO view whose rows are not a multiple of 16 bytes (no TMA map takes
     it) goes to the SIMT kernel as it is, with no copy, and gives the
@@ -1208,10 +1252,11 @@ def test_flash_bwd_unaligned_dout_takes_simt(cuda_device):
 def test_flash_forward_lse_matches_logsumexp(cuda_device, dtype, d):
     """The forward's log-sum-exp on each route against ``torch.logsumexp`` of
     the float32 scaled scores (causal, ragged Sq < Skv)."""
-    from repro_torch.kernels.flash_attention.ops import _forward, route
+    from repro_torch.kernels.flash_attention.ops import SM90_DK_DV, _forward, route
 
     q, k, v, _ = _bwd_inputs((1, 8, 2, 200, 260, d), dtype, cuda_device, d)
-    assert route(q, k, v) == ("sm90" if dtype == torch.bfloat16 and d in (64, 128) else "simt")
+    sm90 = dtype == torch.bfloat16 and (d, d) in SM90_DK_DV
+    assert route(q, k, v) == ("sm90" if sm90 else "simt")
     _, lse = _forward(q, k, v, True, d ** -0.5, with_lse=True)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float().repeat_interleave(4, 1)) * d ** -0.5
     pos = torch.arange(260, device=cuda_device)
@@ -1346,10 +1391,11 @@ MLA_BWD_CASES = [
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_dk_ne_dv_matches_autograd(cuda_device, shape, causal, dtype):
-    """The backward with Dk != Dv (MLA) on the SIMT kernel, under autograd,
-    against autograd through the float32 reference (``BWD_TOL``); a second
-    launch on the same saved output and log-sum-exp gives the same bits and
-    agrees with ``flash_attention_bwd_ref``."""
+    """The backward with Dk != Dv (MLA) under autograd, on the route the rule
+    gives (bf16 at (192, 128) on the tensor cores, float32 and the other
+    pairs on the SIMT kernel), against autograd through the float32 reference
+    (``BWD_TOL``); a second launch on the same saved output and log-sum-exp
+    gives the same bits and agrees with ``flash_attention_bwd_ref``."""
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
     from repro_torch.kernels.flash_attention import ops
@@ -1361,7 +1407,8 @@ def test_flash_bwd_dk_ne_dv_matches_autograd(cuda_device, shape, causal, dtype):
     v = torch.randn(b, hkv, skv, dv, generator=g, device=cuda_device).to(dtype)
     do = torch.randn(b, hq, sq, dv, generator=g, device=cuda_device).to(dtype)
     want = _autograd_want(q, k, v, do, causal)
-    assert ops.route(q, k, v) == ops.bwd_route(q, k, v, do) == "simt"
+    want_route = "sm90" if dtype == torch.bfloat16 and (dk, dv) in ops.SM90_DK_DV else "simt"
+    assert ops.route(q, k, v) == ops.bwd_route(q, k, v, do) == want_route
     by_route = ops.launches_by_route(flash_attention_bwd)
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
     out = flash_attention(qg, kg, vg, causal=causal)
@@ -1370,7 +1417,7 @@ def test_flash_bwd_dk_ne_dv_matches_autograd(cuda_device, shape, causal, dtype):
     again = flash_attention_bwd(q, k, v, out.detach(), lse, do, causal=causal)
     plain = flash_attention_bwd_ref(q, k, v, out.detach(), lse, do, causal=causal)
     torch.cuda.synchronize()
-    by_route["simt"] += 2
+    by_route[want_route] += 2
     assert ops.launches_by_route(flash_attention_bwd) == by_route
     rtol, atol = BWD_TOL[dtype]
     for name, x, y, p, w in zip("qkv", got, again, plain, want):
