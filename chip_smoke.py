@@ -132,8 +132,9 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              exact against ``modeled_concurrent_restore_s`` at conc 1 and
              4, the 8 linspace variants restored verified and bit-identical
              to images made again from the seed, I6, the locality drive over
-             the first half of the trace's 45 s (``FLEET_DRIVE_SHARE``, to
-             keep the smoke in its budget with the moe phase; profiles
+             the first quarter of the trace's 45 s (``FLEET_DRIVE_SHARE``,
+             to keep the smoke in its budget with the moe and families
+             phases; profiles
              extrapolated 16x to the bench's 256 MiB), then every
              variant deleted and every pool byte back;
              (c) the 1.5 GiB image published with ``compress_cold=True``:
@@ -169,8 +170,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              memory.
 
 14. coldstart — Phi-4-mini 3.8B's serverless cold start from the pool at
-             full width, cut to ``COLDSTART_LAYERS`` of its 32 layers to keep
-             the smoke in its budget (at full depth 17.8 GB, ~4.35 M pages),
+             full width, cut to ``COLDSTART_LAYERS`` (4) of its 32 layers to
+             keep the smoke in its budget (at full depth 17.8 GB, ~4.35 M pages),
              float32 weights from the seed: reference tokens from the
              original parameters
              (4 prompts of 16 tokens, 8 new tokens); the working set from 16
@@ -219,13 +220,13 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              OLMoE's B=1, Hq=Hkv=16, S=4096, D=128 and MLA's B=1,
              Hq=Hkv=128, S=4096, Dk=192, Dv=128, both bf16 on the tensor-core
              kernel, each timed in turns with ``scaled_dot_product_attention``
-             (which takes Dk != Dv too), MLA's also with the SIMT kernel on
-             the same inputs; the backward with Dk != Dv (float32 and Dk < Dv
-             on SIMT, bf16 at (192, 128) on the tensor cores; causal and not,
-             ragged, GQA, and MLA's shape at S=2048) against autograd and its
-             plain version within the train phase's limits, two launches
-             bit-equal, and its time beside the SIMT kernel's and the
-             library's; registers, spills and HGMMA counts of both tensor-core
+             (which takes Dk != Dv too); the backward with Dk != Dv (float32
+             and Dk < Dv on SIMT, bf16 at (192, 128) on the tensor cores;
+             causal and not, ragged, GQA, and MLA's shape at S=2048) against
+             autograd and its plain version within the train phase's limits,
+             two launches bit-equal, and its time beside the library's (the
+             SIMT kernels' times at MLA's shape are PERF.md's record, not
+             retimed); registers, spills and HGMMA counts of both tensor-core
              libraries' (192, 128) kernels (``cuobjdump``), no spill.  Cell
              (10): OLMoE-1B-7B at full width and depth (6.92 B float32
              parameters from the seed): one 4,096-token ``Model.forward``
@@ -244,7 +245,37 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              bit-identically, every page verified, its zero/hot/cold shares
              equal to the CPU run's.  Launch counts exact for every path.
 
-17. train   — training on the card.  (a) The flash-attention backward on
+17. families — the VLM, xLSTM, Zamba2 and encoder-decoder families.  The
+             flash forward at their new shapes, each on its asserted route,
+             against its float32 plain version on the upcast inputs (the
+             model phase's limits) and timed in turns with
+             ``scaled_dot_product_attention``: Qwen2-VL's B=1, Hq=64, Hkv=8,
+             S=4096, D=128 causal, SeamlessM4T's 16 heads, S=1024, D=64
+             non-causal and its served cross attention at decode (B=4,
+             Sq=1, Skv=160, D=64 non-causal) on the tensor cores, Zamba2's
+             Hq=Hkv=32, S=4096, D=80 causal on the SIMT kernel.  Four cells from seeded random
+             weights, each freed before the next (device memory back to its
+             start, asserted): Qwen2-VL-72B at full width cut to 8 of 80
+             layers in bf16 (a 4,096-token forward with 256 seeded vision
+             embeds, 8 sm90 launches), Zamba2-2.7B at full size (54 Mamba2
+             blocks and the shared attention block before each group of 6: a
+             4,096-token forward, 9 SIMT launches), xLSTM-125M at full size
+             (a 2,048-token forward, no flash), SeamlessM4T-medium at full
+             size (1,024 frames and 1,024 tokens, 36 sm90 launches; 12 a
+             decode step, the cross attention at Sq = 1): each forward's
+             logits finite, 4 requests of 128 + 32 tokens through the
+             serving engine (prefill and decode timed apart), a profiled
+             forward and four decode steps, and float32 decode against
+             forward (< 2e-3: Qwen2-VL on 2 layers over its 256-patch
+             prefix and 16 text tokens, vision embeds the token embeddings;
+             SeamlessM4T from its encoder's cross K/V; 64 tokens).  The
+             image, pyaes, pagerank and ffmpeg workloads' images built on
+             the card (zero/hot/cold shares and working sets equal to the
+             CPU run's), each published by one fused launch and restored
+             bit-identically, every page verified.  Launch counts exact for
+             every path.
+
+18. train   — training on the card.  (a) The flash-attention backward on
              both routes (``flash_attention_bwd_sm90.cu``: TMA, wgmma;
              ``flash_attention_bwd.cu``: SIMT) against autograd through the
              float32 reference on the upcast inputs (float32 within 1e-4
@@ -324,18 +355,40 @@ COLDSTART_CONC = 32         # co-located restores in examples/serve_coldstart.py
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 16, 8   # the cold-started server's requests
 PREFILL_SEQ = 8192          # prefill_32k cut to one 8,192-token sequence
 TRAIN_SEQ = 4096            # train_4k's sequence length (configs/shapes.py)
-COLDSTART_LAYERS = 8        # the cold start's Phi-4-mini cut to 8 of 32 layers in the smoke
+COLDSTART_LAYERS = 4        # the cold start's Phi-4-mini cut to 4 of 32 layers in the smoke
 FAULT_RESTORES = 1          # benches (b): restores a fault sweep in the smoke
 TRAIN_LAYERS = 3            # Phi-4-mini's 32 layers cut to 3: the checkpoint's peak is 4x the state
 TRAIN_STEPS = 6
 TRAIN_CKPT_STEP = 3
 FLEET_SCALE_X = 64          # fleet (b): pages a variant over the bench's full configuration
-FLEET_DRIVE_SHARE = 0.5     # fleet (b): the locality drive over this share of the trace's span
+FLEET_DRIVE_SHARE = 0.25    # fleet (b): the locality drive over this share of the trace's span
 MOE_SEQ = 4096              # OLMoE's context length: the MoE cells' one-sequence forward
 MOE_SERVE = (4, 128, 32)    # OLMoE serving: requests, prompt tokens, new tokens
 MLA_SERVE = (4, 128, 16)    # DeepSeek-V3 serving, with mla_absorb off and on
 MLA_BWD_SEQ = 2048          # the Dk != Dv backward's check at MLA's width
 DSV3_CUT = dict(n_layers=2, n_dense_layers=1, param_dtype="bfloat16")   # cell (11)'s cuts
+FAMILY_SERVE = (4, 128, 32)  # each family cell's serving: requests, prompt tokens, new tokens
+# the family cells: the forward's tokens (4,096; xLSTM 2,048, its paper's context), the
+# cut (Qwen2-VL's 80 layers are 145 GB even in bf16), how many forwards, the float32 parity's
+# tokens (past the VLM's 256-patch prefix) and cut, and the cell's generator seed offset
+FAMILY_CELLS = {
+    "qwen2-vl-72b": {"seq": 4096, "cut": {"n_layers": 8, "param_dtype": "bfloat16"},
+                     "forwards": 2, "parity_seq": 272, "parity_cut": {"n_layers": 2},
+                     "seed": 61},
+    "zamba2-2.7b": {"seq": 4096, "forwards": 2, "parity_seq": 64, "seed": 67},
+    "xlstm-125m": {"seq": 2048, "forwards": 1, "parity_seq": 64, "seed": 71},
+    "seamless-m4t-medium": {"seq": 1024, "forwards": 2, "parity_seq": 64, "seed": 73},
+}
+# the flash forward's new shapes, (B, Hq, Hkv, Sq, Skv, Dk, Dv): Qwen2-VL's GQA 64:8, Zamba2's
+# D = 80 (SIMT), SeamlessM4T's non-causal encoder, and its served cross attention at decode
+# (batch 4, one query row of a 128-row tile, over the 128 + 32 = 160 cross keys that the
+# engine's caches hold for FAMILY_SERVE's requests)
+FAMILY_FLASH_SHAPES = {"qwen2-vl": ((1, 64, 8, 4096, 4096, 128, 128), True, "sm90"),
+                       "zamba2": ((1, 32, 32, 4096, 4096, 80, 80), True, "simt"),
+                       "seamless": ((1, 16, 16, 1024, 1024, 64, 64), False, "sm90"),
+                       "seamless_decode": ((FAMILY_SERVE[0], 16, 16, 1, sum(FAMILY_SERVE[1:]),
+                                            64, 64), False, "sm90")}
+FAMILY_WORKLOADS = ("image", "pyaes", "pagerank", "ffmpeg")
 # the evaluation benches' twins (scripts/<name>.py), in the order the benches phase runs them
 BENCHES = ("dedup_bench", "fault_bench", "adaptive_bench", "concurrency_bench", "breakdown",
            "serving_bench")
@@ -558,16 +611,39 @@ def check_restore(torch, np, ops, ref, dest_rows: int, device):
     return err
 
 
-def _device_summary(torch, prof, wall_s: float, top: int = 8) -> dict:
-    """Device busy time (sum of kernel and copy times) and the top entries."""
-    dev = torch.autograd.DeviceType.CUDA
-    evts = [e for e in prof.key_averages() if e.device_type == dev]
-    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3) for e in evts),
-                  key=lambda r: -r[2])
-    busy_ms = sum(r[2] for r in rows)
+def profile_by_name(torch, prof) -> tuple:
+    """The profiler's raw events (``kineto_results``) summed by name:
+    ``({kernel, copy or memset: [count, device ms]}, {host op or runtime
+    call: [count, ms]})``, host times inclusive of the calls an op makes.
+    ``key_averages()`` first builds a Python tree of every event, about
+    0.5 ms an event on the card's host (two minutes for the xLSTM forward's
+    ~260 k launches); this reads each event once."""
+    cuda = torch.autograd.DeviceType.CUDA
+    dev, host = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        row = (dev if e.device_type() == cuda else host).setdefault(e.name(), [0, 0.0])
+        row[0] += 1
+        row[1] += e.duration_ns() / 1e6
+    return dev, host
+
+
+def _device_summary(torch, prof, wall_s: float, top: int = 8, table: Path = None) -> dict:
+    """Device busy time (the sum of kernel, copy and memset times), its idle
+    share of ``wall_s``, the top device entries and host ops by name;
+    ``table``: where to write the top 25 of each as text."""
+    dev, host = profile_by_name(torch, prof)
+    rows = sorted(dev.items(), key=lambda kv: -kv[1][1])
+    hrows = sorted(host.items(), key=lambda kv: -kv[1][1])
+    busy_ms = sum(ms for _, ms in dev.values())
+    if table is not None:
+        table.write_text("device ms  count  kernel / copy\n" + "".join(
+            f"{ms:10.3f} {n:6d}  {k}\n" for k, (n, ms) in rows[:25])
+            + "\nhost ms (inclusive)  count  op / call\n" + "".join(
+            f"{ms:10.3f} {n:6d}  {k}\n" for k, (n, ms) in hrows[:25]))
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
-            "top": [{"name": k, "count": c, "device_ms": t} for k, c, t in rows[:top]]}
+            "top": [{"name": k, "count": n, "device_ms": ms} for k, (n, ms) in rows[:top]],
+            "host_top": [{"name": k, "count": n, "cpu_ms": ms} for k, (n, ms) in hrows[:top]]}
 
 
 def profile_main_path(torch, pool, image, working_set, ops, out_dir: Path) -> dict:
@@ -586,7 +662,7 @@ def profile_main_path(torch, pool, image, working_set, ops, out_dir: Path) -> di
                                  publish_fn=ops.make_fused_publish_fn())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    out["publish"] = _device_summary(torch, prof, wall)
+    out["publish"] = _device_summary(torch, prof, wall, table=out_dir / "profile_publish.txt")
     for key, scatter in (("restore", ops.FusedScatter()),
                          ("restore_per_extent", PerExtentScatter())):
         ledger = TimeLedger()
@@ -600,12 +676,10 @@ def profile_main_path(torch, pool, image, working_set, ops, out_dir: Path) -> di
             engine.install_all_sync()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        out[key] = _device_summary(torch, prof, wall)
+        out[key] = _device_summary(torch, prof, wall, table=out_dir / f"profile_{key}.txt")
         out[key]["walk_routes"] = engine.walk_routes
         check_routes(f"profiled {key}", engine.walk_routes,
                      "" if key == "restore" else "scatter_fn")
-        (out_dir / f"profile_{key}.txt").write_text(
-            prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
         if not torch.equal(inst.image.buf, image.buf):
             raise AssertionError(f"profiled {key} differs from the published image")
         del inst, engine, reader
@@ -1214,9 +1288,7 @@ def profile_dedup(torch, core, pool, base_buf, hot_t, cold_t, d, seed, working_s
         reg = core.build_snapshot(pool, image, working_set, "profiled", dedup=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    out["publish"] = _device_summary(torch, prof, wall)
-    (out_dir / "profile_dedup_publish.txt").write_text(
-        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+    out["publish"] = _device_summary(torch, prof, wall, table=out_dir / "profile_dedup_publish.txt")
     from repro_torch.kernels import page_scatter
 
     def per_extent_page_scatter(*args, **kwargs):      # page_scatter, no batched form
@@ -1235,12 +1307,11 @@ def profile_dedup(torch, core, pool, base_buf, hot_t, cold_t, d, seed, working_s
             eng.install_all_sync()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        out[key] = _device_summary(torch, prof, wall)
+        out[key] = _device_summary(torch, prof, wall,
+                                   table=out_dir / f"profile_dedup_{key}.txt")
         out[key]["walk_routes"] = eng.walk_routes
         check_routes(f"profiled dedup {key}", eng.walk_routes,
                      "" if key == "restore" else "scatter_fn")
-        (out_dir / f"profile_dedup_{key}.txt").write_text(
-            prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
         if not torch.equal(inst.image.buf, buf):
             raise AssertionError(f"profiled dedup {key} differs from its source")
         del inst, eng, reader
@@ -1433,9 +1504,8 @@ def pod_phase(torch, np, image, working_set, cold_idx, seed: int, out_dir: Path)
             time.sleep(POD_PROFILE_S)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        rep["profile_window"] = _device_summary(torch, prof, wall)
-        (out_dir / "profile_pod_window.txt").write_text(
-            prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+        rep["profile_window"] = _device_summary(torch, prof, wall,
+                                                table=out_dir / "profile_pod_window.txt")
 
     # 1. the measured run: 8 sessions on host a, one on host b, the update
     # started once all nine borrows are out
@@ -2693,10 +2763,9 @@ def coldstart_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
         torch.cuda.synchronize()
         wall2 = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rep["profile_restore"] = _device_summary(torch, prof, wall2)
+    rep["profile_restore"] = _device_summary(torch, prof, wall2,
+                                             table=out_dir / "profile_coldstart_restore.txt")
     rep["profile_restore"]["post_processing_s"] = time.perf_counter() - t0
-    (out_dir / "profile_coldstart_restore.txt").write_text(
-        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
     del prof
     gc.collect()
     torch.cuda.empty_cache()
@@ -2989,31 +3058,31 @@ def check_flash(torch, device, seed: int) -> dict:
     return out
 
 
-def profile_model(torch, fn, name: str, out_dir: Path) -> dict:
+def profile_model(torch, fn, name: str, out_dir: Path, host_ops: bool = True) -> dict:
     """``fn()`` under torch.profiler: device busy time and idle share, the top
-    device kernels, and the top host ops by their own CPU time."""
+    device kernels, and the top host ops (``host_ops``; else only the CUDA
+    runtime's calls, about half the events to record and read back).  Only
+    ``family_cell``'s forward and decode profiles pass ``host_ops=False``:
+    the xLSTM forward's launches make the host table its slowest part, while
+    the earlier phases' host tables are the breakdowns PERF.md §5 reads."""
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    row = _device_summary(torch, prof, wall, top=6)
-    host = [e for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CUDA]
-    host.sort(key=lambda e: -e.self_cpu_time_total)
-    row["host_top"] = [{"name": e.key, "count": e.count, "self_cpu_ms": e.self_cpu_time_total / 1e3}
-                       for e in host[:6]]
-    (out_dir / f"profile_{name}.txt").write_text(
-        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25) + "\n" +
-        prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=25))
+    row = _device_summary(torch, prof, wall, top=6, table=out_dir / f"profile_{name}.txt")
+    row["post_processing_s"] = time.perf_counter() - t0 - wall
     log(f"  profile {name}: wall {row['wall_ms']:.2f} ms under the profiler, device busy "
-        f"{row['device_busy_ms']:.3f} ms, idle share {row['device_idle_share']:.4f}")
+        f"{row['device_busy_ms']:.3f} ms, idle share {row['device_idle_share']:.4f} "
+        f"(the profiler's post-processing {row['post_processing_s']:.2f} s)")
     for r in row["top"][:3]:
         log(f"    device {r['device_ms']:.3f} ms x{r['count']} {r['name'][:70]}")
     for r in row["host_top"][:3]:
-        log(f"    host {r['self_cpu_ms']:.3f} ms x{r['count']} {r['name'][:70]}")
+        log(f"    host {r['cpu_ms']:.3f} ms x{r['count']} {r['name'][:70]} (inclusive)")
     return row
 
 
@@ -3489,10 +3558,9 @@ def train_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
         probe, _ = step(probe, batch(TRAIN_STEPS))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    summary = _device_summary(torch, prof, wall, top=8)
-    dev = torch.autograd.DeviceType.CUDA
-    by_name = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-               if e.device_type == dev}
+    summary = _device_summary(torch, prof, wall, top=8,
+                              table=out_dir / "profile_train_step.txt")
+    by_name = {k: ms for k, (_n, ms) in profile_by_name(torch, prof)[0].items()}
     bwd_parts = {part: sum(t for n, t in by_name.items() if part in n)
                  for part in ("prep_kernel", "delta_kernel", "dkdv_kernel", "dq_kernel")}
     bwd_ms = sum(bwd_parts.values())
@@ -3500,8 +3568,6 @@ def train_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
     summary.update(backward_ms=bwd_ms, backward_share=bwd_ms / summary["device_busy_ms"],
                    backward_ms_by_kernel=bwd_parts, forward_flash_ms=fwd_ms)
     rep["profile_step"] = summary
-    (out_dir / "profile_train_step.txt").write_text(
-        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30))
     del prof, probe
     reset()
     log(f"  profiled step: wall {wall:.3f} s, device busy {summary['device_busy_ms']:.1f} ms, "
@@ -3677,24 +3743,21 @@ def train_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
 # moe: OLMoE-1B-7B and DeepSeek-V3 (MLA, MoE, MTP) at full width
 # ----------------------------------------------------------------------------
 
-def check_flash_moe(torch, device, seed: int) -> dict:
-    """The flash forward at the MoE family's two full-width prefill shapes,
-    each on its asserted route (both sm90), against its float32 plain version
-    on the upcast inputs (the model phase's limits: bf16 within one rounding,
-    2^-8|want| + 1e-4); then the kernel, ``scaled_dot_product_attention``
-    and, at MLA's shape, the SIMT kernel on the same inputs through its
-    binding (held to the same limit) timed in turns, beside the plain version
-    and the bound; the registers, spills and SASS of the tensor-core
-    library's kernels."""
+def check_flash_shapes(torch, device, seed: int, shapes) -> dict:
+    """The flash forward at full-width prefill shapes, each on its asserted
+    route, against its float32 plain version on the upcast inputs (the model
+    phase's limits: bf16 within one rounding, 2^-8|want| + 1e-4); then the
+    kernel and ``scaled_dot_product_attention`` on the same inputs timed in
+    turns, beside the plain version and the bound.  ``shapes``: name ->
+    ((B, Hq, Hkv, Sq, Skv, Dk, Dv), causal, route); bf16 inputs from ``seed``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import chunked_attention_ref
-    from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention import ops as fops
 
     g = torch.Generator(device=device)
-    g.manual_seed(seed + 41)
+    g.manual_seed(seed)
     bf = torch.bfloat16
     rtol, atol = 2.0 ** -8, 1e-4
     out = {"tolerance": {"bfloat16": {"rtol": rtol, "atol": atol}}, "shapes": {}}
@@ -3703,83 +3766,76 @@ def check_flash_moe(torch, device, seed: int) -> dict:
         err = (got.float() - want).abs()
         return float(err.max()), float((err / (atol + rtol * want.abs())).max())
 
-    # name -> (B, Hq, Hkv, S, Dk, Dv), route; the float32 plain version is the
-    # chunked one (attention_ref's (128, 4096, 4096) float32 score matrices at
-    # MLA's shape would take ~34 GB)
-    for name, (b, hq, hkv, s, dk, dv), want_route in (
-            ("olmoe", (1, 16, 16, MOE_SEQ, 128, 128), "sm90"),
-            ("mla", (1, 128, 128, MOE_SEQ, 192, 128), "sm90")):
-        q = torch.randn(b, hq, s, dk, generator=g, device=device).to(bf)
-        k = torch.randn(b, hkv, s, dk, generator=g, device=device).to(bf)
-        v = torch.randn(b, hkv, s, dv, generator=g, device=device).to(bf)
+    # the float32 plain version is the chunked one (attention_ref's (128, 4096, 4096)
+    # float32 score matrices at MLA's shape would take ~34 GB)
+    for name, ((b, hq, hkv, sq, skv, dk, dv), causal, want_route) in shapes.items():
+        q = torch.randn(b, hq, sq, dk, generator=g, device=device).to(bf)
+        k = torch.randn(b, hkv, skv, dk, generator=g, device=device).to(bf)
+        v = torch.randn(b, hkv, skv, dv, generator=g, device=device).to(bf)
         before = fops.launches_by_route()
-        got = flash_attention(q, k, v, causal=True)
+        got = flash_attention(q, k, v, causal=causal)
         took = [r for r, n in fops.launches_by_route().items() if n != before[r]]
         if fops.route(q, k, v) != want_route or took != [want_route]:
             raise AssertionError(f"flash_attention ({name}) took route {took}, want {want_route}")
-        want = chunked_attention_ref(q.float(), k.float(), v.float(), causal=True)
+        want = chunked_attention_ref(q.float(), k.float(), v.float(), causal=causal)
         torch.cuda.synchronize()
         max_err, share = share_of(got, want)
         if got.dtype != bf or got.shape != want.shape or share > 1:
             raise AssertionError(f"flash_attention ({name}) differs from its float32 plain "
                                  f"version: max_abs_err {max_err}, {share:.3f} of the limit")
-        del got
-        o = torch.empty(b, hq, s, dv, dtype=bf, device=device)
+        del got, want
 
         def kernel():
-            return flash_attention(q, k, v, causal=True)
-
-        def simt():      # the SIMT kernel on the same inputs, through its binding
-            fkernel.flash_attention(q, k, v, o, dk ** -0.5, True)
+            return flash_attention(q, k, v, causal=causal)
 
         def library():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=hq != hkv)
 
-        fns = {"sm90": kernel, "library": library}
-        order = ("sm90", "library", "library", "sm90")
-        if name == "mla":      # 66 ms a launch: two a turn
-            fns["simt"] = simt
-            order = ("sm90", "simt", "library", "library", "simt", "sm90")
-        iters = {"sm90": 20, "library": 20, "simt": 2}
+        iters = 20 if want_route == "sm90" else 5
         counts = (flash_attention.launches, fops.launches_by_route())
-        turns = {n: [] for n in fns}
+        turns = {want_route: [], "library": []}
+        order = (want_route, "library", "library", want_route)
         for n in order:
-            turns[n].append(cuda_ms(fns[n], iters=iters[n], warmup=1 if n == "simt" else 2))
+            turns[n].append(cuda_ms(kernel if n == want_route else library, iters=iters))
         flash_attention.launches = counts[0]           # timing launches are not a path's
         for r, n in counts[1].items():
             setattr(flash_attention, f"launches_{r}", n)
-        bound, by, ops, nbytes = flash_bound_ms(q, k, v, True)
-        row = {"shape": f"B={b} Hq={hq} Hkv={hkv} S={s} Dk={dk} Dv={dv} causal bf16",
+        bound, by, ops, nbytes = flash_bound_ms(q, k, v, causal)
+        mask = "causal" if causal else "non-causal"
+        seq = f"S={sq}" if sq == skv else f"Sq={sq} Skv={skv}"
+        row = {"shape": f"B={b} Hq={hq} Hkv={hkv} {seq} Dk={dk} Dv={dv} {mask} bf16",
                "route": want_route, "max_abs_err": max_err, "share_of_limit": share,
                "turns_ms": turns, "order": ", ".join(order),
-               "ms": sum(turns["sm90"]) / 2, "library_ms": sum(turns["library"]) / 2,
-               "library": "F.scaled_dot_product_attention(is_causal=True)",
-               "plain_ms": cuda_ms(lambda: chunked_attention_ref(q, k, v), iters=2, warmup=1),
+               "ms": sum(turns[want_route]) / 2, "library_ms": sum(turns["library"]) / 2,
+               "library": f"F.scaled_dot_product_attention(is_causal={causal}"
+                          + (", enable_gqa=True)" if hq != hkv else ")"),
+               "plain_ms": cuda_ms(lambda: chunked_attention_ref(q, k, v, causal=causal),
+                                   iters=2, warmup=1),
                "plain": "chunked_attention_ref (block_k=512)",
-               "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes,
-               # the split P: P_hi V and P_lo V
-               "issued_flop": ops // (2 * (dk + dv)) * (2 * dk + 4 * dv)}
-        simt_note = ""
-        if "simt" in turns:
-            torch.cuda.synchronize()
-            row["simt_ms"] = sum(turns["simt"]) / 2
-            row["simt_max_abs_err"], row["simt_share_of_limit"] = share_of(o, want)
-            if row["simt_share_of_limit"] > 1:
-                raise AssertionError(f"the SIMT kernel ({name}): {row['simt_share_of_limit']:.3f} "
-                                     "of the limit")
-            simt_note = (f"; SIMT kernel {row['simt_ms']:.3f} ms "
-                         f"({', '.join(f'{t:.3f}' for t in turns['simt'])}, "
-                         f"{row['simt_share_of_limit']:.3f} of the limit), "
-                         f"{row['simt_ms'] / row['ms']:.1f}x the sm90 kernel")
+               "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes}
+        if want_route == "sm90":   # the split P: P_hi V and P_lo V
+            row["issued_flop"] = ops // (2 * (dk + dv)) * (2 * dk + 4 * dv)
         out["shapes"][name] = row
         log(f"  flash_attention {name} {row['shape']} route {want_route}: {share:.3f} of the "
-            f"limit; {row['ms']:.4f} ms ({', '.join(f'{t:.4f}' for t in turns['sm90'])}); "
+            f"limit; {row['ms']:.4f} ms ({', '.join(f'{t:.4f}' for t in turns[want_route])}); "
             f"library {row['library_ms']:.4f} ms "
-            f"({', '.join(f'{t:.4f}' for t in turns['library'])}){simt_note}; plain chunked "
-            f"{row['plain_ms']:.3f} ms; bound {bound:.4f} ms by {by}: {ops / 1e9:.1f} GFLOP "
-            f"({row['issued_flop'] / 1e9:.1f} issued), {nbytes / 1e6:.1f} MB")
-        del q, k, v, o, want, fns
+            f"({', '.join(f'{t:.4f}' for t in turns['library'])}), kernel / library "
+            f"{row['ms'] / row['library_ms']:.2f}; plain chunked {row['plain_ms']:.3f} ms; "
+            f"bound {bound:.4f} ms by {by}: {ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB")
+        del q, k, v
         torch.cuda.empty_cache()
+    return out
+
+
+def check_flash_moe(torch, device, seed: int) -> dict:
+    """The flash forward at the MoE family's two full-width prefill shapes,
+    both on the tensor-core route, through ``check_flash_shapes`` (the SIMT
+    kernel's time at MLA's shape is recorded in PERF.md §6); the
+    registers, spills and SASS of the tensor-core library's kernels."""
+    out = check_flash_shapes(torch, device, seed + 41, {
+        "olmoe": ((1, 16, 16, MOE_SEQ, MOE_SEQ, 128, 128), True, "sm90"),
+        "mla": ((1, 128, 128, MOE_SEQ, MOE_SEQ, 192, 128), True, "sm90")})
     out["resources"] = tensor_cores_no_spill(
         "flash_attention_sm90", tuple(f"flash_sm90_kernel{p}" for p in SM90_PAIRS),
         new=(f"flash_sm90_kernel{SM90_PAIRS[-1]}",))
@@ -3792,9 +3848,9 @@ def check_flash_bwd_mla(torch, device, seed: int) -> dict:
     ``MLA_BWD_SEQ``, non-causal, GQA with ragged Sq < Skv; a dO view no TMA
     map takes on SIMT), float32 and Dk = 64 < Dv = 128 on the SIMT kernel;
     two launches bit-equal.  Then at the MLA shape in bf16, in turns, the
-    tensor-core kernel, the SIMT kernel on the same inputs, the plain version
-    and the library's backward, beside the bound; the registers, spills and
-    SASS of the tensor-core library's kernels."""
+    tensor-core kernel, the plain version and the library's backward, beside
+    the bound (the SIMT kernel's time there is recorded in PERF.md §6);
+    the registers, spills and SASS of the tensor-core library's kernels."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
@@ -3831,14 +3887,13 @@ def check_flash_bwd_mla(torch, device, seed: int) -> dict:
     if fops.bwd_route(q, k, v, do) != "sm90":
         raise AssertionError("flash backward: the MLA shape does not take the sm90 route")
     fns = {"sm90": lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
-           "simt": lambda: simt_bwd(torch, q, k, v, o, lse, do),
            "plain": lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)}
     ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
     fns["library"] = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
     nb = (flash_attention_bwd.launches, fops.launches_by_route(flash_attention_bwd))
-    order = ("sm90", "simt", "plain", "library", "library", "plain", "simt", "sm90")
-    iters = {"sm90": 10, "simt": 2, "plain": 2, "library": 10}
+    order = ("sm90", "plain", "library", "library", "plain", "sm90")
+    iters = {"sm90": 10, "plain": 2, "library": 10}
     turns = {n: [] for n in fns}
     for n in order:
         turns[n].append(cuda_ms(fns[n], iters=iters[n], warmup=1))
@@ -3849,8 +3904,7 @@ def check_flash_bwd_mla(torch, device, seed: int) -> dict:
     pairs = flash_pairs(b, hq, s, s, True)
     out["timing"] = {"shape": f"B=1 Hq=Hkv=128 S={s} Dk=192 Dv=128 causal bf16",
                      "route": "sm90", "turns_ms": turns, "order": ", ".join(order),
-                     "ms": sum(turns["sm90"]) / 2, "simt_ms": sum(turns["simt"]) / 2,
-                     "plain_ms": sum(turns["plain"]) / 2,
+                     "ms": sum(turns["sm90"]) / 2, "plain_ms": sum(turns["plain"]) / 2,
                      "library_ms": sum(turns["library"]) / 2,
                      "plain": "flash_attention_bwd_ref (block_k=512)",
                      "library": "torch.autograd.grad through F.scaled_dot_product_attention("
@@ -3863,10 +3917,8 @@ def check_flash_bwd_mla(torch, device, seed: int) -> dict:
     r = out["timing"]
     log(f"  flash backward at {r['shape']}: sm90 {r['ms']:.4f} ms "
         f"({', '.join(f'{t:.4f}' for t in turns['sm90'])}), "
-        f"{r['ms'] / r['library_ms']:.2f}x the library; simt {r['simt_ms']:.3f} ms "
-        f"({', '.join(f'{t:.3f}' for t in turns['simt'])}), {r['simt_ms'] / r['ms']:.1f}x "
-        f"the sm90 kernel; plain {r['plain_ms']:.3f} ms; library backward "
-        f"{r['library_ms']:.4f} ms; bound {bound:.4f} ms by {by}: {ops / 1e9:.1f} GFLOP "
+        f"{r['ms'] / r['library_ms']:.2f}x the library; plain {r['plain_ms']:.3f} ms; library "
+        f"backward {r['library_ms']:.4f} ms; bound {bound:.4f} ms by {by}: {ops / 1e9:.1f} GFLOP "
         f"({r['issued_flop'] / 1e9:.1f} issued), {nbytes / 1e6:.1f} MB")
     del q, k, v, do, o, lse, ql, kl, vl, lib_out, fns
     torch.cuda.empty_cache()
@@ -3877,22 +3929,36 @@ def check_flash_bwd_mla(torch, device, seed: int) -> dict:
     return out
 
 
-def decode_vs_forward(torch, cfg, seed: int, device, g) -> float:
-    """Relative max error of 16 decode steps against the forward's logits,
-    2 sequences, on ``cfg`` (float32 compute): tests/test_models.py's parity."""
-    from repro_torch.models import build
+def decode_vs_forward(torch, cfg, seed: int, device, g, seq: int = 16) -> float:
+    """Relative max error of ``seq`` decode steps against the forward's
+    logits, 2 sequences, on ``cfg`` (float32 compute): tests/test_models.py's
+    parity.  A VLM's vision embeds are its token embeddings (the modality
+    difference removed, the M-RoPE positions kept; ``seq`` must pass the
+    prefix); an encoder-decoder decodes from the cross K/V of its encoded
+    seeded frames."""
+    from repro_torch.models import build, encdec
+    from repro_torch.models.common import embed
 
     model = build(cfg, device=device)
     params = model.init(seed)
-    toks = torch.randint(0, cfg.vocab, (2, 16), generator=g, device=device)
-    full, _ = model.forward(params, {"tokens": toks})
-    caches = model.init_caches(params, 2, 16)
+    toks = torch.randint(0, cfg.vocab, (2, seq), generator=g, device=device)
+    batch, enc_out = {"tokens": toks}, None
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = embed(params["embed"], toks[:, :cfg.vision_prefix], torch.float32)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(2, seq, cfg.d_model, generator=g, device=device)
+        enc_out = encdec.encode(params, batch["frames"], cfg)
+    full, _ = model.forward(params, batch)
+    caches = model.init_caches(params, 2, seq, enc_out=enc_out)
     dec = []
-    for t in range(16):
+    for t in range(seq):
         lg, caches = model.decode_step(params, {"tokens": toks[:, t:t + 1], "pos": t}, caches)
         dec.append(lg[:, 0])
-    rel = float((torch.stack(dec, 1) - full).abs().max() / full.abs().max())
-    del params, model, full, dec, caches
+    # over the real vocabulary: the padded logits are -1e30 in both
+    v = cfg.vocab
+    rel = float((torch.stack(dec, 1)[..., :v] - full[..., :v]).abs().max()
+                / full[..., :v].abs().max())
+    del params, model, full, dec, caches, batch, enc_out
     torch.cuda.empty_cache()
     if not rel < 2e-3:
         raise AssertionError(f"{cfg.name}: float32 decode vs forward relative error {rel} >= 2e-3")
@@ -4141,11 +4207,11 @@ def deepseek_cell(torch, np, seed: int, device, out_dir: Path) -> dict:
     return rep
 
 
-def recognition_cell(torch, np, seed: int, device) -> dict:
-    """The recognition workload (DeepSeek-V3 reduced; an invocation touches
-    only its routed experts' pages) built on the card, published with the
-    fused sweep and restored: bit-identical, every page verified, launches
-    exact; its zero/hot/cold shares equal to the CPU run's."""
+def workload_cell(torch, np, name: str, seed: int, device) -> dict:
+    """A workload of ``scripts/workloads.py`` built on the card, published
+    with the fused sweep and restored: bit-identical, every page verified,
+    launches exact; its zero/hot/cold shares and working set equal to the
+    CPU run's."""
     import workloads
 
     from repro_torch.core import HierarchicalPool, build_snapshot, free_snapshot
@@ -4159,12 +4225,13 @@ def recognition_cell(torch, np, seed: int, device) -> dict:
                 "cold": float((~hot & ~zero).mean()), "pages": int(zero.size)}
 
     t0 = time.perf_counter()
-    w = workloads.build_workload("recognition", seed=seed, device=device)
-    cpu = workloads.build_workload("recognition", seed=seed, device="cpu")
-    rep = {"build_s": time.perf_counter() - t0, "shares": shares(w), "cpu_shares": shares(cpu)}
+    w = workloads.build_workload(name, seed=seed, device=device)
+    cpu = workloads.build_workload(name, seed=seed, device="cpu")
+    rep = {"arch": w.wdef.arch, "build_s": time.perf_counter() - t0, "shares": shares(w),
+           "cpu_shares": shares(cpu)}
     if rep["shares"] != rep["cpu_shares"] or not np.array_equal(
             w.profile.working_set, cpu.profile.working_set):
-        raise AssertionError(f"recognition: the card's image classes {rep['shares']} differ "
+        raise AssertionError(f"{name}: the card's image classes {rep['shares']} differ "
                              f"from the CPU run's {rep['cpu_shares']}")
     del cpu
     counted = data_plane_wrappers()     # the shares' zero scan above is a check, not the path
@@ -4173,21 +4240,21 @@ def recognition_cell(torch, np, seed: int, device) -> dict:
     n = w.image.manifest.total_pages
     pool = HierarchicalPool(cxl_capacity=(n + 64) * PAGE, rdma_capacity=(n + 64) * PAGE,
                             device=device)
-    regions = build_snapshot(pool, w.image, w.profile.working_set, "recognition",
+    regions = build_snapshot(pool, w.image, w.profile.working_set, name,
                              publish_fn=ops.make_fused_publish_fn())
     r = restore_once(torch, pool, regions, w.image.buf, w.image.manifest, ops.FusedScatter())
-    check_routes("recognition restore", r["walk_routes"])
+    check_routes(f"{name} restore", r["walk_routes"])
     launches = {n: k.launches for n, k in counted.items()}
     want = {"fused_publish": 1, "fused_restore": 2 * r["walk_routes"]["batched"],
             "zero_detect": 0, "page_checksum": 0, "page_gather": 0, "page_scatter": 0}
     if launches != want:
-        raise AssertionError(f"recognition: launches {launches}, want {want}")
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
     free_snapshot(pool, regions)
     rep.update(launches=launches, restore_s=r["restore_s"], pages_verified=r["pages_verified"],
                n_hot=regions.n_hot, n_cold=regions.n_cold, n_zero=regions.n_zero)
     s, c = rep["shares"], rep["cpu_shares"]
-    log(f"  recognition workload ({s['pages']} pages): zero {s['zero']:.4f} hot {s['hot']:.4f} "
-        f"cold {s['cold']:.4f} on the card, {c['zero']:.4f} / {c['hot']:.4f} / "
+    log(f"  {name} workload ({w.wdef.arch}, {s['pages']} pages): zero {s['zero']:.4f} hot "
+        f"{s['hot']:.4f} cold {s['cold']:.4f} on the card, {c['zero']:.4f} / {c['hot']:.4f} / "
         f"{c['cold']:.4f} on the CPU (equal); fused publish and restore "
         f"{r['restore_s'] * 1e3:.2f} ms: bit-identical, pages verified {r['pages_verified']}; "
         f"launches {launches}")
@@ -4221,11 +4288,205 @@ def moe_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
         f"make {ds['flash_ms_est']:.3f} ms, {ds['flash_share_est']:.4f} of the "
         f"{min(ds['forward_s']):.4f} s warm forward")
     t0 = time.perf_counter()
-    rep["recognition"] = recognition_cell(torch, np, seed, device)
+    rep["recognition"] = workload_cell(torch, np, "recognition", seed, device)
     rep["recognition"]["wall_s"] = time.perf_counter() - t0
     log(f"  moe walls: kernel checks {rep['kernel_checks_s']:.2f} s, OLMoE "
         f"{rep['olmoe']['wall_s']:.2f} s, DeepSeek-V3 {rep['deepseek']['wall_s']:.2f} s, "
         f"recognition {rep['recognition']['wall_s']:.2f} s")
+    return rep
+
+
+# ----------------------------------------------------------------------------
+# families: the VLM, xLSTM, Zamba2 and SeamlessM4T served at full width
+# ----------------------------------------------------------------------------
+
+def family_flash(cfg, decode: bool = False) -> int:
+    """Flash launches of one forward of ``cfg`` (or, ``decode``, one decode
+    step): one a self-attention layer (the hybrid's shared block once a
+    group), and the encoder-decoder's cross attention once a decoder layer
+    in both."""
+    if cfg.is_encdec:
+        return cfg.n_dec_layers if decode else cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    if decode or cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+def family_cell(torch, np, arch: str, seed: int, device, out_dir: Path) -> dict:
+    """One family model at full width from seeded random weights (cut as
+    ``FAMILY_CELLS`` says): one forward of ``FAMILY_CELLS[arch]["seq"]``
+    tokens (and as many seeded vision embeds or frames), its flash launches
+    exact and on their route, finite logits; ``FAMILY_SERVE`` requests
+    through the serving engine, prefill and decode timed apart, flash
+    launches exact (the encoder-decoder's cross attention at Sq = 1 a layer
+    a step); a profiled forward and four decode steps; then the float32
+    model's decode against its forward (< 2e-3, launches exact)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import build
+    from repro_torch.serve import new_instance
+
+    spec = FAMILY_CELLS[arch]
+    walls, t_stage = {}, [time.perf_counter()]
+
+    def stage(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = now - t_stage[0]
+        t_stage[0] = now
+
+    full = get_config(arch)
+    cut = spec.get("cut", {})
+    cfg = dataclasses.replace(full, name=f"{arch}-cell", **cut)
+    reduced = [f"{k} {getattr(full, k)} -> {v}" for k, v in cut.items()]
+    seq = spec["seq"]
+    route = ("sm90" if cfg.compute_dtype == "bfloat16" and (cfg.head_dim,) * 2 in fops.SM90_DK_DV
+             else "simt")
+    rep = {"arch": arch, "family": full.family, "d_model": cfg.d_model,
+           "n_layers": cfg.n_layers, "param_count": cfg.param_count(),
+           "param_dtype": cfg.param_dtype, "reduced": reduced, "seq": seq}
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + spec["seed"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, device=device)
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    rep["init_s"] = time.perf_counter() - t0
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, seq), generator=g, device=device)}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.randn(1, cfg.vision_prefix, cfg.d_model, generator=g,
+                                             device=device).to(cfg.cdtype())
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(1, seq, cfg.d_model, generator=g,
+                                      device=device).to(cfg.cdtype())
+    want_fwd = {"sm90": 0, "simt": 0}
+    want_fwd[route] = family_flash(cfg)
+    fwd_s = []
+    for i in range(spec["forwards"]):
+        fops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, batch)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - t0)
+        _want_flash(f"{arch} forward", fops.launches_by_route(), want_fwd)
+        if (logits.shape != (1, seq, cfg.padded_vocab) or logits.dtype != torch.float32
+                or not bool(torch.isfinite(logits[..., :cfg.vocab]).all())):
+            raise AssertionError(f"{arch} forward: logits {tuple(logits.shape)} "
+                                 f"{logits.dtype}: not finite / of the expected shape")
+        del logits
+    rep["launches_by_route"] = want_fwd
+    rep["forward_s"] = fwd_s
+    rep["forward_tokens_per_s"] = seq / min(fwd_s)
+    rep["forward_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  {arch}: {cfg.param_count():,} {cfg.param_dtype} parameters, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model} (init {rep['init_s']:.2f} s); Model.forward of {seq} tokens: "
+        + ", ".join(f"{t:.3f}" for t in fwd_s) + f" s ({rep['forward_tokens_per_s']:.0f} "
+        f"tokens/s); flash_attention {want_fwd}; logits finite; peak "
+        f"{rep['forward_peak_mem_bytes'] / 2**30:.3f} GiB"
+        + (f"; cut: {'; '.join(reduced)}" if reduced else ""))
+    stage("init_and_forwards")
+    # device activity only: the xLSTM forward's ~260 k launches take the profiler
+    # ~75 us each to record and read back, twice that with every host op
+    rep["profile_forward"] = profile_model(
+        torch, lambda: model.forward(params, batch), f"{arch}_forward", out_dir,
+        host_ops=False)
+    stage("profile_forward")
+
+    n_req, prompt_len, n_new = FAMILY_SERVE
+    prompts = torch.randint(0, cfg.vocab, (n_req, prompt_len), generator=g, device=device)
+    want_step = {"sm90": 0, "simt": 0}
+    want_step[route] = family_flash(cfg, decode=True) * (prompt_len + n_new)
+    fops.reset_launches()
+    inst = new_instance(cfg, params, batch=n_req, max_len=prompt_len + n_new, device=device)
+    toks, _pre, _last, prefill_s, decode_s = serve_timed(torch, np, inst, prompts, n_new)
+    if toks.shape != (n_req, n_new) or inst.pos != prompt_len + n_new:
+        raise AssertionError(f"{arch} serving gave {toks.shape} at pos {inst.pos}")
+    _want_flash(f"{arch} serving", fops.launches_by_route(), want_step)
+    rep["serve"] = {"batch": n_req, "prompt_len": prompt_len, "new_tokens": n_new,
+                    "prefill_s": prefill_s, "decode_s": decode_s,
+                    "prefill_tokens_per_s": n_req * prompt_len / prefill_s,
+                    "decode_tokens_per_s": n_req * n_new / decode_s,
+                    "launches_by_route": want_step, "first_tokens": toks[:, :4].tolist()}
+    log(f"  {arch} serve: {n_req} requests x {prompt_len}-token prompts, {n_new} new tokens: "
+        f"prefill {prefill_s:.3f} s ({rep['serve']['prefill_tokens_per_s']:.1f} tokens/s, a "
+        f"decode step a prompt token), decode {decode_s:.3f} s "
+        f"({rep['serve']['decode_tokens_per_s']:.1f} tokens/s); flash_attention {want_step}; "
+        f"first tokens {toks[:, :4].tolist()}")
+    del inst, _pre, _last
+    stage("serve")
+    inst = new_instance(cfg, params, batch=n_req, max_len=8, device=device)
+    tok = prompts[:, :1].to(torch.int32)
+    for _ in range(2):
+        inst.decode(tok)
+
+    def four_steps():
+        for _ in range(4):
+            inst.decode(tok)
+    rep["profile_decode"] = profile_model(torch, four_steps, f"{arch}_decode", out_dir,
+                                          host_ops=False)
+    rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del inst, params, model, batch, four_steps
+    torch.cuda.empty_cache()
+    stage("profile_decode")
+
+    # decode against forward in float32 (tests/test_models.py's parity)
+    cfg32 = dataclasses.replace(full, name=f"{arch}-f32", compute_dtype="float32",
+                                param_dtype="float32", **spec.get("parity_cut", {}))
+    pseq = spec["parity_seq"]
+    # the forward, the encoder once more for the cross K/V, a decode step a token
+    want32 = {"sm90": 0, "simt": family_flash(cfg32) + cfg32.n_enc_layers
+              + family_flash(cfg32, decode=True) * pseq}
+    fops.reset_launches()
+    rep["f32_decode_vs_forward_rel"] = decode_vs_forward(torch, cfg32, seed + 1, device, g,
+                                                         seq=pseq)
+    _want_flash(f"{arch} float32 parity", fops.launches_by_route(), want32)
+    rep["f32_parity"] = {"n_layers": cfg32.n_layers, "seq": pseq,
+                         "param_count": cfg32.param_count(), "launches_by_route": want32}
+    stage("f32_parity")
+    rep["walls_s"] = walls
+    log(f"  {arch} float32, {cfg32.n_layers} layers ({cfg32.param_count():,} parameters), "
+        f"{pseq} tokens: decode vs forward relative max error "
+        f"{rep['f32_decode_vs_forward_rel']:.3g} (< 2e-3); flash_attention {want32}")
+    log(f"  {arch} walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; peak device memory {rep['peak_mem_bytes'] / 2**30:.3f} GiB")
+    return rep
+
+
+def families_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
+    """The VLM, xLSTM, Zamba2 and SeamlessM4T families on the card (see the
+    module docstring): the flash forward at their new shapes, each model's
+    cell, ``torch.cuda.memory_allocated()`` back to its start after each,
+    and their four workloads' images published and restored."""
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 means float32 here
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    rep = {"flash": check_flash_shapes(torch, device, seed + 59, FAMILY_FLASH_SHAPES)}
+    rep["flash_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    for arch in FAMILY_CELLS:
+        t0 = time.perf_counter()
+        rep[arch] = family_cell(torch, np, arch, seed, device, out_dir)
+        rep[arch]["wall_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if torch.cuda.memory_allocated() != base:
+            raise AssertionError(f"{arch}: {torch.cuda.memory_allocated() - base} bytes of device "
+                                 "memory outlive the cell")
+    rep["workloads"] = {}
+    t0 = time.perf_counter()
+    for name in FAMILY_WORKLOADS:
+        rep["workloads"][name] = workload_cell(torch, np, name, seed, device)
+    rep["workloads_s"] = time.perf_counter() - t0
+    log(f"  families walls: flash {rep['flash_s']:.2f} s, "
+        + ", ".join(f"{a} {rep[a]['wall_s']:.2f} s" for a in FAMILY_CELLS)
+        + f", workloads {rep['workloads_s']:.2f} s; device memory back to its start after "
+        "each model")
     return rep
 
 
@@ -4506,7 +4767,14 @@ def main() -> int:
     report["moe"] = moe_phase(torch, np, args.seed, device, out.parent)
     phase_done("moe")
 
-    # 17. training: the attention backward's checks and timings, Phi-4-mini's
+    # 17. the VLM, xLSTM, Zamba2 and SeamlessM4T families: the flash kernels at their
+    # shapes, each model served at full width, their four workloads' images (counts reset
+    # inside just before each path)
+    log("families:")
+    report["families"] = families_phase(torch, np, args.seed, device, out.parent)
+    phase_done("families")
+
+    # 18. training: the attention backward's checks and timings, Phi-4-mini's
     # train steps, checkpoint, crash and resume, the quickstart twin (counts
     # reset inside just before each path)
     log("train:")
@@ -4522,6 +4790,9 @@ def main() -> int:
     fleet_launches = report["fleet"]["launches"]
     bench_launches = report["benches"]["launches"]
     coldstart_err = report["coldstart"]["max_abs_err"]
+    fam = report["families"]
+    fam_launches = {k: sum(w["launches"][k] for w in fam["workloads"].values())
+                    for k in ("fused_publish", "fused_restore")}
     cold, hot, store = row_lists["cold"], row_lists["hot"], row_lists["store_write"]
     kernels = [
         {"name": "fused_publish", "route": "cuda", "source": f"{CSRC}/fused_publish.cu",
@@ -4534,7 +4805,8 @@ def main() -> int:
                               "recurate": recurate_launches["fused_publish"],
                               "fleet": fleet_launches["fused_publish"],
                               "benches": bench_launches["fused_publish"],
-                              "coldstart": coldstart_launches["fused_publish"]},
+                              "coldstart": coldstart_launches["fused_publish"],
+                              "families": fam_launches["fused_publish"]},
          "bit_equal": True,
          "max_abs_err": max(pub_err, coldstart_err["fused_publish"]), "ms": pub["ms"],
          "plain_ms": pub["plain_ms"],
@@ -4551,7 +4823,8 @@ def main() -> int:
                               "recurate": recurate_launches["fused_restore"],
                               "fleet": fleet_launches["fused_restore"],
                               "benches": bench_launches["fused_restore"],
-                              "coldstart": coldstart_launches["fused_restore"]},
+                              "coldstart": coldstart_launches["fused_restore"],
+                              "families": fam_launches["fused_restore"]},
          "bit_equal": True, "max_abs_err": res_err,
          "ms": cold["install"]["ms"], "plain_ms": cold["plain_ms"],
          "bound_ms": cold["install"]["bound_ms"], "bound_by": cold["install"]["bound_by"],
@@ -4603,14 +4876,19 @@ def main() -> int:
                              "benches": report["benches"]["launches_flash"],
                              "olmoe_forward": moe["olmoe"]["launches_by_route"],
                              "deepseek_mtp_forward": moe["deepseek"]["launches_by_route"],
+                             **{f"{a}_forward": fam[a]["launches_by_route"] for a in FAMILY_CELLS},
+                             "seamless_serving": fam["seamless-m4t-medium"]["serve"][
+                                 "launches_by_route"],
                              "train": report["train"]["launches"]["flash_attention"]},
         "bit_equal": False, "tolerance": report["flash"]["tolerance"],
         "max_abs_err": max(report["flash"]["max_abs_err"],
-                           *(t["max_abs_err"] for t in moe["flash"]["shapes"].values())),
+                           *(t["max_abs_err"] for t in moe["flash"]["shapes"].values()),
+                           *(t["max_abs_err"] for t in fam["flash"]["shapes"].values())),
         "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "simt_ms": r["simt_ms"], "simt_source": FLASH_SRC["simt"], "shape": r["shape"],
         "at_moe_shapes": {n: at_shape(t) for n, t in moe["flash"]["shapes"].items()},
+        "at_family_shapes": {n: at_shape(t) for n, t in fam["flash"]["shapes"].items()},
         "resources": moe["flash"]["resources"]})
     tr = report["train"]
     b = tr["backward"]["timing"]

@@ -100,8 +100,9 @@ def bench_workload(name: str, compress_cold: bool = False, device="cuda") -> dic
 
 
 def run(workloads=None, device="cuda") -> dict:
-    """``workloads`` defaults to every dense one (the others raise, ROADMAP
-    A11).  The compressed rows run where ``zstandard`` is installed."""
+    """``workloads`` defaults to the four dense ones (the nine-workload run
+    is ROADMAP A13b).  The compressed rows run where ``zstandard`` is
+    installed."""
     names = list(workloads) if workloads else list(DENSE)
     rows = [bench_workload(n, device=device) for n in names]
     rows_z = ([bench_workload(n, compress_cold=True, device=device) for n in names]

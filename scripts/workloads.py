@@ -18,11 +18,11 @@ them is all zero unless the reference's is too, e.g. zero-initialised
 biases), or from ``params=`` (nested dicts of numpy arrays, e.g. the
 reference's own), which makes the image byte-identical to the reference's.
 
-The dense and MoE families are ported: ``chameleon``, ``compression``,
-``json``, ``matmul`` and ``recognition`` (DeepSeek-V3, whose invocations
-touch only their routed experts' pages, found by the ``"/moe/w"`` names of
-``flatten_state``).  The other four raise ``NotImplementedError`` (ROADMAP
-A11); ``all_workloads()`` still lists all nine.
+All nine are ported: the dense four (``chameleon``, ``compression``,
+``json``, ``matmul``), ``recognition`` (DeepSeek-V3, whose invocations touch
+only their routed experts' pages, found by the ``"/moe/w"`` names of
+``flatten_state``), ``image`` (Qwen2-VL), ``pyaes`` (xLSTM), ``pagerank``
+(Zamba2) and ``ffmpeg`` (SeamlessM4T).
 """
 from __future__ import annotations
 
@@ -80,7 +80,7 @@ WORKLOADS: Dict[str, WorkloadDef] = {w.name: w for w in [
 
 # the workloads whose model family is dense decoder-only GQA, and all ported ones
 DENSE = ("chameleon", "compression", "json", "matmul")
-PORTED = (*DENSE, "recognition")
+PORTED = (*DENSE, "recognition", "image", "pyaes", "pagerank", "ffmpeg")
 
 
 @dataclasses.dataclass
@@ -102,15 +102,6 @@ class BuiltWorkload:
         )
 
 
-def _check_ported(name: str) -> WorkloadDef:
-    wdef = WORKLOADS[name]
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"workload {name!r} runs {wdef.arch}, whose model family is not ported yet "
-            "(ROADMAP A11); ported: " + ", ".join(PORTED))
-    return wdef
-
-
 def _expert_elements(extent, layer: int, expert: int, n_layers: int, n_experts: int):
     """Element range [lo, hi) of one expert of one stacked MoE layer in an
     (L, E, ...) array."""
@@ -128,7 +119,7 @@ def build_workload(name: str, seed: int = 0, n_invocations: int = 16, device="cu
     ``n_invocations`` replays and one more measured invocation.  ``params``
     (nested dicts of numpy arrays shaped as the reduced model's) replaces
     the port's own seeded init."""
-    wdef = _check_ported(name)
+    wdef = WORKLOADS[name]
     cfg = get_config(wdef.arch).reduced()
     if params is None:
         params = build(cfg, device=device).init(seed)

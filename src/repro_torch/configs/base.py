@@ -3,9 +3,8 @@ family (dense / moe / ssm / hybrid / audio enc-dec / vlm).
 
 The fields, counts and ``reduced()`` are those of the JAX package's config
 system, field for field; only ``cdtype()`` / ``pdtype()`` return
-``torch.dtype``s.  The registry holds the configs this package has ported
-(the dense-GQA and the MoE/MLA ones); smoke tests use ``reduced()`` configs of
-the same family.
+``torch.dtype``s.  The registry holds all ten configs of the JAX package;
+smoke tests use ``reduced()`` configs of the same family.
 """
 from __future__ import annotations
 
@@ -233,9 +232,7 @@ def all_arch_names():
 
 
 def load_all():
-    """Register the ported configs: the dense-GQA and the MoE/MLA ones.  The
-    SSM, hybrid, VLM and enc-dec configs come with their families."""
     from . import (  # noqa: F401
         deepseek_v3_671b, mistral_large_123b, olmoe_1b_7b, phi4_mini_3_8b, qwen2_5_14b,
-        qwen2_5_32b,
+        qwen2_5_32b, qwen2_vl_72b, seamless_m4t_medium, xlstm_125m, zamba2_2_7b,
     )

@@ -48,8 +48,8 @@ def embed_init(gen: torch.Generator, shape: Sequence[int], dtype) -> torch.Tenso
 # RMSNorm
 # --------------------------------------------------------------------------
 
-def init_rmsnorm(d: int, dtype, device) -> Dict:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def init_rmsnorm(d: int, dtype, device, layers: Tuple[int, ...] = ()) -> Dict:
+    return {"scale": torch.ones((*layers, d), dtype=dtype, device=device)}
 
 
 def rmsnorm(params: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

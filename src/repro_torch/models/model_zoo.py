@@ -8,10 +8,11 @@
   input_specs(shape) -> {name: TensorSpec}          # shapes and dtypes, no data
   make_batch(rng, shape) -> concrete small batch    # numpy rng, tensors on the device
 
-Decoder-only dense and MoE configs are ported (``forward``'s aux is the MoE
-blocks' summed load-balancing loss, 0 for the dense family); the SSM,
-hybrid and VLM families raise when a model is initialised, encoder-decoder
-configs in ``build``.
+Every family of the JAX package: the decoder-only ones (``forward``'s aux is
+the MoE blocks' summed load-balancing loss, 0 for the others; the VLM's batch
+may carry ``vision_embeds``) and the encoder-decoder one (its batch carries
+``frames``, one stub embedding a position; ``init_caches`` takes the encoder
+output as ``enc_out``, and without it starts from zero cross K/V).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..configs.shapes import ShapeSpec
 from ..core.pagestore import resolve_device
+from . import encdec as encdec_mod
 from . import transformer as tf_mod
 
 
@@ -48,10 +50,59 @@ class Model:
     device: torch.device
 
 
+def _frames_len(seq_len: int) -> int:
+    return seq_len  # stub frontend: one embedding per "frame" position
+
+
+def _build_encdec(cfg: ModelConfig, dev: torch.device) -> Model:
+    cdt = cfg.cdtype()
+
+    def init(key):
+        return encdec_mod.init_encdec(key, cfg, device=dev)
+
+    def forward(params, batch):
+        return encdec_mod.encdec_forward(params, batch["frames"], batch["tokens"], cfg)
+
+    def init_caches(params, batch_size, max_len, enc_out=None):
+        return encdec_mod.init_encdec_caches(params, cfg, batch_size, max_len, enc_out=enc_out,
+                                             enc_len=_frames_len(max_len), device=dev)
+
+    def decode_step(params, batch, caches):
+        return encdec_mod.encdec_decode_step(params, batch["tokens"], caches, batch["pos"], cfg)
+
+    def input_specs(shape: ShapeSpec) -> Dict[str, Any]:
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": TensorSpec((b, 1), torch.int32), "pos": TensorSpec((), torch.int32)}
+        specs = {"frames": TensorSpec((b, _frames_len(s), cfg.d_model), cdt),
+                 "tokens": TensorSpec((b, s), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = TensorSpec((b, s), torch.int32)
+        return specs
+
+    def make_batch(rng: np.random.Generator, shape: ShapeSpec):
+        b, s = shape.global_batch, shape.seq_len
+
+        def ints(size):
+            return torch.from_numpy(rng.integers(0, cfg.vocab, size).astype(np.int32)).to(dev)
+
+        out = {"tokens": ints((b, max(1, s) if shape.kind != "decode" else 1))}
+        if shape.kind != "decode":
+            out["frames"] = torch.from_numpy(
+                rng.standard_normal((b, _frames_len(s), cfg.d_model))).to(dev, cdt)
+        if shape.kind == "train":
+            out["labels"] = ints((b, s))
+        if shape.kind == "decode":
+            out["pos"] = s // 2
+        return out
+
+    return Model(cfg, init, forward, init_caches, decode_step, input_specs, make_batch, dev)
+
+
 def build(cfg: ModelConfig, device="cuda") -> Model:
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder configs are not ported yet (ROADMAP A11)")
     dev = resolve_device(device)
+    if cfg.is_encdec:
+        return _build_encdec(cfg, dev)
     cdt = cfg.cdtype()
 
     def init(key):

@@ -1,14 +1,15 @@
 """The port's workloads (``scripts/workloads.py``) against the JAX package's
-(``benchmarks/workloads.py``) on the CPU, for the four dense workloads and
-``recognition`` (DeepSeek-V3: an invocation touches only its routed
-experts' pages, found by ``flatten_state``'s ``"/moe/w"`` names).
+(``benchmarks/workloads.py``) on the CPU, for all nine: the four dense
+workloads, ``recognition`` (DeepSeek-V3: an invocation touches only its
+routed experts' pages, found by ``flatten_state``'s ``"/moe/w"`` names),
+``image`` (Qwen2-VL), ``pyaes`` (xLSTM), ``pagerank`` (Zamba2) and
+``ffmpeg`` (SeamlessM4T).
 
 On the port's own seeded parameters (not bit-equal to JAX's), everything a
 bench models is the reference's: the manifest, the zero, hot and cold page
 sets, the profiled working set, the measured invocation's touches, the
 scale, and the region layout of a publish.  On the reference's parameters
-(carried across as numpy arrays) the image is byte-identical.  The other
-four workloads raise, naming ROADMAP A11."""
+(carried across as numpy arrays) the image is byte-identical."""
 import dataclasses
 
 import jax
@@ -23,7 +24,8 @@ from repro.core import HierarchicalPool as RefPool  # noqa: E402
 from repro.core import build_snapshot as ref_build_snapshot  # noqa: E402
 from repro_torch.core import HierarchicalPool, build_snapshot  # noqa: E402
 
-PORTED = ("chameleon", "compression", "json", "matmul", "recognition")
+PORTED = ("chameleon", "compression", "json", "matmul", "recognition", "image", "pyaes",
+          "pagerank", "ffmpeg")
 
 
 @pytest.fixture(scope="module")
@@ -74,14 +76,9 @@ def test_reference_parameters_give_a_byte_identical_image(name, built):
     assert np.array_equal(p.profile.working_set, r.profile.working_set)
 
 
-@pytest.mark.parametrize("name", sorted(set(twin.WORKLOADS) - set(PORTED)))
-def test_other_families_raise_naming_a11(name):
-    with pytest.raises(NotImplementedError, match="A11"):
-        twin.build_workload(name, device="cpu")
-
-
 def test_twin_ports_what_its_tuple_says():
     assert twin.PORTED == PORTED and set(twin.DENSE) < set(twin.PORTED)
+    assert sorted(twin.PORTED) == sorted(twin.all_workloads())
 
 
 def test_all_workloads_lists_all_nine_and_get_workload_builds_once():

@@ -1511,3 +1511,95 @@ def test_reduced_moe_model_on_card_matches_cpu(cuda_device, arch):
     out_gpu = new_instance(cfg, p_gpu, 2, 48, device=cuda_device).generate(tokens[:, :32], 8)
     assert ops.launches_by_route() == before
     np.testing.assert_array_equal(out_gpu, out_cpu)
+
+
+# --------------------------------------------------------------------------
+# the VLM, xLSTM, Zamba2 and encoder-decoder families
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,want_route", [
+    (4, 16, 16, 1, 160, 64, False, "sm90"),     # cross attention at decode: Sq = 1
+    (2, 16, 16, 1, 1024, 64, False, "sm90"),
+    (1, 16, 16, 300, 100, 64, False, "sm90"),   # cross attention, Sq > Skv
+    (1, 16, 16, 100, 300, 64, False, "sm90"),   # Sq < Skv
+    (1, 16, 16, 130, 130, 64, False, "sm90"),   # the encoder: Sq = Skv past a tile
+    (1, 8, 8, 300, 300, 80, True, "simt"),      # Zamba2's shared attention: D = 80
+    (2, 8, 8, 77, 200, 80, False, "simt"),
+])
+def test_flash_kernel_at_the_families_shapes(cuda_device, b, hq, hkv, sq, skv, d, causal,
+                                             want_route):
+    """bf16 calls of the new families against the float32 reference on the
+    upcast inputs, on their asserted routes, within one bf16 rounding."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import attention_ref, ops
+
+    g = torch.Generator(device=cuda_device).manual_seed(sq * 13 + skv + d)
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device=cuda_device).to(torch.bfloat16)
+               for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+    assert ops.route(q, k, v) == want_route
+    by_route = ops.launches_by_route()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launches_by_route() == {r: n + (r == want_route) for r, n in by_route.items()}
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.allclose(got.float(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "xlstm-125m", "zamba2-2.7b",
+                                  "seamless-m4t-medium"])
+def test_reduced_family_model_on_card_matches_cpu(cuda_device, arch):
+    """A reduced model of each new family on the card against the same
+    parameters on the CPU, float32 compute: the forward (with vision embeds
+    or frames) and a decode from the encoder's output within 1e-4 relative,
+    ``generate`` token for token; its flash launches one a self-attention
+    layer (the hybrid's shared block once a group) and one a cross attention,
+    all on the SIMT route (float32), none in an xLSTM."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import build, encdec
+    from repro_torch.serve import new_instance
+
+    cfg = get_config(arch).reduced(compute_dtype="float32", name=f"{arch}-card-fwd")
+    m_cpu, m_gpu = build(cfg, device="cpu"), build(cfg, device=cuda_device)
+    p_cpu = m_cpu.init(0)
+    p_gpu = params_from_numpy(params_to_numpy(p_cpu), device=cuda_device)
+    rng = np.random.default_rng(0)
+    s = 64                                  # a multiple of the reduced SSD chunk (32)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, s)))}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.vision_prefix, cfg.d_model)).astype(np.float32))
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal((2, s, cfg.d_model)).astype(np.float32))
+    want, _ = m_cpu.forward(p_cpu, batch)
+    before = ops.launches_by_route()
+    got, _ = m_gpu.forward(p_gpu, {k: v.to(cuda_device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    if cfg.is_encdec:
+        n_attn = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    elif cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.attn_every
+    else:
+        n_attn = cfg.n_layers if cfg.family == "vlm" else 0
+    assert ops.launches_by_route() == {"sm90": before["sm90"], "simt": before["simt"] + n_attn}
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) < 1e-4
+    if cfg.is_encdec:
+        first = []
+        for p, model, dev in ((p_cpu, m_cpu, "cpu"), (p_gpu, m_gpu, cuda_device)):
+            enc = encdec.encode(p, batch["frames"].to(dev), cfg)
+            c = model.init_caches(p, 2, 8, enc_out=enc)
+            lg, _ = model.decode_step(p, {"tokens": batch["tokens"][:, :1].to(dev), "pos": 0}, c)
+            first.append(lg.cpu())
+        assert float((first[1] - first[0]).abs().max() / first[0].abs().max()) < 1e-4
+    before = ops.launches_by_route()
+    out_cpu = new_instance(cfg, p_cpu, 2, 48, device="cpu").generate(batch["tokens"][:, :32], 8)
+    out_gpu = new_instance(cfg, p_gpu, 2, 48, device=cuda_device).generate(
+        batch["tokens"][:, :32], 8)
+    step = cfg.n_dec_layers if cfg.is_encdec else 0
+    assert ops.launches_by_route() == {"sm90": before["sm90"],
+                                       "simt": before["simt"] + step * 40}
+    np.testing.assert_array_equal(out_gpu, out_cpu)

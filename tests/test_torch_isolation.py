@@ -19,14 +19,16 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "scripts" / f"{name}.py"
     for name in ("workloads", "dedup_bench", "fault_bench", "adaptive_bench",
                  "concurrency_bench", "breakdown", "serving_bench", "benches_phase",
-                 "quickstart", "train_e2e", "train_phase", "moe_phase", "coldstart_phase")]
+                 "quickstart", "train_e2e", "train_phase", "moe_phase", "coldstart_phase",
+                 "families_phase")]
 
 
 def test_import_loads_no_jax_and_no_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.interop, repro_torch.kernels.build, repro_torch.configs, "
             "repro_torch.configs.base, repro_torch.configs.shapes, repro_torch.models, "
-            "repro_torch.models.transformer, repro_torch.models.moe, "
+            "repro_torch.models.transformer, repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.models.encdec, "
             "repro_torch.models.attention, repro_torch.serve, "
             "repro_torch.kernels.flash_attention, repro_torch.core.failover, "
             "repro_torch.core.profiler, repro_torch.checkpoint, repro_torch.checkpoint.ckpt, "

@@ -2,7 +2,9 @@
 on reduced ``phi4-mini-3.8b`` and ``qwen2.5-14b`` (QKV bias), and on the MoE
 family's reduced ``olmoe-1b-7b`` and ``deepseek-v3-671b`` (MLA, a shared
 expert, a leading dense layer, the MTP head), with the JAX parameters carried
-across by ``params_from_numpy``.
+across by ``params_from_numpy``; all ten configs against the JAX package's
+(the VLM, state-space and encoder-decoder models have files of their own:
+test_torch_vlm.py, test_torch_ssm.py, test_torch_encdec.py).
 
 Tolerances: float32 compute, relative max error 1e-5 on logits and the aux
 loss (summation order and last-ulp differences of exp/cos/sin between XLA and
@@ -44,7 +46,8 @@ from repro_torch.tree import tree_leaves
 ARCHS = ["phi4-mini-3.8b", "qwen2.5-14b"]
 MOE_ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b"]
 PORTED = ["deepseek-v3-671b", "mistral-large-123b", "olmoe-1b-7b", "phi4-mini-3.8b",
-          "qwen2.5-14b", "qwen2.5-32b"]
+          "qwen2-vl-72b", "qwen2.5-14b", "qwen2.5-32b", "seamless-m4t-medium", "xlstm-125m",
+          "zamba2-2.7b"]
 B, S, N_NEW = 2, 16, 6
 
 
@@ -293,7 +296,7 @@ def test_configs_equal_jax(arch):
         assert cell_supported(tc, SHAPES[name]) == jax_cell_supported(jc, shape)
 
 
-def test_registry_holds_the_ported_configs():
+def test_registry_holds_all_ten_configs():
     assert all_arch_names() == PORTED
     phi = get_config("phi4-mini-3.8b")
     assert (phi.n_layers, phi.d_model, phi.n_heads, phi.n_kv_heads, phi.head_dim, phi.d_ff,
@@ -307,6 +310,43 @@ def test_registry_holds_the_ported_configs():
         ("mla", 7168, 128, 1536, 512, 256, 1, 8, 3, True)
     cut = dataclasses.replace(ds, n_layers=2, n_dense_layers=1)
     assert 13.9e9 < cut.param_count() < 14.0e9
+    vl, xl = get_config("qwen2-vl-72b"), get_config("xlstm-125m")
+    zb, sm = get_config("zamba2-2.7b"), get_config("seamless-m4t-medium")
+    assert (vl.family, vl.d_model, vl.n_heads, vl.n_kv_heads, vl.d_ff, vl.vocab, vl.qkv_bias,
+            vl.mrope, vl.vision_prefix, vl.vision_grid) == \
+        ("vlm", 8192, 64, 8, 29568, 152064, True, True, 256, (16, 16))
+    assert (xl.family, xl.n_layers, xl.d_model, xl.ssm_heads, xl.ssm_head_dim) == \
+        ("ssm", 12, 768, 4, 192)
+    assert (zb.family, zb.n_layers, zb.attn_every, zb.d_model, zb.head_dim, zb.ssm_heads,
+            zb.ssm_head_dim, zb.ssm_state) == ("hybrid", 54, 6, 2560, 80, 40, 128, 64)
+    assert (sm.is_encdec, sm.n_enc_layers, sm.n_dec_layers, sm.d_model, sm.n_heads,
+            sm.head_dim, sm.vocab) == (True, 12, 12, 1024, 16, 64, 256206)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_full_configs_param_counts(arch):
+    """The twin of tests/test_models.py::test_full_configs_param_counts: the
+    analytic count in the advertised ballpark, and the reference's."""
+    expected = {
+        "qwen2-vl-72b": 72e9, "qwen2.5-32b": 32e9, "qwen2.5-14b": 14e9,
+        "mistral-large-123b": 123e9, "phi4-mini-3.8b": 3.8e9,
+        "xlstm-125m": 125e6, "deepseek-v3-671b": 671e9,
+        "olmoe-1b-7b": 7e9, "zamba2-2.7b": 2.7e9,
+        "seamless-m4t-medium": 1.2e9,
+    }[arch]
+    n = get_config(arch).param_count()
+    assert 0.5 * expected < n < 1.7 * expected and n == jax_get_config(arch).param_count()
+
+
+def test_long_500k_cell_support_flags():
+    """The twin of tests/test_models.py::test_long_500k_cell_support_flags."""
+    runs = {a: cell_supported(get_config(a), SHAPES["long_500k"])[0] for a in all_arch_names()}
+    assert runs == {
+        "qwen2-vl-72b": False, "qwen2.5-32b": False, "qwen2.5-14b": False,
+        "mistral-large-123b": False, "phi4-mini-3.8b": False,
+        "xlstm-125m": True, "deepseek-v3-671b": False, "olmoe-1b-7b": False,
+        "zamba2-2.7b": True, "seamless-m4t-medium": False,
+    }
 
 
 def test_input_specs_and_make_batch(models):
@@ -324,18 +364,6 @@ def test_input_specs_and_make_batch(models):
         jb = jm.make_batch(np.random.default_rng(0), shape)
         for k, v in batch.items():
             np.testing.assert_array_equal(np.asarray(v), np.asarray(jb[k]))
-
-
-def test_unported_families_raise():
-    cfg = get_config("phi4-mini-3.8b")
-    with pytest.raises(NotImplementedError):
-        build(dataclasses.replace(cfg, n_enc_layers=2, n_dec_layers=2), device="cpu")
-    for family in ("ssm", "hybrid"):
-        model = build(dataclasses.replace(cfg.reduced(), family=family), device="cpu")
-        with pytest.raises(NotImplementedError, match="A11"):
-            model.init(0)
-        with pytest.raises(NotImplementedError, match="A11"):
-            model.init_caches(None, 1, 4)
 
 
 def test_port_init_is_seeded_and_shaped_like_jax(models):
