@@ -252,14 +252,23 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              ``scaled_dot_product_attention``: Qwen2-VL's B=1, Hq=64, Hkv=8,
              S=4096, D=128 causal, SeamlessM4T's 16 heads, S=1024, D=64
              non-causal and its served cross attention at decode (B=4,
-             Sq=1, Skv=160, D=64 non-causal) on the tensor cores, Zamba2's
-             Hq=Hkv=32, S=4096, D=80 causal on the SIMT kernel.  Four cells from seeded random
+             Sq=1, Skv=160, D=64 non-causal) and Zamba2's Hq=Hkv=32,
+             S=4096, D=80 causal on the tensor cores, the SIMT kernel also
+             timed in those turns at Zamba2's shape.  The backward at
+             (80, 80) (bf16 on the tensor cores: Zamba2's shape, GQA with
+             ragged Sq < Skv, non-causal; float32 and a dO view no TMA map
+             takes on SIMT) against autograd and its plain version within
+             the train phase's limits, two launches bit-equal, and at
+             Zamba2's shape in turns with the SIMT kernel, the plain version
+             and the library's backward; registers, spills and HGMMA counts
+             of both tensor-core libraries' (80, 80) kernels, no spill.
+             Four cells from seeded random
              weights, each freed before the next (device memory back to its
              start, asserted): Qwen2-VL-72B at full width cut to 8 of 80
              layers in bf16 (a 4,096-token forward with 256 seeded vision
              embeds, 8 sm90 launches), Zamba2-2.7B at full size (54 Mamba2
              blocks and the shared attention block before each group of 6: a
-             4,096-token forward, 9 SIMT launches), xLSTM-125M at full size
+             4,096-token forward, 9 sm90 launches), xLSTM-125M at full size
              (a 2,048-token forward, no flash), SeamlessM4T-medium at full
              size (1,024 frames and 1,024 tokens, 36 sm90 launches; 12 a
              decode step, the cross attention at Sq = 1): each forward's
@@ -380,14 +389,16 @@ FAMILY_CELLS = {
     "seamless-m4t-medium": {"seq": 1024, "forwards": 2, "parity_seq": 64, "seed": 73},
 }
 # the flash forward's new shapes, (B, Hq, Hkv, Sq, Skv, Dk, Dv): Qwen2-VL's GQA 64:8, Zamba2's
-# D = 80 (SIMT), SeamlessM4T's non-causal encoder, and its served cross attention at decode
-# (batch 4, one query row of a 128-row tile, over the 128 + 32 = 160 cross keys that the
-# engine's caches hold for FAMILY_SERVE's requests)
+# D = 80 (its SIMT kernel's time taken in the same turns, FAMILY_SIMT_TIMED), SeamlessM4T's
+# non-causal encoder, and its served cross attention at decode (batch 4, one query row of a
+# 128-row tile, over the 128 + 32 = 160 cross keys that the engine's caches hold for
+# FAMILY_SERVE's requests)
 FAMILY_FLASH_SHAPES = {"qwen2-vl": ((1, 64, 8, 4096, 4096, 128, 128), True, "sm90"),
-                       "zamba2": ((1, 32, 32, 4096, 4096, 80, 80), True, "simt"),
+                       "zamba2": ((1, 32, 32, 4096, 4096, 80, 80), True, "sm90"),
                        "seamless": ((1, 16, 16, 1024, 1024, 64, 64), False, "sm90"),
                        "seamless_decode": ((FAMILY_SERVE[0], 16, 16, 1, sum(FAMILY_SERVE[1:]),
                                             64, 64), False, "sm90")}
+FAMILY_SIMT_TIMED = ("zamba2",)
 FAMILY_WORKLOADS = ("image", "pyaes", "pagerank", "ffmpeg")
 # the evaluation benches' twins (scripts/<name>.py), in the order the benches phase runs them
 BENCHES = ("dedup_bench", "fault_bench", "adaptive_bench", "concurrency_bench", "breakdown",
@@ -430,8 +441,9 @@ FLASH_SRC = {"bwd": f"{FLASH_CSRC}/flash_attention_bwd.cu",
              "sm90": f"{FLASH_CSRC}/flash_attention_sm90.cu",
              "simt": f"{FLASH_CSRC}/flash_attention.cu"}
 # the tensor-core libraries' (Dk, Dv) instantiations as their mangled names
-# spell them: (64, 64), (128, 128) and MLA's (192, 128), the new one
-SM90_PAIRS = ("ILi64ELi64E", "ILi128ELi128E", "ILi192ELi128E")
+# spell them: (64, 64), Zamba2's (80, 80), (128, 128) and MLA's (192, 128)
+SM90_PAIRS = ("ILi64ELi64E", "ILi80ELi80E", "ILi128ELi128E", "ILi192ELi128E")
+SM90_MLA, SM90_D80 = SM90_PAIRS[3], SM90_PAIRS[1]
 
 
 def log(msg: str) -> None:
@@ -3352,6 +3364,70 @@ def simt_bwd(torch, q, k, v, o, lse, do, causal: bool = True):
     return dq, dk, dv
 
 
+def time_flash_bwd(torch, g, shape, simt: bool) -> dict:
+    """At ``shape`` (B, Hq, Hkv, S, S, Dk, Dv), causal, on bf16 inputs from
+    ``g``: in turns the tensor-core backward (its route asserted), the SIMT
+    kernel on the same inputs (with ``simt``), the plain version and the
+    library's backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention``, K and V repeated to Hq), beside the
+    bound and the work the tensor-core kernel issues.  Timing launches are
+    not a path's: the counts are put back."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    b, hq, hkv, s, _, dk, dv = shape
+    device, bf = g.device, torch.bfloat16
+    q = torch.randn(b, hq, s, dk, generator=g, device=device).to(bf)
+    k = torch.randn(b, hkv, s, dk, generator=g, device=device).to(bf)
+    v = torch.randn(b, hkv, s, dv, generator=g, device=device).to(bf)
+    do = torch.randn(b, hq, s, dv, generator=g, device=device).to(bf)
+    o, lse = fops._forward(q, k, v, True, dk ** -0.5, with_lse=True)
+    if fops.bwd_route(q, k, v, do) != "sm90":
+        raise AssertionError(f"flash backward: the timed inputs {shape} do not take the sm90 "
+                             "route")
+    ql = q.clone().requires_grad_(True)
+    kl = k.repeat_interleave(hq // hkv, 1).requires_grad_(True)
+    vl = v.repeat_interleave(hq // hkv, 1).requires_grad_(True)
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    fns = {"sm90": lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+           "simt": lambda: simt_bwd(torch, q, k, v, o, lse, do),
+           "plain": lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True),
+           "library": lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)}
+    order = tuple(n for n in ("sm90", "simt", "plain", "library", "library", "plain", "simt",
+                              "sm90") if simt or n != "simt")
+    iters = {"sm90": 10, "simt": 2, "plain": 2, "library": 10}
+    nb = (flash_attention_bwd.launches, fops.launches_by_route(flash_attention_bwd))
+    turns = {n: [] for n in order}
+    for n in order:
+        turns[n].append(cuda_ms(fns[n], iters=iters[n], warmup=1))
+    flash_attention_bwd.launches = nb[0]
+    for r, n in nb[1].items():
+        setattr(flash_attention_bwd, f"launches_{r}", n)
+    bound, by, ops, nbytes = flash_bwd_bound_ms(q, k, v, True)
+    heads = f"Hq={hq} Hkv={hkv}" if hq != hkv else f"Hq=Hkv={hq}"
+    width = f"D={dk}" if dk == dv else f"Dk={dk} Dv={dv}"
+    r = {"shape": f"B={b} {heads} S={s} {width} causal bf16", "route": "sm90",
+         "turns_ms": turns, "order": ", ".join(order),
+         **{("ms" if n == "sm90" else f"{n}_ms"): sum(t) / 2 for n, t in turns.items()},
+         "plain": "flash_attention_bwd_ref (block_k=512)",
+         "library": "torch.autograd.grad through F.scaled_dot_product_attention("
+                    "is_causal=True), K and V repeated to Hq, its backward alone",
+         "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes,
+         # 7 products: S^T, dP^T, dV, dK, then S, dP again and dQ
+         "issued_flop": (8 * dk + 6 * dv) * flash_pairs(b, hq, s, s, True)}
+    simt_text = f"; simt {r['simt_ms']:.3f} ms" if simt else ""
+    log(f"  flash backward at {r['shape']}: sm90 {r['ms']:.4f} ms "
+        f"({', '.join(f'{t:.4f}' for t in turns['sm90'])}), "
+        f"{r['ms'] / r['library_ms']:.2f}x the library{simt_text}; plain {r['plain_ms']:.3f} ms; "
+        f"library backward {r['library_ms']:.4f} ms; bound {bound:.4f} ms by {by}: "
+        f"{ops / 1e9:.1f} GFLOP ({r['issued_flop'] / 1e9:.1f} issued), {nbytes / 1e6:.1f} MB")
+    del q, k, v, do, o, lse, ql, kl, vl, lib_out, fns
+    torch.cuda.empty_cache()
+    return r
+
+
 def check_flash_bwd(torch, device, seed: int) -> dict:
     """The flash-attention backward on the card, on both of its routes
     (``ops.bwd_route``), case by case through ``flash_bwd_cases``: bf16 cases
@@ -3361,21 +3437,10 @@ def check_flash_bwd(torch, device, seed: int) -> dict:
     V repeated to Hq) is held to the same limit too, printed as a yardstick
     of what bf16 products give; then, in turns, the tensor-core kernel, the
     SIMT kernel on the same inputs, the plain version and the library's
-    backward, beside the bound."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
-    from repro_torch.kernels.flash_attention import ops as fops
-
+    backward, beside the bound (``time_flash_bwd``)."""
     g = torch.Generator(device=device)
     g.manual_seed(seed + 23)
     bf, f32 = torch.bfloat16, torch.float32
-
-    def inputs(b, hq, hkv, sq, skv, d, dtype):
-        return (torch.randn(b, hq, sq, d, generator=g, device=device).to(dtype),
-                torch.randn(b, hkv, skv, d, generator=g, device=device).to(dtype),
-                torch.randn(b, hkv, skv, d, generator=g, device=device).to(dtype),
-                torch.randn(b, hq, sq, d, generator=g, device=device).to(dtype))
 
     path = (1, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 128, 128)
     # name, shape, dtype, causal, forward route, backward route, dO as an unaligned view
@@ -3392,49 +3457,9 @@ def check_flash_bwd(torch, device, seed: int) -> dict:
     out = {"cases": [], "tolerance": BWD_TOL, "library_case": "training shape bf16"}
     flash_bwd_cases(torch, g, cases, out)
 
-    # at the training shape, in turns: tensor-core kernel, SIMT kernel, plain, library
-    q, k, v, do = inputs(*path[:6], bf)
-    o, lse = fops._forward(q, k, v, True, 128 ** -0.5, with_lse=True)
-    group = q.shape[1] // k.shape[1]
-    ql = q.clone().requires_grad_(True)
-    kl = k.repeat_interleave(group, 1).requires_grad_(True)
-    vl = v.repeat_interleave(group, 1).requires_grad_(True)
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-    fns = {"sm90": lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
-           "simt": lambda: simt_bwd(torch, q, k, v, o, lse, do),
-           "plain": lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True),
-           "library": lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)}
-    if fops.bwd_route(q, k, v, do) != "sm90":
-        raise AssertionError("flash backward: the timed inputs do not take the sm90 route")
-    nb = (flash_attention_bwd.launches, fops.launches_by_route(flash_attention_bwd))
-    order = ("sm90", "simt", "plain", "library", "library", "plain", "simt", "sm90")
-    iters = {"sm90": 10, "simt": 2, "plain": 2, "library": 10}
-    turns = {name: [] for name in fns}
-    for name in order:
-        turns[name].append(cuda_ms(fns[name], iters=iters[name], warmup=1))
-    flash_attention_bwd.launches = nb[0]        # timing launches are not the path's
-    for r, n in nb[1].items():
-        setattr(flash_attention_bwd, f"launches_{r}", n)
-    bound, by, ops, nbytes = flash_bwd_bound_ms(q, k, v, True)
-    out["timing"] = {"shape": f"B=1 Hq=24 Hkv=8 S={TRAIN_SEQ} D=128 causal bf16",
-                     "turns_ms": turns, "order": ", ".join(order),
-                     "ms": sum(turns["sm90"]) / 2, "simt_ms": sum(turns["simt"]) / 2,
-                     "plain_ms": sum(turns["plain"]) / 2,
-                     "library_ms": sum(turns["library"]) / 2,
-                     "plain": "flash_attention_bwd_ref (block_k=512)",
-                     "library": "torch.autograd.grad through F.scaled_dot_product_attention("
-                                "is_causal=True), K and V repeated to Hq, its backward alone",
-                     "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes}
-    del q, k, v, do, o, lse, ql, kl, vl, lib_out, fns
-    torch.cuda.empty_cache()
-    r = out["timing"]
+    out["timing"] = time_flash_bwd(torch, g, path, simt=True)
     out["max_abs_err"] = {route: max(c["max_abs_err"] for c in out["cases"]
                                      if c["bwd_route"] == route) for route in ("sm90", "simt")}
-    log(f"  flash backward at {r['shape']}: sm90 {r['ms']:.4f} ms "
-        f"({', '.join(f'{t:.4f}' for t in turns['sm90'])}), "
-        f"{r['ms'] / r['library_ms']:.2f}x the library; simt {r['simt_ms']:.3f} ms; plain "
-        f"{r['plain_ms']:.3f} ms; library backward {r['library_ms']:.4f} ms; bound "
-        f"{bound:.4f} ms by {by}: {ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB")
     return out
 
 
@@ -3743,17 +3768,20 @@ def train_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
 # moe: OLMoE-1B-7B and DeepSeek-V3 (MLA, MoE, MTP) at full width
 # ----------------------------------------------------------------------------
 
-def check_flash_shapes(torch, device, seed: int, shapes) -> dict:
+def check_flash_shapes(torch, device, seed: int, shapes, simt_timed=()) -> dict:
     """The flash forward at full-width prefill shapes, each on its asserted
     route, against its float32 plain version on the upcast inputs (the model
     phase's limits: bf16 within one rounding, 2^-8|want| + 1e-4); then the
     kernel and ``scaled_dot_product_attention`` on the same inputs timed in
-    turns, beside the plain version and the bound.  ``shapes``: name ->
-    ((B, Hq, Hkv, Sq, Skv, Dk, Dv), causal, route); bf16 inputs from ``seed``."""
+    turns (for the names in ``simt_timed`` the SIMT kernel too, through its
+    binding, uncounted), beside the plain version and the bound.
+    ``shapes``: name -> ((B, Hq, Hkv, Sq, Skv, Dk, Dv), causal, route); bf16
+    inputs from ``seed``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import chunked_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention import ops as fops
 
     g = torch.Generator(device=device)
@@ -3792,12 +3820,20 @@ def check_flash_shapes(torch, device, seed: int, shapes) -> dict:
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=hq != hkv)
 
-        iters = 20 if want_route == "sm90" else 5
+        def simt():     # through its binding, allocating its output as the wrapper does
+            o = torch.empty(b, hq, sq, dv, dtype=bf, device=device)
+            fkernel.flash_attention(q, k, v, o, dk ** -0.5, causal)
+
+        fns = {"simt": simt, "library": library, want_route: kernel}
+        n_iter = 20 if want_route == "sm90" else 5
+        iters = {"simt": 5, "library": n_iter, want_route: n_iter}
         counts = (flash_attention.launches, fops.launches_by_route())
-        turns = {want_route: [], "library": []}
         order = (want_route, "library", "library", want_route)
+        if name in simt_timed and want_route != "simt":
+            order = (want_route, "simt", "library", "library", "simt", want_route)
+        turns = {n: [] for n in order}
         for n in order:
-            turns[n].append(cuda_ms(kernel if n == want_route else library, iters=iters))
+            turns[n].append(cuda_ms(fns[n], iters=iters[n]))
         flash_attention.launches = counts[0]           # timing launches are not a path's
         for r, n in counts[1].items():
             setattr(flash_attention, f"launches_{r}", n)
@@ -3816,10 +3852,15 @@ def check_flash_shapes(torch, device, seed: int, shapes) -> dict:
                "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes}
         if want_route == "sm90":   # the split P: P_hi V and P_lo V
             row["issued_flop"] = ops // (2 * (dk + dv)) * (2 * dk + 4 * dv)
+        simt_text = ""
+        if "simt" in turns and want_route != "simt":
+            row["simt_ms"] = sum(turns["simt"]) / 2
+            simt_text = (f"; SIMT kernel {row['simt_ms']:.4f} ms "
+                         f"({', '.join(f'{t:.4f}' for t in turns['simt'])})")
         out["shapes"][name] = row
         log(f"  flash_attention {name} {row['shape']} route {want_route}: {share:.3f} of the "
-            f"limit; {row['ms']:.4f} ms ({', '.join(f'{t:.4f}' for t in turns[want_route])}); "
-            f"library {row['library_ms']:.4f} ms "
+            f"limit; {row['ms']:.4f} ms ({', '.join(f'{t:.4f}' for t in turns[want_route])})"
+            f"{simt_text}; library {row['library_ms']:.4f} ms "
             f"({', '.join(f'{t:.4f}' for t in turns['library'])}), kernel / library "
             f"{row['ms'] / row['library_ms']:.2f}; plain chunked {row['plain_ms']:.3f} ms; "
             f"bound {bound:.4f} ms by {by}: {ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB")
@@ -3838,7 +3879,7 @@ def check_flash_moe(torch, device, seed: int) -> dict:
         "mla": ((1, 128, 128, MOE_SEQ, MOE_SEQ, 192, 128), True, "sm90")})
     out["resources"] = tensor_cores_no_spill(
         "flash_attention_sm90", tuple(f"flash_sm90_kernel{p}" for p in SM90_PAIRS),
-        new=(f"flash_sm90_kernel{SM90_PAIRS[-1]}",))
+        new=(f"flash_sm90_kernel{SM90_MLA}",))
     return out
 
 
@@ -3849,13 +3890,9 @@ def check_flash_bwd_mla(torch, device, seed: int) -> dict:
     map takes on SIMT), float32 and Dk = 64 < Dv = 128 on the SIMT kernel;
     two launches bit-equal.  Then at the MLA shape in bf16, in turns, the
     tensor-core kernel, the plain version and the library's backward, beside
-    the bound (the SIMT kernel's time there is recorded in PERF.md §6);
-    the registers, spills and SASS of the tensor-core library's kernels."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
-    from repro_torch.kernels.flash_attention import ops as fops
-
+    the bound (``time_flash_bwd``; the SIMT kernel's time there is recorded
+    in PERF.md §6); the registers, spills and SASS of the tensor-core
+    library's kernels."""
     g = torch.Generator(device=device)
     g.manual_seed(seed + 43)
     bf, f32 = torch.bfloat16, torch.float32
@@ -3877,55 +3914,43 @@ def check_flash_bwd_mla(torch, device, seed: int) -> dict:
               False)]
     out = {"cases": [], "tolerance": BWD_TOL}
     flash_bwd_cases(torch, g, cases, out)
-
-    b, hq, hkv, s, _, dk, dv = mla
-    q = torch.randn(b, hq, s, dk, generator=g, device=device).to(bf)
-    k = torch.randn(b, hkv, s, dk, generator=g, device=device).to(bf)
-    v = torch.randn(b, hkv, s, dv, generator=g, device=device).to(bf)
-    do = torch.randn(b, hq, s, dv, generator=g, device=device).to(bf)
-    o, lse = fops._forward(q, k, v, True, dk ** -0.5, with_lse=True)
-    if fops.bwd_route(q, k, v, do) != "sm90":
-        raise AssertionError("flash backward: the MLA shape does not take the sm90 route")
-    fns = {"sm90": lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
-           "plain": lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)}
-    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-    fns["library"] = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
-    nb = (flash_attention_bwd.launches, fops.launches_by_route(flash_attention_bwd))
-    order = ("sm90", "plain", "library", "library", "plain", "sm90")
-    iters = {"sm90": 10, "plain": 2, "library": 10}
-    turns = {n: [] for n in fns}
-    for n in order:
-        turns[n].append(cuda_ms(fns[n], iters=iters[n], warmup=1))
-    flash_attention_bwd.launches = nb[0]        # timing launches are not a path's
-    for r, n in nb[1].items():
-        setattr(flash_attention_bwd, f"launches_{r}", n)
-    bound, by, ops, nbytes = flash_bwd_bound_ms(q, k, v, True)
-    pairs = flash_pairs(b, hq, s, s, True)
-    out["timing"] = {"shape": f"B=1 Hq=Hkv=128 S={s} Dk=192 Dv=128 causal bf16",
-                     "route": "sm90", "turns_ms": turns, "order": ", ".join(order),
-                     "ms": sum(turns["sm90"]) / 2, "plain_ms": sum(turns["plain"]) / 2,
-                     "library_ms": sum(turns["library"]) / 2,
-                     "plain": "flash_attention_bwd_ref (block_k=512)",
-                     "library": "torch.autograd.grad through F.scaled_dot_product_attention("
-                                "is_causal=True), its backward alone",
-                     "bound_ms": bound, "bound_by": by, "flop": ops, "bytes": nbytes,
-                     # 7 products: S^T, dP^T, dV, dK, then S, dP again and dQ
-                     "issued_flop": (8 * dk + 6 * dv) * pairs}
+    out["timing"] = time_flash_bwd(torch, g, mla, simt=False)
     out["max_abs_err"] = {route: max(c["max_abs_err"] for c in out["cases"]
                                      if c["bwd_route"] == route) for route in ("sm90", "simt")}
-    r = out["timing"]
-    log(f"  flash backward at {r['shape']}: sm90 {r['ms']:.4f} ms "
-        f"({', '.join(f'{t:.4f}' for t in turns['sm90'])}), "
-        f"{r['ms'] / r['library_ms']:.2f}x the library; plain {r['plain_ms']:.3f} ms; library "
-        f"backward {r['library_ms']:.4f} ms; bound {bound:.4f} ms by {by}: {ops / 1e9:.1f} GFLOP "
-        f"({r['issued_flop'] / 1e9:.1f} issued), {nbytes / 1e6:.1f} MB")
-    del q, k, v, do, o, lse, ql, kl, vl, lib_out, fns
-    torch.cuda.empty_cache()
     out["resources"] = tensor_cores_no_spill(
         "flash_attention_bwd_sm90",
         tuple(f"{kern}_kernel{p}" for kern in ("dkdv", "dq") for p in SM90_PAIRS),
-        new=(f"dkdv_kernel{SM90_PAIRS[-1]}", f"dq_kernel{SM90_PAIRS[-1]}"))
+        new=(f"dkdv_kernel{SM90_MLA}", f"dq_kernel{SM90_MLA}"))
+    return out
+
+
+def check_flash_bwd_d80(torch, device, seed: int) -> dict:
+    """The backward at Zamba2's (Dk, Dv) = (80, 80) through
+    ``flash_bwd_cases``: bf16 on the tensor cores (Zamba2's shape, GQA with
+    ragged Sq < Skv past a 128-row tile, non-causal), a dO view no TMA map
+    takes and float32 on the SIMT kernel; two launches bit-equal.  Then at
+    Zamba2's shape ``time_flash_bwd`` with the SIMT kernel in the turns;
+    the registers, spills and SASS of both tensor-core libraries' (80, 80)
+    kernels (no spill, HGMMA > 0)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 47)
+    bf, f32 = torch.bfloat16, torch.float32
+    zamba = FAMILY_FLASH_SHAPES["zamba2"][0]
+    gqa = (1, 8, 2, 200, 333, 80, 80)
+    cases = [("Zamba2 shape bf16", zamba, bf, True, "sm90", "sm90", False),
+             ("D=80 GQA ragged Sq=200<Skv=333", gqa, bf, True, "sm90", "sm90", False),
+             ("D=80 non-causal", (2, 4, 4, 150, 300, 80, 80), bf, False, "sm90", "sm90", False),
+             ("D=80, dO rows of 168 bytes", (1, 8, 8, 256, 256, 80, 80), bf, True, "sm90",
+              "simt", True),
+             ("D=80 GQA ragged Sq=200<Skv=333 f32", gqa, f32, True, "simt", "simt", False)]
+    out = {"cases": [], "tolerance": BWD_TOL}
+    flash_bwd_cases(torch, g, cases, out)
+    out["timing"] = time_flash_bwd(torch, g, zamba, simt=True)
+    out["max_abs_err"] = {route: max(c["max_abs_err"] for c in out["cases"]
+                                     if c["bwd_route"] == route) for route in ("sm90", "simt")}
+    out["resources"] = {lib: tensor_cores_no_spill(lib, fns, new=fns) for lib, fns in (
+        ("flash_attention_sm90", (f"flash_sm90_kernel{SM90_D80}",)),
+        ("flash_attention_bwd_sm90", (f"dkdv_kernel{SM90_D80}", f"dq_kernel{SM90_D80}")))}
     return out
 
 
@@ -4460,13 +4485,16 @@ def family_cell(torch, np, arch: str, seed: int, device, out_dir: Path) -> dict:
 
 def families_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
     """The VLM, xLSTM, Zamba2 and SeamlessM4T families on the card (see the
-    module docstring): the flash forward at their new shapes, each model's
+    module docstring): the flash forward at their new shapes and the
+    backward at Zamba2's (80, 80), each model's
     cell, ``torch.cuda.memory_allocated()`` back to its start after each,
     and their four workloads' images published and restored."""
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 means float32 here
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    rep = {"flash": check_flash_shapes(torch, device, seed + 59, FAMILY_FLASH_SHAPES)}
+    rep = {"flash": check_flash_shapes(torch, device, seed + 59, FAMILY_FLASH_SHAPES,
+                                       FAMILY_SIMT_TIMED),
+           "backward": check_flash_bwd_d80(torch, device, seed)}
     rep["flash_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -4889,7 +4917,8 @@ def main() -> int:
         "simt_ms": r["simt_ms"], "simt_source": FLASH_SRC["simt"], "shape": r["shape"],
         "at_moe_shapes": {n: at_shape(t) for n, t in moe["flash"]["shapes"].items()},
         "at_family_shapes": {n: at_shape(t) for n, t in fam["flash"]["shapes"].items()},
-        "resources": moe["flash"]["resources"]})
+        "resources": {**moe["flash"]["resources"],
+                      **fam["backward"]["resources"]["flash_attention_sm90"]}})
     tr = report["train"]
     b = tr["backward"]["timing"]
     bwd_replaces = (f"none: the backward of {FLASH_TPU}, which the JAX package gets by "
@@ -4909,11 +4938,15 @@ def main() -> int:
             "launches_by_path": {"train": train_bwd[route], "quickstart": qs_bwd[route]},
             "bit_equal": False, "deterministic": True, "tolerance": tr["backward"]["tolerance"],
             "max_abs_err": max(tr["backward"]["max_abs_err"][route],
-                               moe["backward"]["max_abs_err"][route]),
+                               moe["backward"]["max_abs_err"][route],
+                               fam["backward"]["max_abs_err"][route]),
             "ms": ms, "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": b["library_ms"], "shape": b["shape"],
             **({"at_mla_shape": at_shape(moe["backward"]["timing"]),
-                "resources": moe["backward"]["resources"]} if route == "sm90" else {})})
+                "at_zamba2_shape": at_shape(fam["backward"]["timing"]),
+                "resources": {**moe["backward"]["resources"],
+                              **fam["backward"]["resources"]["flash_attention_bwd_sm90"]}}
+               if route == "sm90" else {})})
     report["kernels"] = kernels
     report["smoke_s"] = sum(report["phase_s"].values())
     log(f"smoke: {report['smoke_s']:.2f} s over {len(report['phase_s'])} phases on {card}")

@@ -4,9 +4,12 @@
     python3 scripts/families_phase.py [--seed 0] [--out build/families]
 
 Builds the kernels and runs ``chip_smoke.families_phase``: the flash forward
-at the new families' shapes (Qwen2-VL's GQA 64:8 at D = 128 and
-SeamlessM4T's non-causal D = 64 on the tensor cores, Zamba2's D = 80 on the
-SIMT kernel) against its plain version and timed beside the library call;
+at the new families' shapes (Qwen2-VL's GQA 64:8 at D = 128, SeamlessM4T's
+non-causal D = 64 and Zamba2's D = 80 on the tensor cores) against its plain
+version and timed beside the library call (and at Zamba2's shape the SIMT
+kernel); the backward at (80, 80) against autograd and timed beside the SIMT
+kernel, the plain version and the library, and the (80, 80) kernels'
+registers and spills;
 Qwen2-VL-72B at full width on 8 layers, Zamba2-2.7B, xLSTM-125M and
 SeamlessM4T-medium at full size (forward, serving, profiles, float32 decode
 against forward); the image, pyaes, pagerank and ffmpeg workloads' images

@@ -6,10 +6,10 @@
 // `flash_attention_pallas` has no backward: the JAX package differentiates
 // its reference attention.  This is the backward of the port's forward
 // kernels for the calls that `ops.bwd_route` sends here: bf16 q, k, v and
-// dO with (Dk, Dv) one of (64, 64), (128, 128) and MLA's (192, 128), base
-// pointers and the strides of dims 0..2 16-byte aligned, dim 3 contiguous.  Every other call takes
-// csrc/flash_attention_bwd.cu (SIMT float32), which computes the same
-// function.  With S = q k^T * scale,
+// dO with (Dk, Dv) one of (64, 64), Zamba2's (80, 80), (128, 128) and MLA's
+// (192, 128), base pointers and the strides of dims 0..2 16-byte aligned,
+// dim 3 contiguous.  Every other call takes csrc/flash_attention_bwd.cu
+// (SIMT float32), which computes the same function.  With S = q k^T * scale,
 //   P  = exp(S - lse)            (0 where the causal mask drops a key)
 //   D  = rowsum(dO * O)
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - D)
@@ -24,7 +24,8 @@
 // * 4097 / 2 = 258 GFLOP, 0.2606 ms at the 989 TFLOP/s bf16 tensor-core peak,
 // against about 126 MB read and written (0.04 ms at 3.35 TB/s): bound by
 // operations.  At MLA's (B = 1, Hq = Hkv = 128, S = 2048, Dk = 192, Dv = 128,
-// causal) 447 GFLOP, 0.452 ms.
+// causal) 447 GFLOP, 0.452 ms; at Zamba2's (B = 1, Hq = Hkv = 32, S = 4096,
+// D = 80, causal) 215 GFLOP, 0.217 ms.
 //
 // What the design issues.  Two kernels and no float atomics, so two launches
 // on the same inputs give the same bits: the dK/dV kernel computes S^T, dP^T,
@@ -64,8 +65,9 @@
 //    A from registers (the accumulator fragment of 16 queries is the A
 //    fragment of one k16 step) and the [queries, Dv] and [queries, Dk] tiles
 //    of dO and Q as MN-major B operands (N = Dv, N = Dk: m64n192k16 at
-//    MLA's width).  dK and dV stay in float32 registers for the whole block
-//    and are written once, scaled and rounded to bf16.
+//    MLA's width; at D = 80 m64n64k16 and m64n16k16, sm90_common.cuh).  dK
+//    and dV stay in float32 registers for the whole block and are written
+//    once, scaled and rounded to bf16.
 // 3. dq_kernel: a block per (128-query tile, batch * query head), the longest
 //    causal tiles first.  TMA loads the Q and dO tiles once and 64-key tiles
 //    of K and V into a two-stage ring; each warpgroup owns 64 rows: S = Q K^T,
@@ -90,10 +92,11 @@
 // their linear index, x fastest, so the tile index is blockIdx.y: the longest
 // blocks start first across all heads (PERF.md).
 // Tensor maps are 4-D views (D, S, H, B) over the caller's strides, read in
-// boxes of 128-byte swizzled bf16 columns (sm90_common.cuh) as many rows as
-// a dK/dV stage, so the model's transposed projections and autograd's dO
-// load without a copy.  Shared memory: 129 KB (dK/dV) and 128 KB (dQ) at
-// D = 128, 161 KB and 160 KB at (192, 128); one block an SM.
+// boxes of swizzled bf16 columns (sm90_common.cuh: 64 columns, and at D = 80
+// the last 16) as many rows as a dK/dV stage, so the model's transposed
+// projections and autograd's dO load without a copy.  Shared memory: 81 KB
+// (dK/dV) and 80 KB (dQ) at D = 80, 129 KB and 128 KB at D = 128, 161 KB and
+// 160 KB at (192, 128); one block an SM.
 
 #include "sm90_common.cuh"
 
@@ -129,14 +132,14 @@ struct Params {
   int causal;
 };
 
-// Tiles are [rows][64 columns] boxes of bf16, one after another along Dk
-// (q, k) or Dv (v, g: dO).
+// Tiles Dk (q, k) or Dv (v, g: dO) wide as sm90_common.cuh lays them out;
+// each a multiple of 1024 bytes.
 template <int DK, int DV>
 struct __align__(1024) SmemKV {
-  __nv_bfloat16 k[DK / kBox][kKeys * kBox];
-  __nv_bfloat16 v[DV / kBox][kKeys * kBox];
-  __nv_bfloat16 q[q_stages(DK)][DK / kBox][q_tile(DK) * kBox];
-  __nv_bfloat16 g[q_stages(DK)][DV / kBox][q_tile(DK) * kBox];
+  __nv_bfloat16 k[kKeys * DK];
+  __nv_bfloat16 v[kKeys * DV];
+  __nv_bfloat16 q[q_stages(DK)][q_tile(DK) * DK];
+  __nv_bfloat16 g[q_stages(DK)][q_tile(DK) * DV];
   float lse2[q_stages(DK)][q_tile(DK)];
   float delta[q_stages(DK)][q_tile(DK)];
   uint64_t kv_full;
@@ -146,10 +149,10 @@ struct __align__(1024) SmemKV {
 
 template <int DK, int DV>
 struct __align__(1024) SmemQ {
-  __nv_bfloat16 q[DK / kBox][kRows * kBox];
-  __nv_bfloat16 g[DV / kBox][kRows * kBox];
-  __nv_bfloat16 k[kStages][DK / kBox][kKTile * kBox];
-  __nv_bfloat16 v[kStages][DV / kBox][kKTile * kBox];
+  __nv_bfloat16 q[kRows * DK];
+  __nv_bfloat16 g[kRows * DV];
+  __nv_bfloat16 k[kStages][kKTile * DK];
+  __nv_bfloat16 v[kStages][kKTile * DV];
   uint64_t qg_full;
   uint64_t full[kStages];
   int released[kStages];  // warpgroups done with the slot's current tile
@@ -158,17 +161,6 @@ struct __align__(1024) SmemQ {
 __device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);  // x0 in the low half
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// `rows` rows of a [rows][W] tile at row r0 of (b, h): one box per BOX rows
-// (the map's box) and 64 columns, completing on `bar`.
-template <int W, int BOX>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int rows, const CUtensorMap* map,
-                                          uint64_t* bar, int r0, int h, int b) {
-#pragma unroll
-  for (int c = 0; c < W / kBox; ++c)
-    for (int r = 0; r < rows; r += BOX)
-      tma_load(dst + (c * rows + r) * kBox, map, bar, c * kBox, r0 + r, h, b);
 }
 
 template <int STAGES>
@@ -228,12 +220,10 @@ __global__ void __launch_bounds__(256) prep_kernel(const Params p, int64_t rows)
 // and column 8*(i/4) + 2*(lane%4) + i%2.
 template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
-dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
+dkdv_kernel(const __grid_constant__ TileMaps tm_q, const __grid_constant__ TileMaps tm_k,
+            const __grid_constant__ TileMaps tm_v, const __grid_constant__ TileMaps tm_g,
             const Params p) {
   constexpr int kQTile = q_tile(DK), kQStages = q_stages(DK);
-  constexpr uint32_t kKChunk = kKeys * kBox * 2;   // bytes between 64-column boxes of K, V
-  constexpr uint32_t kQChunk = kQTile * kBox * 2;  // ... of a Q or dO tile
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
   SmemKV<DK, DV>& sm = *reinterpret_cast<SmemKV<DK, DV>*>(smem_raw + pad);
@@ -257,17 +247,17 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
     const int s = u % kQStages;
     const int h = hk * p.group + u / per_head;
     const int q0 = (qt0 + u % per_head) * kQTile;
-    mbar_expect_tx(&sm.full[s], (DK + DV) / kBox * kQChunk + 2 * kQTile * 4);
-    load_tile<DK, kQTile>(sm.q[s][0], kQTile, &tm_q, &sm.full[s], q0, h, b);
-    load_tile<DV, kQTile>(sm.g[s][0], kQTile, &tm_g, &sm.full[s], q0, h, b);
+    mbar_expect_tx(&sm.full[s], (DK + DV) * kQTile * 2 + 2 * kQTile * 4);
+    load_tile<DK, kQTile>(sm.q[s], kQTile, tm_q, &sm.full[s], q0, h, b);
+    load_tile<DV, kQTile>(sm.g[s], kQTile, tm_g, &sm.full[s], q0, h, b);
     const int64_t row = static_cast<int64_t>(b * p.hq + h) * p.sq_pad + q0;
     bulk_load(sm.lse2[s], p.lse2 + row, kQTile * 4, &sm.full[s]);
     bulk_load(sm.delta[s], p.delta + row, kQTile * 4, &sm.full[s]);
   };
   if (threadIdx.x == 0) {
-    mbar_expect_tx(&sm.kv_full, (DK + DV) / kBox * kKChunk);
-    load_tile<DK, kQTile>(sm.k[0], kKeys, &tm_k, &sm.kv_full, k0, hk, b);
-    load_tile<DV, kQTile>(sm.v[0], kKeys, &tm_v, &sm.kv_full, k0, hk, b);
+    mbar_expect_tx(&sm.kv_full, (DK + DV) * kKeys * 2);
+    load_tile<DK, kQTile>(sm.k, kKeys, tm_k, &sm.kv_full, k0, hk, b);
+    load_tile<DV, kQTile>(sm.v, kKeys, tm_v, &sm.kv_full, k0, hk, b);
     for (int u = 0; u < kQStages && u < n_steps; ++u) issue(u);
   }
 
@@ -279,8 +269,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
   const int key0 = wg_key + (tid / 32) * 16 + lane / 4;  // this thread's keys key0, key0 + 8
   const int key1 = key0 + 8;
   const int col = 2 * (lane % 4);
-  const uint32_t k_addr = smem_u32(sm.k[0]) + cw * 64 * 128;  // 64 rows of 128 bytes a box
-  const uint32_t v_addr = smem_u32(sm.v[0]) + cw * 64 * 128;
+  const uint32_t k_addr = smem_u32(sm.k), v_addr = smem_u32(sm.v);
   const float scale_log2 = p.scale * kLog2e;
 
   float dk[DK / 2], dv[DV / 2];
@@ -296,17 +285,16 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
     mbar_wait(&sm.full[s], (t / kQStages) & 1);
     // a tile wholly above the diagonal for this warpgroup's keys adds nothing
     if (!p.causal || q0 + kQTile - 1 + p.skv - p.sq >= wg_key) {
-      const uint32_t q_addr = smem_u32(sm.q[s][0]);
-      const uint32_t g_addr = smem_u32(sm.g[s][0]);
+      const uint32_t q_addr = smem_u32(sm.q[s]);
+      const uint32_t g_addr = smem_u32(sm.g[s]);
       // K's and V's descriptors do not change from step to step; hidden
       // from the compiler, they are rebuilt each step (a few integer ops)
       // instead of holding 32 registers across the loop
       uint32_t ka = k_addr, va = v_addr;
       asm volatile("" : "+r"(ka), "+r"(va));
 
-      // S^T = K Q^T along Dk, dP^T = V dO^T along Dv: k16 steps; a step
-      // inside a 128-byte row moves the start address by 32 bytes, the next
-      // 64 columns are the next box
+      // S^T = K Q^T along Dk, dP^T = V dO^T along Dv: k16 steps, this
+      // warpgroup's 64 rows of K and V
       float st[kQTile / 2], dpt[kQTile / 2];
 #pragma unroll
       for (int i = 0; i < kQTile / 2; ++i) st[i] = dpt[i] = 0.f;
@@ -315,14 +303,12 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DK / 16; ++kk)
-        wgmma_ss<kQTile>(st, sw128_desc(ka + (kk / 4) * kKChunk + (kk % 4) * 32, 16, 1024),
-                         sw128_desc(q_addr + (kk / 4) * kQChunk + (kk % 4) * 32, 16, 1024),
-                         kk > 0);
+        wgmma_ss<kQTile>(st, kmajor_desc<DK>(ka, kKeys, cw * 64, kk),
+                         kmajor_desc<DK>(q_addr, kQTile, 0, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < DV / 16; ++kk)
-        wgmma_ss<kQTile>(dpt, sw128_desc(va + (kk / 4) * kKChunk + (kk % 4) * 32, 16, 1024),
-                         sw128_desc(g_addr + (kk / 4) * kQChunk + (kk % 4) * 32, 16, 1024),
-                         kk > 0);
+        wgmma_ss<kQTile>(dpt, kmajor_desc<DV>(va, kKeys, cw * 64, kk),
+                         kmajor_desc<DV>(g_addr, kQTile, 0, kk), kk > 0);
       wgmma_commit();
       wgmma_wait_all();
       pin(st);
@@ -349,7 +335,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
         sf[i / 8][(i % 8) / 2] = pack_bf16(p0 * (dpt[i] - dl.x), p1 * (dpt[i + 1] - dl.y));
       }
 
-      // dV += P^T dO, dK += dS^T Q: k16 steps along the queries are 16 rows = 2 KB
+      // dV += P^T dO, dK += dS^T Q: k16 steps along the queries, 16 rows each
       pin(dk);
       pin(dv);
       pin(pf);
@@ -357,8 +343,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kQTile / 16; ++kk) {
-        wgmma_rs<DV>(dv, pf[kk], sw128_desc(g_addr + kk * 16 * 128, kQChunk, 1024));
-        wgmma_rs<DK>(dk, sf[kk], sw128_desc(q_addr + kk * 16 * 128, kQChunk, 1024));
+        wgmma_rs_tile<DV>(dv, pf[kk], g_addr, kQTile, kk);
+        wgmma_rs_tile<DK>(dk, sf[kk], q_addr, kQTile, kk);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -400,12 +386,10 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
 
 template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
-dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
+dq_kernel(const __grid_constant__ TileMaps tm_q, const __grid_constant__ TileMaps tm_k,
+          const __grid_constant__ TileMaps tm_v, const __grid_constant__ TileMaps tm_g,
           const Params p) {
-  constexpr int kBoxRows = q_tile(DK);             // the maps' box
-  constexpr uint32_t kQChunk = kRows * kBox * 2;   // bytes between 64-column boxes of Q, dO
-  constexpr uint32_t kKChunk = kKTile * kBox * 2;  // ... of a K or V tile
+  constexpr int kBoxRows = q_tile(DK);  // the maps' box
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
   SmemQ<DK, DV>& sm = *reinterpret_cast<SmemQ<DK, DV>*>(smem_raw + pad);
@@ -424,14 +408,14 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
   // tiles, then the warpgroup that releases tile u - kStages last.
   const auto issue = [&](int u) {
     const int s = u % kStages;
-    mbar_expect_tx(&sm.full[s], (DK + DV) / kBox * kKChunk);
-    load_tile<DK, kBoxRows>(sm.k[s][0], kKTile, &tm_k, &sm.full[s], u * kKTile, hk, b);
-    load_tile<DV, kBoxRows>(sm.v[s][0], kKTile, &tm_v, &sm.full[s], u * kKTile, hk, b);
+    mbar_expect_tx(&sm.full[s], (DK + DV) * kKTile * 2);
+    load_tile<DK, kBoxRows>(sm.k[s], kKTile, tm_k, &sm.full[s], u * kKTile, hk, b);
+    load_tile<DV, kBoxRows>(sm.v[s], kKTile, tm_v, &sm.full[s], u * kKTile, hk, b);
   };
   if (threadIdx.x == 0) {
-    mbar_expect_tx(&sm.qg_full, (DK + DV) / kBox * kQChunk);
-    load_tile<DK, kBoxRows>(sm.q[0], kRows, &tm_q, &sm.qg_full, q0, h, b);
-    load_tile<DV, kBoxRows>(sm.g[0], kRows, &tm_g, &sm.qg_full, q0, h, b);
+    mbar_expect_tx(&sm.qg_full, (DK + DV) * kRows * 2);
+    load_tile<DK, kBoxRows>(sm.q, kRows, tm_q, &sm.qg_full, q0, h, b);
+    load_tile<DV, kBoxRows>(sm.g, kRows, tm_g, &sm.qg_full, q0, h, b);
     for (int u = 0; u < kStages && u < n_tiles; ++u) issue(u);
   }
 
@@ -444,8 +428,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
   const int r0 = wg_row + (tid / 32) * 16 + lane / 4;  // this thread's rows r0 and r0 + 8
   const int r1 = r0 + 8;
   const int col = 2 * (lane % 4);
-  const uint32_t q_addr = smem_u32(sm.q[0]) + cw * 64 * 128;
-  const uint32_t g_addr = smem_u32(sm.g[0]) + cw * 64 * 128;
+  const uint32_t q_addr = smem_u32(sm.q), g_addr = smem_u32(sm.g);
   const float scale_log2 = p.scale * kLog2e;
   const int64_t srow = static_cast<int64_t>(bh) * p.sq_pad;  // r0, r1 < sq_pad
   const float l0 = p.lse2[srow + r0], l1 = p.lse2[srow + r1];
@@ -462,10 +445,10 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     mbar_wait(&sm.full[s], (t / kStages) & 1);
     // a tile no row of this warpgroup sees adds nothing
     if (!p.causal || kt0 <= wg_last + off) {
-      const uint32_t k_addr = smem_u32(sm.k[s][0]);
-      const uint32_t v_addr = smem_u32(sm.v[s][0]);
+      const uint32_t k_addr = smem_u32(sm.k[s]);
+      const uint32_t v_addr = smem_u32(sm.v[s]);
 
-      // S = Q K^T along Dk, dP = dO V^T along Dv
+      // S = Q K^T along Dk, dP = dO V^T along Dv, this warpgroup's 64 rows
       float sc[32], dp[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
@@ -474,12 +457,12 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DK / 16; ++kk)
-        wgmma_ss_n64(sc, sw128_desc(q_addr + (kk / 4) * kQChunk + (kk % 4) * 32, 16, 1024),
-                     sw128_desc(k_addr + (kk / 4) * kKChunk + (kk % 4) * 32, 16, 1024), kk > 0);
+        wgmma_ss_n64(sc, kmajor_desc<DK>(q_addr, kRows, cw * 64, kk),
+                     kmajor_desc<DK>(k_addr, kKTile, 0, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < DV / 16; ++kk)
-        wgmma_ss_n64(dp, sw128_desc(g_addr + (kk / 4) * kQChunk + (kk % 4) * 32, 16, 1024),
-                     sw128_desc(v_addr + (kk / 4) * kKChunk + (kk % 4) * 32, 16, 1024), kk > 0);
+        wgmma_ss_n64(dp, kmajor_desc<DV>(g_addr, kRows, cw * 64, kk),
+                     kmajor_desc<DV>(v_addr, kKTile, 0, kk), kk > 0);
       wgmma_commit();
       wgmma_wait_all();
       pin(sc);
@@ -504,13 +487,13 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
         sf[i / 8][(i % 8) / 2] = pack_bf16(p0 * (dp[i] - dl), p1 * (dp[i + 1] - dl));
       }
 
-      // dQ += dS K: k16 steps along the keys are 16 rows = 2 KB
+      // dQ += dS K: k16 steps along the keys, 16 rows each
       pin(dq);
       pin(sf);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKTile / 16; ++kk)
-        wgmma_rs<DK>(dq, sf[kk], sw128_desc(k_addr + kk * 16 * 128, kKChunk, 1024));
+        wgmma_rs_tile<DK>(dq, sf[kk], k_addr, kKTile, kk);
       wgmma_commit();
       wgmma_wait_all();
       pin(dq);
@@ -537,7 +520,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
 // ------------------------------------------------------------------- host
 
 struct Maps {
-  CUtensorMap q, k, v, g;
+  TileMaps q, k, v, g;
 };
 
 template <int DK, int DV>
@@ -578,10 +561,10 @@ extern "C" const char* aq_error_string(int code) { return aq_sm90::error_string(
 // Sq), contiguous; aux: float32 scratch of 2 * B * Hq * Sq_pad elements,
 // Sq_pad = Sq rounded up to a multiple of 128 (kernel.BWD_SM90_ROW_PAD),
 // 16-byte aligned; dq, dk (Dk wide), dv (Dv wide): contiguous bf16 outputs.
-// Requires (dim_k, dim_v) = (Dk, Dv) in {(64, 64), (128, 128), (192, 128)}, Skv >= 1,
-// Hq % Hkv == 0, B * Hq < 65536, Sq and Skv at most 65535 tiles of 128, and
-// Sq <= Skv when causal (ops.bwd_route and the wrapper check all but the tile
-// counts).  Launches the prologue, the dK/dV kernel and the dQ kernel in
+// Requires (dim_k, dim_v) = (Dk, Dv) in {(64, 64), (80, 80), (128, 128),
+// (192, 128)}, Skv >= 1, Hq % Hkv == 0, B * Hq < 65536, Sq and Skv at most
+// 65535 tiles of 128, and Sq <= Skv when causal (ops.bwd_route and the
+// wrapper check all but the tile counts).  Launches the prologue, the dK/dV kernel and the dQ kernel in
 // order on `stream`.  Returns the first CUDA error, or kErrNoEncode /
 // kErrEncode + CUresult.
 extern "C" int aq_flash_attention_bwd_sm90(
@@ -592,17 +575,17 @@ extern "C" int aq_flash_attention_bwd_sm90(
     int64_t v_sh, int64_t v_ss, int64_t g_sb, int64_t g_sh, int64_t g_ss, float scale, int causal,
     void* stream) {
   if (b <= 0 || hq <= 0 || sq <= 0) return 0;
-  const bool widths = (dim_k == 64 && dim_v == 64) || (dim_k == 128 && dim_v == 128) ||
-                      (dim_k == 192 && dim_v == 128);
+  const bool widths = (dim_k == 64 && dim_v == 64) || (dim_k == 80 && dim_v == 80) ||
+                      (dim_k == 128 && dim_v == 128) || (dim_k == 192 && dim_v == 128);
   if (!widths || skv <= 0 || hkv <= 0 || hq % hkv != 0 || b * hq >= 65536 ||
       sq > 65535 * kRows || skv > 65535 * kKeys || (causal && sq > skv))
     return static_cast<int>(cudaErrorInvalidValue);
-  Maps m;
+  Maps m{};
   const int box = q_tile(static_cast<int>(dim_k));
-  int rc = make_map(&m.q, q, dim_k, sq, hq, b, q_ss, q_sh, q_sb, box);
-  if (rc == 0) rc = make_map(&m.k, k, dim_k, skv, hkv, b, k_ss, k_sh, k_sb, box);
-  if (rc == 0) rc = make_map(&m.v, v, dim_v, skv, hkv, b, v_ss, v_sh, v_sb, box);
-  if (rc == 0) rc = make_map(&m.g, dout, dim_v, sq, hq, b, g_ss, g_sh, g_sb, box);
+  int rc = make_maps(&m.q, q, dim_k, sq, hq, b, q_ss, q_sh, q_sb, box);
+  if (rc == 0) rc = make_maps(&m.k, k, dim_k, skv, hkv, b, k_ss, k_sh, k_sb, box);
+  if (rc == 0) rc = make_maps(&m.v, v, dim_v, skv, hkv, b, v_ss, v_sh, v_sb, box);
+  if (rc == 0) rc = make_maps(&m.g, dout, dim_v, sq, hq, b, g_ss, g_sh, g_sb, box);
   if (rc != 0) return rc;
   const int64_t sq_pad = (sq + kRowPad - 1) / kRowPad * kRowPad;
   const Params p{static_cast<const __nv_bfloat16*>(o),
@@ -627,6 +610,7 @@ extern "C" int aq_flash_attention_bwd_sm90(
                  causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dim_k == 64) return launch<64, 64>(m, p, b, s);
+  if (dim_k == 80) return launch<80, 80>(m, p, b, s);
   if (dim_k == 128) return launch<128, 128>(m, p, b, s);
   return launch<192, 128>(m, p, b, s);
 }

@@ -5,8 +5,8 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:91
 // `flash_attention_pallas` (body `_flash_kernel`, kernel.py:34) for the calls
 // that `ops.route` sends here: bf16 q, k, v with (Dk, Dv) one of (64, 64),
-// (128, 128) and MLA's (192, 128), base pointers and the strides of dims 0..2
-// 16-byte aligned, dim 3 contiguous.
+// Zamba2's (80, 80), (128, 128) and MLA's (192, 128), base pointers and the
+// strides of dims 0..2 16-byte aligned, dim 3 contiguous.
 // It computes what that kernel computes: scores (q . k) * scale in float32,
 // the scale applied after the product; online softmax with the finite mask
 // value -1e30; the causal mask suffix-aligned (key j is kept for query i when
@@ -22,7 +22,8 @@
 // (0.04 ms at 3.35 TB/s): bound by operations.  At MLA's shape (B = 1,
 // Hq = Hkv = 128, S = 4096, Dk = 192, Dv = 128, causal) 687 GFLOP, 0.695 ms;
 // the kernel issues 2 Dk + 4 Dv = 896 operations a pair (the split P below),
-// 962 GFLOP there.
+// 962 GFLOP there.  At Zamba2's (B = 1, Hq = Hkv = 32, S = 4096, D = 80,
+// causal) 85.9 GFLOP, 0.0869 ms; 129 GFLOP issued.
 //
 // Numerics.  The TPU kernel multiplies P by V with P in float32.  Rounding P
 // to bf16 for the tensor cores (as FlashAttention does), or to TF32, misses
@@ -53,11 +54,14 @@
 //   then O += P_hi V + P_lo V by wgmma with P from registers (the S
 //   accumulator fragment of 16 keys is the A fragment of one k16 step) and
 //   V's [keys, Dv] tile as the MN-major (transposed) B operand.
-// - Shared memory holds bf16 tiles of 128 rows x 64 columns, 128-byte
-//   swizzled as TMA writes them and wgmma reads them: Q 128 x Dk, K (Dk wide)
-//   and V (Dv wide) two stages each, 160 KB at D = 128 and 208 KB at (192,
-//   128), one block an SM.  Dk only adds k16 steps to S = Q K^T: a consumer
-//   thread holds O (Dv / 2 floats), S and P_hi / P_lo at every width.
+// - Shared memory holds bf16 tiles of 128 rows (sm90_common.cuh: boxes of 64
+//   columns, 128-byte swizzled as TMA writes them and wgmma reads them, and
+//   at D = 80 a box of the last 16 columns, 32-byte swizzled): Q 128 x Dk, K
+//   (Dk wide) and V (Dv wide) two stages each, 100 KB at D = 80, 160 KB at
+//   D = 128 and 208 KB at (192, 128), one block an SM.  Dk only adds k16
+//   steps to S = Q K^T: a consumer thread holds O (Dv / 2 floats), S and
+//   P_hi / P_lo at every width.  At D = 80 each k16 step of P V is two
+//   wgmma, m64n64k16 on the 64-column box and m64n16k16 on the 16-column one.
 // - Epilogue: O / l rounded to bf16, rows < Sq stored as 4-byte pairs;
 //   given an `lse` pointer (training), each row's log-sum-exp
 //   m ln2 + log(l) in natural units, float32, for the backward kernels.
@@ -73,13 +77,13 @@ constexpr int kBN = 128;           // keys per tile
 constexpr int kStages = 2;         // K and V ring depth
 constexpr int kThreads = 384;      // producer warpgroup + two consumer warpgroups
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
-constexpr int kBoxBytes = kBM * kBox * 2;  // 16 KB: one [128 rows][64 cols] bf16 box
 
+// Tiles as sm90_common.cuh lays them out; each a multiple of 1024 bytes.
 template <int DK, int DV>
 struct __align__(1024) Smem {
-  __nv_bfloat16 q[DK / kBox][kBM * kBox];
-  __nv_bfloat16 k[kStages][DK / kBox][kBN * kBox];
-  __nv_bfloat16 v[kStages][DV / kBox][kBN * kBox];
+  __nv_bfloat16 q[kBM * DK];
+  __nv_bfloat16 k[kStages][kBN * DK];
+  __nv_bfloat16 v[kStages][kBN * DV];
   uint64_t q_full;
   uint64_t k_full[kStages], k_empty[kStages];
   uint64_t v_full[kStages], v_empty[kStages];
@@ -108,12 +112,10 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uin
 // and column 8*(i/4) + 2*(lane%4) + i%2.
 template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
-                  const __grid_constant__ CUtensorMap tm_k,
-                  const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  constexpr int kKChunks = DK / kBox, kVChunks = DV / kBox;
-  constexpr uint32_t kKTileBytes = kKChunks * kBoxBytes;  // a Q or K tile
-  constexpr uint32_t kVTileBytes = kVChunks * kBoxBytes;  // a V tile
+flash_sm90_kernel(const __grid_constant__ TileMaps tm_q, const __grid_constant__ TileMaps tm_k,
+                  const __grid_constant__ TileMaps tm_v, const Params p) {
+  constexpr uint32_t kKTileBytes = kBN * DK * 2;  // a Q or K tile (kBM == kBN)
+  constexpr uint32_t kVTileBytes = kBN * DV * 2;  // a V tile
   extern __shared__ uint8_t smem_raw[];
   // swizzle atoms start 1024-aligned
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
@@ -145,21 +147,16 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(&sm.q_full, kKTileBytes);
-#pragma unroll
-      for (int c = 0; c < kKChunks; ++c) tma_load(sm.q[c], &tm_q, &sm.q_full, c * kBox, q0, h, b);
+      load_tile<DK, kBM>(sm.q, kBM, tm_q, &sm.q_full, q0, h, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         const uint32_t ph = (t / kStages) & 1;
         mbar_wait(&sm.k_empty[s], ph ^ 1);
         mbar_expect_tx(&sm.k_full[s], kKTileBytes);
-#pragma unroll
-        for (int c = 0; c < kKChunks; ++c)
-          tma_load(sm.k[s][c], &tm_k, &sm.k_full[s], c * kBox, t * kBN, hk, b);
+        load_tile<DK, kBN>(sm.k[s], kBN, tm_k, &sm.k_full[s], t * kBN, hk, b);
         mbar_wait(&sm.v_empty[s], ph ^ 1);
         mbar_expect_tx(&sm.v_full[s], kVTileBytes);
-#pragma unroll
-        for (int c = 0; c < kVChunks; ++c)
-          tma_load(sm.v[s][c], &tm_v, &sm.v_full[s], c * kBox, t * kBN, hk, b);
+        load_tile<DV, kBN>(sm.v[s], kBN, tm_v, &sm.v_full[s], t * kBN, hk, b);
       }
     }
   } else {
@@ -172,7 +169,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int r0 = first_row + (tid / 32) * 16 + lane / 4;  // this thread's rows r0 and r0 + 8
     const int r1 = r0 + 8;
     const int col = 2 * (lane % 4);
-    const uint32_t q_addr = smem_u32(sm.q[0]) + cw * 64 * 128;  // 64 rows of 128 bytes a box
+    const uint32_t q_addr = smem_u32(sm.q);
 
     float o[DV / 2];
 #pragma unroll
@@ -186,21 +183,18 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t ph = (t / kStages) & 1;
       const int k0 = t * kBN;
 
-      // S = Q K^T: k16 steps along Dk; a step inside a 128-byte row moves the
-      // start address by 32 bytes, the next 64 columns are the next box
+      // S = Q K^T: k16 steps along Dk, this warpgroup's 64 rows of Q
       float sc[64];
 #pragma unroll
       for (int i = 0; i < 64; ++i) sc[i] = 0.f;
       mbar_wait(&sm.k_full[s], ph);
-      const uint32_t k_addr = smem_u32(sm.k[s][0]);
+      const uint32_t k_addr = smem_u32(sm.k[s]);
       pin(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DK / 16; ++kk) {
-        const uint32_t step = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-        wgmma_ss_n128(sc, sw128_desc(q_addr + step, 16, 1024), sw128_desc(k_addr + step, 16, 1024),
-                      kk > 0);
-      }
+      for (int kk = 0; kk < DK / 16; ++kk)
+        wgmma_ss_n128(sc, kmajor_desc<DK>(q_addr, kBM, cw * 64, kk),
+                      kmajor_desc<DK>(k_addr, kBN, 0, kk), kk > 0);
       wgmma_commit();
       wgmma_wait_all();
       pin(sc);
@@ -255,18 +249,17 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int j = 0; j < 4; ++j)
           split_pair(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1], phi[kk][j], plo[kk][j]);
 
-      // O += P_hi V + P_lo V: k16 steps along the keys are 16 rows = 2 KB
+      // O += P_hi V + P_lo V: k16 steps along the keys, 16 rows of V each
       mbar_wait(&sm.v_full[s], ph);
-      const uint32_t v_addr = smem_u32(sm.v[s][0]);
+      const uint32_t v_addr = smem_u32(sm.v[s]);
       pin(o);
       pin(phi);
       pin(plo);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk) {
-        const uint64_t desc = sw128_desc(v_addr + kk * 16 * 128, kBoxBytes, 1024);
-        wgmma_rs<DV>(o, phi[kk], desc);
-        wgmma_rs<DV>(o, plo[kk], desc);
+        wgmma_rs_tile<DV>(o, phi[kk], v_addr, kBN, kk);
+        wgmma_rs_tile<DV>(o, plo[kk], v_addr, kBN, kk);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -301,7 +294,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ------------------------------------------------------------------- host
 
 template <int DK, int DV>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const Params& p,
+int launch(const TileMaps& tq, const TileMaps& tk, const TileMaps& tv, const Params& p,
            int64_t b, cudaStream_t stream) {
   const size_t smem = sizeof(Smem<DK, DV>) + 1024;  // + room to align the base to 1024
   cudaError_t err = cudaFuncSetAttribute(flash_sm90_kernel<DK, DV>,
@@ -323,9 +316,9 @@ extern "C" const char* aq_error_string(int code) { return aq_sm90::error_string(
 // with element strides (sb, sh, ss) of dims 0..2 that are multiples of 8 and
 // dim 3 contiguous, bases 16-byte aligned; o: a contiguous (B, Hq, Sq, Dv)
 // bf16 output; lse: null, or a contiguous float32 (B, Hq, Sq) output of the
-// rows' log-sum-exp.  Requires (Dk, Dv) in {(64, 64), (128, 128), (192, 128)},
-// Skv >= 1, Hq % Hkv == 0, B * Hq < 65536 and Sq <= Skv when causal
-// (ops.route and the wrapper check).  Returns the CUDA error, or
+// rows' log-sum-exp.  Requires (Dk, Dv) in {(64, 64), (80, 80), (128, 128),
+// (192, 128)}, Skv >= 1, Hq % Hkv == 0, B * Hq < 65536 and Sq <= Skv when
+// causal (ops.route and the wrapper check).  Returns the CUDA error, or
 // kErrNoEncode / kErrEncode + CUresult.
 extern "C" int aq_flash_attention_sm90(const void* q, const void* k, const void* v, void* o,
                                        float* lse, int64_t b, int64_t hq, int64_t hkv, int64_t sq,
@@ -334,21 +327,22 @@ extern "C" int aq_flash_attention_sm90(const void* q, const void* k, const void*
                                        int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
                                        float scale, int causal, void* stream) {
   if (b <= 0 || hq <= 0 || sq <= 0) return 0;
-  const bool widths = (dk == 64 && dv == 64) || (dk == 128 && dv == 128) ||
-                      (dk == 192 && dv == 128);
+  const bool widths = (dk == 64 && dv == 64) || (dk == 80 && dv == 80) ||
+                      (dk == 128 && dv == 128) || (dk == 192 && dv == 128);
   if (!widths || skv <= 0 || hkv <= 0 || hq % hkv != 0 || b * hq >= 65536 ||
       sq >= (1 << 30) || skv >= (1 << 30) || (causal && sq > skv))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tq, tk, tv;
-  int rc = make_map(&tq, q, dk, sq, hq, b, q_ss, q_sh, q_sb, kBN);
-  if (rc == 0) rc = make_map(&tk, k, dk, skv, hkv, b, k_ss, k_sh, k_sb, kBN);
-  if (rc == 0) rc = make_map(&tv, v, dv, skv, hkv, b, v_ss, v_sh, v_sb, kBN);
+  TileMaps tq{}, tk{}, tv{};
+  int rc = make_maps(&tq, q, dk, sq, hq, b, q_ss, q_sh, q_sb, kBN);
+  if (rc == 0) rc = make_maps(&tk, k, dk, skv, hkv, b, k_ss, k_sh, k_sb, kBN);
+  if (rc == 0) rc = make_maps(&tv, v, dv, skv, hkv, b, v_ss, v_sh, v_sb, kBN);
   if (rc != 0) return rc;
   const Params p{static_cast<__nv_bfloat16*>(o), lse, static_cast<int>(hq),
                  static_cast<int>(hq / hkv), static_cast<int>(sq), static_cast<int>(skv), scale,
                  causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dk == 64) return launch<64, 64>(tq, tk, tv, p, b, s);
+  if (dk == 80) return launch<80, 80>(tq, tk, tv, p, b, s);
   if (dk == 128) return launch<128, 128>(tq, tk, tv, p, b, s);
   return launch<192, 128>(tq, tk, tv, p, b, s);
 }

@@ -3,7 +3,20 @@
 // flash_attention_bwd_sm90.cu (the backward).  mbarrier, TMA and wgmma
 // wrappers in PTX, and the host's tensor maps: 4-D views (D, S, H, B) over
 // the caller's strides, read in boxes of 64 bf16 columns (128 bytes,
-// 128-byte swizzled as wgmma reads them) and a given number of rows.
+// 128-byte swizzled as wgmma reads them) and a given number of rows; a width
+// of 64n + 16 (Zamba2's 80) ends in one box of 16 columns (32 bytes, 32-byte
+// swizzled).
+//
+// Tiles.  A bf16 tile of R rows and W columns lies in shared memory as its
+// W / 64 boxes of [R][64], one after another, then, when W % 64 == 16, one
+// box of [R][16].  Every tile starts 1024-byte aligned (the 128-byte swizzle's
+// atom; the 32-byte swizzle's is 256 bytes).  A k16 step of a product along
+// the width (K-major operand) moves 32 bytes inside a 128-byte row, or is the
+// whole 32-byte row of the 16-column box; a product whose N is the width
+// (MN-major operand) is one wgmma over the 64-column boxes and an m64n16k16
+// on the 16-column box, whose accumulator registers follow the first's: for
+// W = 80, registers 0..31 are columns 0..63 and 32..39 columns 64..79, the
+// layout one m64n80 result would have.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry is fetched at run time
@@ -13,7 +26,8 @@
 
 namespace aq_sm90 {
 
-constexpr int kBox = 64;  // bf16 columns of one 128-byte swizzled box
+constexpr int kBox = 64;   // bf16 columns of one 128-byte swizzled box
+constexpr int kTail = 16;  // bf16 columns of the 32-byte swizzled box ending a 64n + 16 row
 
 // Error codes beyond CUDA's own, for aq_error_string.
 constexpr int kErrNoEncode = 100000;  // cuTensorMapEncodeTiled not reachable
@@ -86,6 +100,14 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
          (1ull << 62);
+}
+
+// The same for a 32-byte-swizzled tile whose 256-byte atoms start
+// 256-aligned: layout type 3 (SWIZZLE_32B).
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -201,6 +223,18 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (m64 x n16, float32) += A (m64 x k16, registers) * B (k16 x n16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d (m64 x n64, float32) += A (m64 x k16, registers) * B (k16 x n64, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                             uint64_t desc_b) {
@@ -267,18 +301,70 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uin
   }
 }
 
-// d (m64 x nN) += A (registers) * B (shared, MN-major) for N in {64, 128, 192}
+// d (m64 x nN) += A (registers) * B (shared, MN-major) for N in {16, 64, 128, 192}
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  static_assert(N == 64 || N == 128 || N == 192, "wgmma_rs: N in {64, 128, 192}");
+  static_assert(N == 16 || N == 64 || N == 128 || N == 192, "wgmma_rs: N in {16, 64, 128, 192}");
   if constexpr (N == 192) {
     wgmma_rs_n192(d, a, desc_b);
   } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, desc_b);
-  } else {
+  } else if constexpr (N == 64) {
     wgmma_rs_n64(d, a, desc_b);
+  } else {
+    wgmma_rs_n16(d, a, desc_b);
   }
+}
+
+// ------------------------------------------------------- tiles (see the top)
+
+// The descriptor of k16 step kk along the width of a K-major [rows][W] tile
+// at `tile`, from row `row0` (a multiple of 8) on.
+template <int W>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows, int row0, int kk) {
+  static_assert(W % kBox == 0 || W % kBox == kTail, "tile widths are 64n or 64n + 16");
+  if (kk < W / kBox * 4)
+    return sw128_desc(tile + (kk / 4) * rows * 128 + row0 * 128 + (kk % 4) * 32, 16, 1024);
+  return sw32_desc(tile + W / kBox * rows * 128 + row0 * 32, 16, 256);
+}
+
+// d (m64 x nW) += A (registers) * B, B the 16 rows from row 16 kk on of an
+// MN-major [rows][W] tile at `tile`: the 64-column boxes by one wgmma (its
+// leading byte offset one box), the 16-column box by m64n16k16.  That box's
+// 32-byte rows hold all 16 columns, so only the stride between 8-row groups
+// counts there; both offsets are given that value.
+template <int W>
+__device__ __forceinline__ void wgmma_rs_tile(float (&d)[W / 2], const uint32_t (&a)[4],
+                                              uint32_t tile, int rows, int kk) {
+  static_assert(W % kBox == 0 || W % kBox == kTail, "tile widths are 64n or 64n + 16");
+  constexpr int kFull = W / kBox * kBox;
+  wgmma_rs<kFull>(*reinterpret_cast<float(*)[kFull / 2]>(&d[0]), a,
+                  sw128_desc(tile + kk * 16 * 128, rows * 128, 1024));
+  if constexpr (W != kFull)
+    wgmma_rs<kTail>(*reinterpret_cast<float(*)[kTail / 2]>(&d[kFull / 2]), a,
+                    sw32_desc(tile + W / kBox * rows * 128 + kk * 16 * 32, 256, 256));
+}
+
+// The tensor maps of one (D, S, H, B) view: its 64-column boxes and, for a
+// width of 64n + 16, its 16-column box (otherwise unused).
+struct TileMaps {
+  CUtensorMap box, tail;
+};
+
+// `rows` rows of a [rows][W] tile at row r0 of (b, h) into `dst`: for each of
+// its boxes a TMA load per BOX rows (the maps' box rows), completing on `bar`.
+template <int W, int BOX>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int rows, const TileMaps& m,
+                                          uint64_t* bar, int r0, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < W / kBox; ++c)
+    for (int r = 0; r < rows; r += BOX)
+      tma_load(dst + (c * rows + r) * kBox, &m.box, bar, c * kBox, r0 + r, h, b);
+  if constexpr (W % kBox != 0)
+    for (int r = 0; r < rows; r += BOX)
+      tma_load(dst + W / kBox * rows * kBox + r * kTail, &m.tail, bar, W / kBox * kBox, r0 + r,
+               h, b);
 }
 
 // 2^x in one MUFU.EX2 (relative error about 2^-22)
@@ -325,23 +411,37 @@ inline EncodeTiled encode_fn() {
 }
 
 // A bf16 tensor viewed as (D, S, H, B) with element strides ss, sh, sb of S,
-// H and B (D contiguous), read in boxes of 64 columns x `box_rows` rows,
-// 128-byte swizzled; rows past S read as zeros.
+// H and B (D contiguous), read in boxes of `box_cols` columns x `box_rows`
+// rows under `swizzle`; rows past S read as zeros.
 inline int make_map(CUtensorMap* map, const void* base, int64_t d, int64_t s, int64_t h,
-                    int64_t b, int64_t ss, int64_t sh, int64_t sb, int box_rows) {
+                    int64_t b, int64_t ss, int64_t sh, int64_t sb, int box_cols, int box_rows,
+                    CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_fn();
   if (encode == nullptr) return kErrNoEncode;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kBox, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
+}
+
+// The maps of a d-wide tensor for load_tile: 64-column boxes, 128-byte
+// swizzled, and when d % 64 == 16 the 16-column box, 32-byte swizzled.
+inline int make_maps(TileMaps* m, const void* base, int64_t d, int64_t s, int64_t h, int64_t b,
+                     int64_t ss, int64_t sh, int64_t sb, int box_rows) {
+  int rc = make_map(&m->box, base, d, s, h, b, ss, sh, sb, kBox, box_rows,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0 && d % kBox != 0)
+    rc = make_map(&m->tail, base, d, s, h, b, ss, sh, sb, kTail, box_rows,
+                  CU_TENSOR_MAP_SWIZZLE_32B);
+  return rc;
 }
 
 inline const char* error_string(int code) {

@@ -1,7 +1,7 @@
 """ctypes bindings of the hand-written CUDA flash-attention kernels: the two
 forward kernels, both replacing ``flash_attention_pallas``,
 ``csrc/flash_attention_sm90.cu`` (TMA, wgmma, warp-specialised; bf16,
-(Dk, Dv) in ``ops.SM90_DK_DV``: (64, 64), (128, 128), (192, 128)) and
+(Dk, Dv) in ``ops.SM90_DK_DV``: (64, 64), (80, 80), (128, 128), (192, 128)) and
 ``csrc/flash_attention.cu`` (float32 FMAs on the CUDA cores; every other
 call), ``ops.route`` picking one; and the two backward kernels,
 ``csrc/flash_attention_bwd_sm90.cu`` (TMA, wgmma; the same calls) and
@@ -51,9 +51,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torc
 def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                          scale: float, causal: bool, lse: Optional[torch.Tensor] = None) -> None:
     """The same function on the tensor cores, for calls ``ops.route`` gives
-    ``"sm90"``: bf16, (Dk, Dv) in {(64, 64), (128, 128), (192, 128)}, 16-byte
-    aligned bases and strides of dims 0..2 (any order: the tensor maps take
-    them as they are)."""
+    ``"sm90"``: bf16, (Dk, Dv) in {(64, 64), (80, 80), (128, 128), (192, 128)},
+    16-byte aligned bases and strides of dims 0..2 (any order: the tensor
+    maps take them as they are)."""
     b, hq, sq, dk = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     build.call("flash_attention_sm90", "aq_flash_attention_sm90", _SM90_ARGS,
@@ -92,11 +92,11 @@ def flash_attention_bwd_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              dv: torch.Tensor, scale: float, causal: bool) -> None:
     """The same gradients on the tensor cores, for calls ``ops.bwd_route``
     gives ``"sm90"``: bf16 q, k, v and ``dout``, (Dk, Dv) in {(64, 64),
-    (128, 128), (192, 128)}, 16-byte aligned bases and strides of dims 0..2
-    (any order).  ``out`` and
-    ``lse`` contiguous; ``aux`` a contiguous float32 scratch of
-    ``bwd_sm90_scratch_shape(q)``.  Three kernels in order on the current
-    stream: the prologue (rowsum(dO * O), lse in log2 units), dK/dV, dQ."""
+    (80, 80), (128, 128), (192, 128)}, 16-byte aligned bases and strides of
+    dims 0..2 (any order).  ``out`` and ``lse`` contiguous; ``aux`` a
+    contiguous float32 scratch of ``bwd_sm90_scratch_shape(q)``.  Three
+    kernels in order on the current stream: the prologue (rowsum(dO * O),
+    lse in log2 units), dK/dV, dQ."""
     b, hq, sq, dk_ = q.shape
     hkv, skv, dv_ = k.shape[1], k.shape[2], v.shape[3]
     build.call("flash_attention_bwd_sm90", "aq_flash_attention_bwd_sm90", _BWD_SM90_ARGS,

@@ -32,8 +32,9 @@ from .ref import attention_ref, chunked_attention_ref, flash_attention_bwd_ref
 CHUNKED_THRESHOLD = 2048
 MAX_HEAD_DIM = 256
 # (Dk, Dv) pairs the tensor-core libraries are instantiated for: the dense
-# family's heads and DeepSeek-V3's MLA (qk_nope + qk_rope = 192, v 128)
-SM90_DK_DV = ((64, 64), (128, 128), (192, 128))
+# family's heads, Zamba2's 80-wide shared attention and DeepSeek-V3's MLA
+# (qk_nope + qk_rope = 192, v 128)
+SM90_DK_DV = ((64, 64), (80, 80), (128, 128), (192, 128))
 ROUTES = ("sm90", "simt")
 
 
@@ -68,13 +69,13 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     dtypes, shapes, base addresses and strides alone.
 
     ``"sm90"`` (``csrc/flash_attention_sm90.cu``: TMA, wgmma) when q, k and v
-    are bf16, (Dk, Dv) is one of ``SM90_DK_DV`` ((64, 64), (128, 128) and
-    MLA's (192, 128)), Skv >= 1, and each tensor has a 16-byte aligned base,
-    positive strides of dims 0..2 that are multiples of 16 bytes (what a TMA
-    tensor map takes) and a contiguous dim 3.  ``"simt"``
+    are bf16, (Dk, Dv) is one of ``SM90_DK_DV`` ((64, 64), Zamba2's (80, 80),
+    (128, 128) and MLA's (192, 128)), Skv >= 1, and each tensor has a 16-byte
+    aligned base, positive strides of dims 0..2 that are multiples of 16
+    bytes (what a TMA tensor map takes) and a contiguous dim 3.  ``"simt"``
     (``csrc/flash_attention.cu``) for every other call: float32, whose 1e-5
     bound neither bf16 nor TF32 tensor-core products meet, other (Dk, Dv)
-    pairs such as (64, 128) or (192, 192), unaligned views.
+    pairs such as (32, 32), (64, 128) or (192, 192), unaligned views.
     """
     if q.dtype != torch.bfloat16 or k.shape[2] == 0:
         return "simt"

@@ -46,6 +46,7 @@ SWEEP = [
     (2, 8, 2, 256, 256, 64, 64),      # GQA 4:1
     (1, 4, 1, 128, 256, 64, 64),      # MQA, chunked-prefill (Sq<Skv)
     (1, 2, 2, 128, 128, 192, 128),    # MLA-style dk != dv
+    (1, 4, 2, 256, 256, 80, 80),      # Zamba2's 80-wide heads, GQA 2:1
 ]
 
 
@@ -121,12 +122,16 @@ def _bf16_qkv(seed, *shape):
     ((1, 4, 4, 128, 256, 64, 64), False),      # non-causal, D = 64
     ((1, 4, 2, 256, 256, 192, 128), True),     # MLA's Dk = 192, Dv = 128: causal, GQA 2:1
     ((1, 4, 1, 128, 384, 192, 128), True),     # MLA's widths, ragged Sq < Skv, MQA
-], ids=["causal", "ragged-sq<skv", "non-causal-d64", "mla-causal-gqa", "mla-ragged-sq<skv"])
+    ((1, 4, 2, 256, 256, 80, 80), True),       # Zamba2's D = 80: causal, GQA 2:1
+    ((1, 4, 1, 128, 384, 80, 80), True),       # D = 80, ragged Sq < Skv, MQA
+    ((1, 4, 4, 128, 256, 80, 80), False),      # D = 80, non-causal
+], ids=["causal", "ragged-sq<skv", "non-causal-d64", "mla-causal-gqa", "mla-ragged-sq<skv",
+        "d80-causal-gqa", "d80-ragged-sq<skv", "d80-non-causal"])
 def test_sm90_arithmetic_matches_pallas_kernel(shape, causal):
     """The split-P design is within one bf16 rounding of the Pallas kernel's
     float32 result on the upcast inputs (interpret mode, 128-blocks), at
-    Dk == Dv and at MLA's Dk = 192, Dv = 128 (both at the default scale
-    Dk^-0.5, the one MLA passes)."""
+    Dk == Dv (Zamba2's 80 included) and at MLA's Dk = 192, Dv = 128 (all at
+    the default scale Dk^-0.5, the one MLA passes)."""
     q, k, v = _bf16_qkv(21, *shape)
     want = flash_attention_pallas(*(a.float().numpy() for a in (q, k, v)), causal=causal,
                                   interpret=True, block_q=128, block_k=128)
@@ -144,7 +149,21 @@ def test_sm90_arithmetic_ragged_tiles_match_oracle(causal):
     assert _share_of_bf16_limit(_sm90_arithmetic(q, k, v, causal), want) <= 1
 
 
-@pytest.mark.parametrize("shape", SWEEP, ids=["mha", "gqa4", "mqa-sq<skv", "dk192-dv128"])
+@pytest.mark.parametrize("shape", [(1, 6, 2, 200, 330, 80, 80), (2, 4, 4, 130, 131, 80, 80),
+                                   (1, 4, 1, 1, 160, 80, 80)],
+                         ids=["gqa3-sq<skv", "past-one-tile", "one-row"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sm90_arithmetic_d80_ragged_tiles_match_oracle(shape, causal):
+    """At Zamba2's D = 80: Sq and Skv past a 128-row tile and no tile divides
+    (GQA 3:1, Sq < Skv), one key past a tile, and one query row over 160
+    keys, against the JAX oracle in float32 within one bf16 rounding."""
+    q, k, v = _bf16_qkv(29, *shape)
+    want = jax_attention_ref(*(jnp.asarray(a.float().numpy()) for a in (q, k, v)), causal=causal)
+    assert _share_of_bf16_limit(_sm90_arithmetic(q, k, v, causal), want) <= 1
+
+
+@pytest.mark.parametrize("shape", SWEEP, ids=["mha", "gqa4", "mqa-sq<skv", "dk192-dv128",
+                                              "d80-gqa"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_sweep_matches_pallas_kernel(shape, causal):
     q, k, v = _qkv(4, *shape)
@@ -319,22 +338,39 @@ def _route_case(case):
         v = kvu[..., 128:]                                 # 256 bytes into each row
     elif case == "dk192-dv192":
         q, k, v = z(1, 4, 300, 192), z(1, 2, 300, 192), z(1, 2, 300, 192)
+    elif case == "d80":              # Zamba2's shared attention: rows of 160 bytes
+        q, k, v = z(1, 4, 300, 80), z(1, 2, 300, 80), z(1, 2, 300, 80)
+    elif case == "d80-model-views":  # as models/attention.py hands them over
+        q, k, v = (z(2, 300, h, 80).transpose(1, 2) for h in (6, 2, 2))
+    elif case == "d80-float32":
+        q, k, v = z(1, 4, 300, 80, dtype=torch.float32), z(1, 2, 300, 80, dtype=torch.float32), \
+            z(1, 2, 300, 80, dtype=torch.float32)
+    elif case == "d80-dv64":
+        q, k, v = z(1, 4, 300, 80), z(1, 2, 300, 80), z(1, 2, 300, 64)
+    elif case == "d32":              # the quickstart twin's heads
+        q, k, v = z(1, 4, 300, 32), z(1, 2, 300, 32), z(1, 2, 300, 32)
+    elif case == "d80-unaligned-base":   # 2 bytes past a 16-byte boundary
+        q, v = z(1, 4, 300, 80), z(1, 2, 300, 80)
+        k = z(1 * 2 * 300 * 80 + 1)[1:].view(1, 2, 300, 80)
     return q, k, v
 
 
 ROUTE_CASES = {"bf16-d128": "sm90", "d64": "sm90", "model-views": "sm90", "float32": "simt",
                "dk!=dv": "simt", "d256": "simt", "d96": "simt", "unaligned-base": "simt",
                "unaligned-stride": "simt", "expanded-kv": "simt", "last-dim-strided": "simt",
-               "skv=0": "simt", "mla": "sm90", "mla-model-views": "sm90", "dk192-dv192": "simt"}
+               "skv=0": "simt", "mla": "sm90", "mla-model-views": "sm90", "dk192-dv192": "simt",
+               "d80": "sm90", "d80-model-views": "sm90", "d80-float32": "simt",
+               "d80-dv64": "simt", "d32": "simt", "d80-unaligned-base": "simt"}
 
 
 @pytest.mark.parametrize("case", list(ROUTE_CASES))
 def test_route_rule(case):
-    """bf16 with (Dk, Dv) in {(64, 64), (128, 128), (192, 128)} and TMA-legal
-    bases and strides go to the tensor-core kernel, whatever the order of the
-    strides (the model's transposed views, and MLA's v 256 bytes into the
-    up-projection's rows, take no copy); everything else to the SIMT kernel:
-    float32, other pairs ((128, 64), (192, 192)), unaligned views."""
+    """bf16 with (Dk, Dv) in {(64, 64), (80, 80), (128, 128), (192, 128)} and
+    TMA-legal bases and strides go to the tensor-core kernel, whatever the
+    order of the strides (the model's transposed views, and MLA's v 256 bytes
+    into the up-projection's rows, take no copy); everything else to the SIMT
+    kernel: float32, other pairs ((128, 64), (80, 64), (96, 96), (32, 32),
+    (192, 192)), unaligned views."""
     q, k, v = _route_case(case)
     assert route(q, k, v) == ROUTE_CASES[case]
 
@@ -639,12 +675,15 @@ def _sm90_bwd_case(shape, causal, seed=41):
 
 
 # BWD_SHAPES plus GQA 3:1 at D = 128 with ragged tiles (Sq = 100 fills no
-# 64-query tile, Skv = 300 no 128-key tile), and MLA's Dk = 192, Dv = 128
+# 64-query tile, Skv = 300 no 128-key tile), MLA's Dk = 192, Dv = 128
 # (32-query tiles in the dK/dV kernel): MHA, and GQA 2:1 with ragged
-# Sq = 70 < Skv = 200
+# Sq = 70 < Skv = 200, and Zamba2's D = 80: MHA, and GQA 2:1 with Sq = 150
+# and Skv = 330 past a 128-row tile
 SM90_BWD_SHAPES = {**BWD_SHAPES, "gqa3-d128-ragged": (1, 6, 2, 100, 300, 128),
                    "mla-192-128": (1, 2, 2, 96, 96, 192, 128),
-                   "mla-gqa-ragged": (1, 4, 2, 70, 200, 192, 128)}
+                   "mla-gqa-ragged": (1, 4, 2, 70, 200, 192, 128),
+                   "d80-mha": (1, 2, 2, 96, 96, 80, 80),
+                   "d80-gqa-ragged": (1, 4, 2, 150, 330, 80, 80)}
 
 
 @pytest.mark.parametrize("shape", list(SM90_BWD_SHAPES), ids=list(SM90_BWD_SHAPES))
@@ -678,7 +717,9 @@ def _bwd_route_case(case, device="cpu"):
     """(q, k, v, dout) for one case of the backward's route rule, on
     ``device`` (the CPU, or "meta" standing in for a card)."""
     qkv = case if case in ("d64", "model-views", "float32", "dk!=dv", "d256", "mla",
-                           "mla-model-views", "dk192-dv192") else "bf16-d128"
+                           "mla-model-views", "dk192-dv192", "d80", "d80-model-views",
+                           "d80-float32", "d80-dv64", "d32", "d80-unaligned-base") \
+        else "bf16-d128"
     q, k, v = (t.to(device) for t in _route_case(qkv))    # dense: `to` keeps their strides
 
     def z(*shape, dtype=torch.bfloat16):
@@ -686,7 +727,8 @@ def _bwd_route_case(case, device="cpu"):
 
     shape = q.shape[:3] + (v.shape[3],)
     dout = z(*shape, dtype=q.dtype)
-    if case in ("model-views", "mla-model-views"):  # autograd's gradient of a (B, S, H, D) view
+    # autograd's gradient of a (B, S, H, D) view
+    if case in ("model-views", "mla-model-views", "d80-model-views"):
         dout = z(shape[0], shape[2], shape[1], shape[3]).transpose(1, 2)
     elif case == "dout-unaligned-base":
         dout = z(dout.numel() + 1)[1:].view(shape)
@@ -706,7 +748,9 @@ BWD_ROUTE_CASES = {"bf16-d128": "sm90", "d64": "sm90", "model-views": "sm90",
                    "dout-unaligned-base": "simt", "dout-unaligned-stride": "simt",
                    "dout-last-dim-strided": "simt", "dout-expanded": "simt",
                    "dout-float32": "simt", "mla": "sm90", "mla-model-views": "sm90",
-                   "dk192-dv192": "simt"}
+                   "dk192-dv192": "simt", "d80": "sm90", "d80-model-views": "sm90",
+                   "d80-float32": "simt", "d80-dv64": "simt", "d32": "simt",
+                   "d80-unaligned-base": "simt"}
 
 
 @pytest.mark.parametrize("case", list(BWD_ROUTE_CASES))

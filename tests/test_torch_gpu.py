@@ -706,7 +706,7 @@ def test_flash_kernel_takes_strided_views(cuda_device):
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_flash_sm90_takes_model_views_without_copy(cuda_device, d):
     """bf16 (B, S, H, D) projections viewed as (B, H, S, D) go to the tensor
     cores as they are: the call allocates its output and nothing else."""
@@ -1066,6 +1066,7 @@ BWD_CASES = [
     (1, 6, 3, 77, 77, 128),        # S not a multiple of the tile
     (1, 4, 2, 70, 90, 256),        # the largest head dim (32-row tiles)
     (2, 4, 1, 1, 33, 32),          # one query row, D = 32
+    (1, 6, 2, 100, 300, 80),       # Zamba2's D = 80, GQA 3:1, ragged Sq < Skv
 ]
 
 
@@ -1180,25 +1181,16 @@ def test_flash_bwd_sm90_and_simt_agree(cuda_device, d, causal):
             assert err <= rtol * float(ref.abs().max()) + atol, (name, err)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_mla_sm90_and_simt_agree(cuda_device, causal):
-    """At MLA's Dk = 192, Dv = 128 (bf16, GQA 2:1, ragged Sq < Skv) the
-    tensor-core forward and backward and the SIMT kernels on the same inputs:
-    each within the bf16 limit of the float32 reference (the forward within
-    2^-8 |want| + 1e-4, each gradient within 2^-6 max|want| + 1e-4), and two
-    launches of each tensor-core kernel bit-equal."""
+def _assert_sm90_and_simt_agree(q, k, v, do, causal):
+    """The tensor-core forward and backward and the SIMT kernels on the same
+    bf16 inputs: each within the bf16 limit of the float32 reference (the
+    forward within 2^-8 |want| + 1e-4, each gradient within 2^-6 max|want| +
+    1e-4), and two launches of each tensor-core kernel bit-equal."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention_bwd, kernel
     from repro_torch.kernels.flash_attention.ops import _forward, bwd_route, route
 
-    g = torch.Generator(device=cuda_device).manual_seed(192 + causal)
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=g, device=cuda_device).to(torch.bfloat16)
-
-    q, k, v, do = randn(1, 8, 200, 192), randn(1, 4, 333, 192), randn(1, 4, 333, 128), \
-        randn(1, 8, 200, 128)
     assert route(q, k, v) == bwd_route(q, k, v, do) == "sm90"
-    scale = 192 ** -0.5
+    scale = q.shape[3] ** -0.5
     out, lse = _forward(q, k, v, causal, scale, with_lse=True)
     out2, lse2 = _forward(q, k, v, causal, scale, with_lse=True)
     simt_out = torch.empty_like(out)
@@ -1221,6 +1213,71 @@ def test_flash_mla_sm90_and_simt_agree(cuda_device, causal):
         for got in (a, b):
             err = float((got.float() - w).abs().max())
             assert err <= rtol * float(w.abs().max()) + atol, (name, err)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_mla_sm90_and_simt_agree(cuda_device, causal):
+    """At MLA's Dk = 192, Dv = 128 (bf16, GQA 2:1, ragged Sq < Skv) the
+    tensor-core and SIMT kernels agree with the float32 reference and the
+    tensor-core ones are deterministic (``_assert_sm90_and_simt_agree``)."""
+    g = torch.Generator(device=cuda_device).manual_seed(192 + causal)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(torch.bfloat16)
+
+    _assert_sm90_and_simt_agree(randn(1, 8, 200, 192), randn(1, 4, 333, 192),
+                                randn(1, 4, 333, 128), randn(1, 8, 200, 128), causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_d80_sm90_and_simt_agree(cuda_device, causal):
+    """The same at Zamba2's D = 80 (bf16, GQA 3:1, ragged Sq < Skv past a
+    128-row tile)."""
+    _assert_sm90_and_simt_agree(
+        *_bwd_inputs((1, 6, 2, 200, 333, 80), torch.bfloat16, cuda_device, 80 + causal), causal)
+
+
+def _kernel_resources(lib: str, pattern: str) -> dict:
+    """``{"REG", "STACK", "SHARED", "LOCAL", "HGMMA"}`` of the one kernel of a
+    built kernel library whose mangled name holds ``pattern``, as
+    ``cuobjdump -res-usage`` and ``-sass`` read it."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    build.load(lib)
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    tool = tool if Path(tool).exists() else shutil.which("cuobjdump")
+    assert tool, "the CUDA toolkit's cuobjdump is needed to read the kernels' resources"
+    path = str(build.lib_path(lib))
+    res = subprocess.run([tool, "-res-usage", path], capture_output=True, text=True,
+                         check=True, timeout=120).stdout
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    usage = [u for name, u in re.findall(r"Function (\S+):\s*(REG:\d+[^\n]*)", res)
+             if pattern in name]
+    code = [part for part in sass.split("Function : ")[1:]
+            if pattern in part.split(None, 1)[0]]
+    assert len(usage) == len(code) == 1, (pattern, len(usage), len(code))
+    out = {k: int(v) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", usage[0])}
+    out["HGMMA"] = code[0].count("HGMMA")
+    return out
+
+
+@pytest.mark.parametrize("lib,kernels", [
+    ("flash_attention_sm90", ("flash_sm90_kernel",)),
+    ("flash_attention_bwd_sm90", ("dkdv_kernel", "dq_kernel")),
+])
+def test_flash_sm90_d80_kernels_use_tensor_cores_without_spill(cuda_device, lib, kernels):
+    """The (80, 80) instantiations of the tensor-core forward and of both
+    backward kernels: wgmma in their SASS (HGMMA > 0) and no local memory
+    (no spill), as ``cuobjdump`` reads the built library."""
+    for kern in kernels:
+        got = _kernel_resources(lib, f"{kern}ILi80ELi80E")
+        assert got["LOCAL"] == 0 and got["HGMMA"] > 0, (kern, got)
 
 
 def test_flash_bwd_unaligned_dout_takes_simt(cuda_device):
@@ -1248,7 +1305,8 @@ def test_flash_bwd_unaligned_dout_takes_simt(cuda_device):
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.bfloat16, 64),
-                                     (torch.float32, 128), (torch.float32, 96)])
+                                     (torch.float32, 128), (torch.float32, 96),
+                                     (torch.bfloat16, 80)])
 def test_flash_forward_lse_matches_logsumexp(cuda_device, dtype, d):
     """The forward's log-sum-exp on each route against ``torch.logsumexp`` of
     the float32 scaled scores (causal, ragged Sq < Skv)."""
@@ -1375,6 +1433,40 @@ def test_bf16_train_step_backward_goes_to_sm90(cuda_device):
     assert bool(torch.isfinite(loss.detach()))
     assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
                for t in tree_leaves(params))
+
+
+def test_zamba2_bf16_train_step_on_sm90(cuda_device):
+    """One bf16 train step of Zamba2-2.7B at full width (d_model 2560, 32
+    heads of 80), cut to 12 layers: two calls of the shared attention block,
+    remat on.  Every flash forward (two a call under remat) and every
+    backward (one a call) launches on the tensor-core route and none on
+    SIMT; the loss and the gradient norm are finite."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, ops
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import init_adamw
+    from repro_torch.train.trainstep import TrainState, make_train_step
+
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), n_layers=12, name="zamba2-card-train")
+    assert cfg.compute_dtype == "bfloat16" and cfg.remat and cfg.d_model == 2560
+    assert (cfg.head_dim,) * 2 in ops.SM90_DK_DV
+    n_attn = cfg.n_layers // cfg.attn_every
+    model = build(cfg, device=cuda_device)
+    params = model.init(0)
+    state = TrainState(params, init_adamw(params))
+    batch = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=1)).batch_at(0)
+    fwd, bwd = ops.launches_by_route(), ops.launches_by_route(flash_attention_bwd)
+    state, m = make_train_step(model)(
+        state, {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert n_attn == 2
+    assert ops.launches_by_route() == {"sm90": fwd["sm90"] + 2 * n_attn, "simt": fwd["simt"]}
+    assert ops.launches_by_route(flash_attention_bwd) == {"sm90": bwd["sm90"] + n_attn,
+                                                          "simt": bwd["simt"]}
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
 
 
 # (B, Hq, Hkv, Sq, Skv, Dk, Dv): MLA's Dk = 192 > Dv = 128 (MHA, GQA with
@@ -1523,8 +1615,10 @@ def test_reduced_moe_model_on_card_matches_cpu(cuda_device, arch):
     (1, 16, 16, 300, 100, 64, False, "sm90"),   # cross attention, Sq > Skv
     (1, 16, 16, 100, 300, 64, False, "sm90"),   # Sq < Skv
     (1, 16, 16, 130, 130, 64, False, "sm90"),   # the encoder: Sq = Skv past a tile
-    (1, 8, 8, 300, 300, 80, True, "simt"),      # Zamba2's shared attention: D = 80
-    (2, 8, 8, 77, 200, 80, False, "simt"),
+    (1, 8, 8, 300, 300, 80, True, "sm90"),      # Zamba2's shared attention: D = 80
+    (2, 8, 8, 77, 200, 80, False, "sm90"),
+    (4, 32, 32, 1, 160, 80, False, "sm90"),     # D = 80, Sq = 1 over 160 keys
+    (1, 8, 4, 130, 261, 80, True, "sm90"),      # D = 80, GQA 2:1, Skv past two tiles
 ])
 def test_flash_kernel_at_the_families_shapes(cuda_device, b, hq, hkv, sq, skv, d, causal,
                                              want_route):

@@ -20,7 +20,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     for name in ("workloads", "dedup_bench", "fault_bench", "adaptive_bench",
                  "concurrency_bench", "breakdown", "serving_bench", "benches_phase",
                  "quickstart", "train_e2e", "train_phase", "moe_phase", "coldstart_phase",
-                 "families_phase")]
+                 "families_phase", "time_flash_stages")]
 
 
 def test_import_loads_no_jax_and_no_reference():
