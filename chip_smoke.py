@@ -147,15 +147,20 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 13. benches — the paper's evaluation benches on the port: (a) the twins
              ``scripts/{dedup,fault,adaptive,concurrency}_bench.py`` at the
              reference's full configurations, ``scripts/breakdown.py`` (chameleon, 32
-             concurrent) and ``scripts/serving_bench.py`` (chameleon), every
-             pool on the card and every publish one fused launch, each
-             output held to its committed CPU output in
+             concurrent), ``scripts/serving_bench.py`` (the nine workloads),
+             the paper's Fig. 3, 4 and 7 (``scripts/{characterization,
+             runlength,scalability}.py``, the nine images built once for all
+             four) and ``scripts/kernel_bench.py`` (the six wrappers timed at
+             8,192 pages), every pool on the card and every publish one
+             fused launch, each output held to its committed CPU output in
              ``experiments/torch/`` (``breakdown`` also to
              ``experiments/breakdown.json``): integers, booleans and strings
              ``==``, floats ``==`` or within 1e-12 relative
              (``model_err_max``, a relative error, within 1e-12), every key
-             but the wall clocks and the brownout's breaker rejections
-             (which follow the wall clock); every criterion true; each wrapper's
+             but the wall clocks, the brownout's breaker rejections
+             (which follow the wall clock) and kernel_bench's measured
+             section and backend (the device's times and name); every
+             criterion true; each wrapper's
              launches as ``BENCH_LAUNCHES`` says, flash attention's 0.  (b)
              the fault bench's bare run and four sweeps, ``FAULT_RESTORES``
              restore each (cut from two to keep the smoke in its budget),
@@ -333,8 +338,14 @@ sys.path.insert(0, str(ROOT / "scripts"))      # sim_scenarios: the simulator's 
 
 PAGE = 4096
 PAPER_INSTANCE_PAGES = (3 << 29) // PAGE       # 1.5 GiB (paper §2.3.3)
-HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
-INT32_OPS_PER_S = 67e12                        # 32-bit rate outside the tensor cores
+# the card's roof (the H100 SXM data sheet's rates), from its one source
+from repro_torch.roofline.analysis import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S,
+    PEAK_32BIT_OPS as F32_FLOPS_PER_S,
+    PEAK_32BIT_OPS as INT32_OPS_PER_S,
+    PEAK_FLOPS as BF16_FLOPS_PER_S,
+)
+
 PUBLISH_TPU = "src/repro/kernels/snapshot_fuse/kernel.py:94"
 RESTORE_TPU = "src/repro/kernels/snapshot_fuse/kernel.py:146"
 CSRC = "src/repro_torch/kernels/snapshot_fuse/csrc"
@@ -352,8 +363,6 @@ POD_DELTA = 4096     # non-zero pages the update rewrites
 POD_PROFILE_S = 3.0  # the profiled window of the group restore, once all borrows are out
 TOPO_READ_PAGES = 1024   # hot pages each routed borrower reads and verifies an attempt
 DATA_PLANE = ("fused_publish", "fused_restore", *ROW_KERNELS)
-BF16_FLOPS_PER_S = 989e12                      # H100 SXM data sheet, dense tensor cores
-F32_FLOPS_PER_S = 67e12                        # float32 outside the tensor cores
 MODEL_ARCH = "phi4-mini-3.8b"
 RECURATE_TOUCHES = 1024     # seeded cold pages each of the two re-curation restores touches
 COLDSTART_NAME = "phi4-mini"
@@ -402,7 +411,10 @@ FAMILY_SIMT_TIMED = ("zamba2",)
 FAMILY_WORKLOADS = ("image", "pyaes", "pagerank", "ffmpeg")
 # the evaluation benches' twins (scripts/<name>.py), in the order the benches phase runs them
 BENCHES = ("dedup_bench", "fault_bench", "adaptive_bench", "concurrency_bench", "breakdown",
-           "serving_bench")
+           "serving_bench", "characterization", "runlength", "scalability", "kernel_bench")
+# the twins with one configuration: the smoke and the card tests run it whatever ``quick`` says
+SINGLE_CONFIG = ("breakdown", "serving_bench", "characterization", "runlength", "scalability",
+                 "kernel_bench")
 # Launches of each data-plane wrapper in one run of each twin on the card, at its full and quick
 # configurations (a wrapper not named: 0), worked out from the code; the bench tests hold the
 # CPU tally of the same runs to these numbers (tests/test_torch_bench_harness.py).
@@ -431,8 +443,25 @@ BENCH_LAUNCHES = {
     # a zero scan a modeled strategy (5, per-page aquifer, 2 hot pre-install models); the
     # restore's hot walk and 898 prefetched extents
     "breakdown": {"full": {"fused_publish": 1, "zero_detect": 8, "page_scatter": 899}},
-    # one publish; the batched restore's two walks (the per-page one copies page by page)
-    "serving_bench": {"full": {"fused_publish": 1, "page_scatter": 2}},
+    # one publish a workload (nine); the batched restore's two walks (the per-page one copies
+    # page by page)
+    "serving_bench": {"full": {"fused_publish": 9, "page_scatter": 18}},
+    # a zero scan a workload's classification, and one of its first 4,096 pages against the
+    # host's bitmap
+    "characterization": {"full": {"zero_detect": 18}},
+    # a zero scan a workload's classification
+    "runlength": {"full": {"zero_detect": 9}},
+    # a zero scan a modeled run: 9 workloads x (6 strategies x 8 concurrencies + 2 hot
+    # pre-install models)
+    "scalability": {"full": {"zero_detect": 450}},
+    # each timed call (first, warm, reps: 5 full, 2 quick) of the four wrappers and of the two
+    # pairs (piecemeal publish: a zero scan, 3 checksums, 2 gathers; piecemeal restore: a
+    # gather, a checksum, a scatter), one more of each pair for bit-identity, the calls that
+    # find the hot set and the chunk, and the 3-page publish's timed calls
+    "kernel_bench": {"full": {"fused_publish": 15, "fused_restore": 8, "zero_detect": 16,
+                              "page_checksum": 39, "page_gather": 32, "page_scatter": 15},
+                     "quick": {"fused_publish": 9, "fused_restore": 5, "zero_detect": 10,
+                               "page_checksum": 24, "page_gather": 20, "page_scatter": 9}},
 }
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:91"
 FLASH_CSRC = "src/repro_torch/kernels/flash_attention/csrc"
@@ -2250,8 +2279,7 @@ def json_close(got, want, path: str = "", skip=()) -> tuple:
 
 def bench_files(name: str, quick: bool) -> tuple:
     """The committed file a twin's run is held to, and its output's name."""
-    single = name in ("breakdown", "serving_bench")
-    out = f"{name}.json" if single or not quick else f"{name}_quick.json"
+    out = f"{name}.json" if name in SINGLE_CONFIG or not quick else f"{name}_quick.json"
     return ROOT / "experiments" / "torch" / out, out
 
 
@@ -2276,6 +2304,10 @@ def bench_criteria(name: str, out: dict) -> dict:
         return {"restore_bit_identical": out["restore_bit_identical"]}
     if name == "serving_bench":
         return {"all_bit_identical_and_not_slower": out["all_bit_identical_and_not_slower"]}
+    if name == "characterization":
+        return {"kernel_bitmap_match": all(r["kernel_bitmap_match"] for r in out["rows"])}
+    if name in ("runlength", "scalability"):     # modeled figures: held to their files only
+        return {}
     return out["criteria"]
 
 
@@ -2293,9 +2325,32 @@ def bench_headline(name: str, out: dict) -> str:
     if name == "breakdown":
         return (f"speedup over Firecracker {out['speedup_vs_firecracker']:.4f}x, over FaaSnap "
                 f"{out['speedup_vs_faasnap']:.4f}x (modeled; paper 2.12x, 1.19x)")
-    r = out["rows"][0]
-    return (f"{r['workload']}: batched over per-page {r['total_speedup']:.4f}x (modeled), "
-            f"zstd_available {out['zstd_available']}")
+    if name == "characterization":
+        a = out["average"]
+        return (f"zero {a['zero_frac']:.4f}, hot {a['hot_frac']:.4f}, cold of non-zero "
+                f"{a['cold_frac_of_nonzero']:.4f} (paper 0.828, 0.055, 0.727); the kernel's "
+                f"bitmap matches the host's on {len(out['rows'])} images")
+    if name == "runlength":
+        a = out["aggregate"]
+        return (f"mean hot run {a['mean_run']:.4f} pages, {a['frac_runs_lt4']:.4f} of runs "
+                f"under 4, {a['mean_runs_per_snapshot']:.1f} runs a snapshot (paper 5.0, 0.90, "
+                f"4164.2)")
+    if name == "scalability":
+        g = out["geomean_speedups_at_32"]
+        return (f"geomean speedup at 32 over Firecracker {g['vs_firecracker']:.4f}x, FaaSnap "
+                f"{g['vs_faasnap']:.4f}x, REAP {g['vs_reap']:.4f}x (modeled; paper 2.2x, 1.3x, "
+                f"1.1x)")
+    if name == "kernel_bench":
+        mo, me = out["modeled"], out["measured"]
+        return (f"modeled at the H100 roof: publish {mo['publish']['speedup']:.4f}x, restore "
+                f"{mo['restore']['speedup']:.4f}x; on this device at {me['n_pages']} pages: "
+                f"fused publish {me['publish']['fused_steady_s'] * 1e3:.4f} ms "
+                f"({me['publish']['speedup']:.3f}x piecemeal), fused restore of "
+                f"{me['chunk_pages']} rows {me['restore']['fused_steady_s'] * 1e3:.4f} ms "
+                f"({me['restore']['speedup']:.3f}x)")
+    sp = [r["total_speedup"] for r in out["rows"]]
+    return (f"{len(sp)} workloads: batched over per-page {min(sp):.4f}-{max(sp):.4f}x "
+            f"(modeled), zstd_available {out['zstd_available']}")
 
 
 def bench_twin(torch, name: str, quick: bool, out_dir: Path) -> dict:
@@ -2307,8 +2362,7 @@ def bench_twin(torch, name: str, quick: bool, out_dir: Path) -> dict:
 
     mod = importlib.import_module(name)
     mod.OUT = out_dir
-    kw = ({} if name == "breakdown" else {"workloads": ["chameleon"]}
-          if name == "serving_bench" else {"quick": quick})
+    kw = {} if name in SINGLE_CONFIG else {"quick": quick}
     wrappers = data_plane_wrappers()
     for k in wrappers.values():
         k.launches = 0
@@ -2330,7 +2384,9 @@ def bench_twin(torch, name: str, quick: bool, out_dir: Path) -> dict:
         raise AssertionError(f"benches {name}: the written file differs from the return value")
     # wall clocks; and the brownout's breaker rejections, which follow the wall clock (the
     # pool's breaker takes REAL_CLOCK): bounded below instead
-    skip = ("wall_s", "/sweeps/brownout/total_injected")
+    # kernel_bench's measured section is its device's times (its bit-identity is a criterion)
+    # and its backend the device's name
+    skip = ("wall_s", "/sweeps/brownout/total_injected", "/measured", "/config/backend")
     rep = {"wall_s": wall, "launches": launches, "compared": {},
            "mem_left_bytes": torch.cuda.memory_allocated() - mem0}
     wants = [(str(path.relative_to(ROOT)), json.loads(path.read_text()))]
@@ -2354,7 +2410,7 @@ def bench_twin(torch, name: str, quick: bool, out_dir: Path) -> dict:
     if not all(crit.values()):
         raise AssertionError(f"benches {name}: criteria {crit}")
     want_launches = dict.fromkeys(DATA_PLANE, 0) | BENCH_LAUNCHES[name][
-        "quick" if quick and name not in ("breakdown", "serving_bench") else "full"]
+        "quick" if quick and name not in SINGLE_CONFIG else "full"]
     check_launches(f"benches {name}", launches, want_launches)
     rep["headline"] = bench_headline(name, out)
     cmp = "; ".join(f"{src}: {c['floats_bit_equal']} of {c['floats']} floats bit-equal"
@@ -2455,8 +2511,8 @@ def fault_cell(torch, np, image, working_set, n_restores: int = 2) -> dict:
 
 
 def benches_phase(torch, np, image, working_set, out_dir: Path) -> dict:
-    """The benches phase: (a) the six twins at the reference's full
-    configurations against their committed files, (b) the fault sweeps at
+    """The benches phase: (a) the ten twins of ``BENCHES`` at the
+    reference's full configurations against their committed files, (b) the fault sweeps at
     cell (1)'s image; counts reset before each.  The twins' JSON files go
     to ``out_dir``/benches."""
     import threading
@@ -2476,6 +2532,7 @@ def benches_phase(torch, np, image, working_set, out_dir: Path) -> dict:
 
     import workloads
 
+    rep["workload_images_bytes"] = sum(w.image.buf.numel() for w in workloads._cache.values())
     workloads.clear_cache()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2494,6 +2551,8 @@ def benches_phase(torch, np, image, working_set, out_dir: Path) -> dict:
         raise AssertionError(f"benches: {rep['launches_flash']} flash_attention launches")
     rep["mem_left_bytes"] = torch.cuda.memory_allocated() - mem0
     rep["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"  benches: the workloads' images, built once for the phase: "
+        f"{rep['workload_images_bytes'] / 2**30:.3f} GiB on the card")
     log(f"  benches: (a) {rep['a_s']:.2f} s ("
         + ", ".join(f"{n} {r['wall_s']:.2f}" for n, r in rep["a"].items())
         + f"), (b) {rep['b_s']:.2f} s; launches {rep['launches']}; no thread left; device "

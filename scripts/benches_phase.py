@@ -4,11 +4,13 @@
     python3 scripts/benches_phase.py [--seed 0] [--out build/benches]
 
 Builds the kernels, makes the smoke's 1.5 GiB image from ``--seed`` (same
-pages, same working set) and runs ``chip_smoke.benches_phase``: (a) the six
-bench twins (``scripts/{dedup,fault,adaptive,concurrency}_bench.py``,
-``scripts/breakdown.py``, ``scripts/serving_bench.py``) at the reference's
-full configurations against their committed files in
-``experiments/torch/``; (b) the fault sweeps at the 1.5 GiB image.  Prints
+pages, same working set) and runs ``chip_smoke.benches_phase``: (a) the ten
+bench twins of ``chip_smoke.BENCHES``
+(``scripts/{dedup,fault,adaptive,concurrency}_bench.py``,
+``scripts/{breakdown,serving_bench,characterization,runlength,scalability,
+kernel_bench}.py``) at the reference's full configurations against their
+committed files in ``experiments/torch/``; (b) the fault sweeps at the
+1.5 GiB image.  Prints
 the phase's lines; the report goes to ``--out``/benches.json and the twins' JSON files
 to ``--out``/benches.  Exits non-zero without a CUDA card.
 """

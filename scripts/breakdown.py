@@ -108,10 +108,10 @@ def run(workload: str = "chameleon", concurrency: int = 32, device="cuda") -> di
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", help="the image's and the pool's device")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if args.device != "cpu":        # experiments/torch/ holds the CPU runs
         global OUT
         OUT = ROOT / "build" / "benches"

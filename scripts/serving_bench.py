@@ -6,7 +6,7 @@ run-coalesced batched serving.
         [--device cuda|cpu]
 
 The port's twin of ``benchmarks/serving_bench.py``.  For each workload
-(``scripts/workloads.py``; the dense ones are ported) the snapshot is
+(``scripts/workloads.py``; all nine by default) the snapshot is
 published once through the fused sweep on ``device``, then restored twice
 with fresh incoherent host views:
 
@@ -42,7 +42,7 @@ from repro_torch.core.pool import TimeLedger  # noqa: E402
 from repro_torch.core.serving import Instance, RestoreEngine  # noqa: E402
 from repro_torch.core.snapshot import SnapshotReader, _zstd  # noqa: E402
 from repro_torch.kernels import make_fused_publish_fn  # noqa: E402
-from workloads import DENSE, get_workload  # noqa: E402
+from workloads import all_workloads, get_workload  # noqa: E402
 
 OUT = ROOT / "experiments" / "torch"
 
@@ -100,10 +100,9 @@ def bench_workload(name: str, compress_cold: bool = False, device="cuda") -> dic
 
 
 def run(workloads=None, device="cuda") -> dict:
-    """``workloads`` defaults to the four dense ones (the nine-workload run
-    is ROADMAP A13b).  The compressed rows run where ``zstandard`` is
-    installed."""
-    names = list(workloads) if workloads else list(DENSE)
+    """``workloads`` defaults to all nine.  The compressed rows run where
+    ``zstandard`` is installed."""
+    names = list(workloads) if workloads else all_workloads()
     rows = [bench_workload(n, device=device) for n in names]
     rows_z = ([bench_workload(n, compress_cold=True, device=device) for n in names]
               if _zstd else [])

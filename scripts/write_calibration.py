@@ -3,16 +3,15 @@
 
     python3 scripts/write_calibration.py [--out experiments/torch/kernel_calibration.json]
 
-Derives the per-page data-plane constants the way
+Writes ``kernel_bench.calibration_section`` (the one derivation, as
 ``benchmarks/kernel_bench.py --write-calibration`` derives the JAX
-package's, from the bytes the port's kernels move per page over the H100's
-memory rate (``chip_smoke.HBM_BYTES_PER_S``, the rate of the bounds in
-PERF.md):
+package's): the per-page data-plane constants from the bytes the port's
+kernels move over the H100's memory rate (``roofline.analysis.HBM_BW``):
 
 * ``checksum_bw_Bps`` — a page and its checksum, 4,100 bytes a page;
-* ``publish_sweep_page_s`` — ``chip_smoke.publish_bound``'s bytes at the
-  bench's canonical workload (65,536 pages, a third zero, half of the rest
-  hot), a page;
+* ``publish_sweep_page_s`` — the one-pass publish kernel's bytes
+  (``chip_smoke.publish_bound``) at the bench's canonical workload (65,536
+  pages, a third zero, half of the rest hot), a page;
 * ``preinstall_page_s`` — a verified row-list install of a 16,384-page
   chunk (``chip_smoke.restore_rows_bytes``), a page.
 
@@ -33,36 +32,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-
-MODEL_N = 65536                       # benchmarks/kernel_bench.py's canonical workload
-MODEL_ZERO = MODEL_N // 3
-MODEL_CHUNK = 16384
-
-
-def calibration(card: str) -> dict:
-    import chip_smoke as cs
-
-    nnz = MODEL_N - MODEL_ZERO
-    publish_bytes = cs.publish_bound(MODEL_N, nnz)[2]
-    preinstall_bytes = cs.restore_rows_bytes(MODEL_CHUNK)
-    rate = cs.HBM_BYTES_PER_S
-    return {
-        "written_by": "scripts/write_calibration.py",
-        "note": "per-page data-plane costs at the H100 memory rate for the bytes the "
-                "port's kernels move; serve/strategies.py reads `constants` at import",
-        "card": card,
-        "platform": {"hbm_bw_Bps": rate},
-        "per_page": {
-            "checksum_bytes": cs.PAGE + 4,
-            "publish_sweep_bytes": publish_bytes / MODEL_N,
-            "preinstall_bytes": preinstall_bytes / MODEL_CHUNK,
-        },
-        "constants": {
-            "checksum_bw_Bps": cs.PAGE / ((cs.PAGE + 4) / rate),
-            "publish_sweep_page_s": publish_bytes / MODEL_N / rate,
-            "preinstall_page_s": preinstall_bytes / MODEL_CHUNK / rate,
-        },
-    }
+sys.path.insert(0, str(ROOT / "scripts"))
 
 
 def main() -> int:
@@ -71,8 +41,9 @@ def main() -> int:
                                           "kernel_calibration.json"))
     args = ap.parse_args()
     import chip_smoke as cs
+    import kernel_bench
 
-    cal = calibration(cs.card_line())
+    cal = kernel_bench.calibration_section(kernel_bench.modeled_section(), cs.card_line())
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(cal, indent=2) + "\n")

@@ -11,4 +11,6 @@ import torch
 
 def zero_detect_ref(pages: torch.Tensor) -> torch.Tensor:
     """pages: (N, E) any dtype -> int32[N], 1 where the row is all zero."""
-    return (pages == 0).all(dim=1).to(torch.int32)
+    if pages.dtype.is_floating_point or pages.dtype.is_complex:
+        return (pages == 0).all(dim=1).to(torch.int32)
+    return pages.any(dim=1).logical_not().to(torch.int32)   # integers: by value = by bits

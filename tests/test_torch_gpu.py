@@ -7,6 +7,7 @@ with PyTorch alone:
         tests/test_torch_gpu.py
 """
 
+import json
 import threading
 import time
 
@@ -1037,17 +1038,58 @@ def _smoke():
 
 
 @pytest.mark.parametrize("name", ["dedup_bench", "fault_bench", "adaptive_bench",
-                                  "concurrency_bench", "breakdown", "serving_bench"])
+                                  "concurrency_bench", "breakdown", "serving_bench",
+                                  "characterization", "runlength", "scalability",
+                                  "kernel_bench"])
 def test_bench_twin_on_card_holds_its_committed_file(cuda_device, name, tmp_path):
-    """Each bench twin at its quick configuration (breakdown and
-    serving_bench have one) on the card: every key held to its committed
-    CPU output (floats within 1e-12 relative, ``model_err_max`` within
-    1e-12; wall clocks and the brownout's breaker rejections aside), every
-    criterion true, launches exact."""
+    """Each bench twin at its quick configuration (the twins of
+    ``chip_smoke.SINGLE_CONFIG`` have one) on the card: every key held to
+    its committed CPU output (floats within 1e-12 relative,
+    ``model_err_max`` within 1e-12; wall clocks, the brownout's breaker
+    rejections and kernel_bench's measured section aside), every criterion
+    true, launches exact."""
     cs = _smoke()
     rep = cs.bench_twin(torch, name, True, tmp_path)
     assert rep["compared"] and all(c["floats"] >= c["floats_bit_equal"]
                                    for c in rep["compared"].values())
+
+
+def test_kernel_bench_quick_on_card(cuda_device, tmp_path, monkeypatch):
+    """kernel_bench's quick tier on the card: the six wrappers launch their
+    kernels (as many times as the CPU tally of the same run), fused and
+    piecemeal agree bit for bit, every criterion true, the modeled keys the
+    committed file's."""
+    cs = _smoke()
+    import kernel_bench
+
+    monkeypatch.setattr(kernel_bench, "OUT", tmp_path)
+    wrappers = cs.data_plane_wrappers()
+    for k in wrappers.values():
+        k.launches = 0
+    out = kernel_bench.run(quick=True, device="cuda")
+    launches = {n: k.launches for n, k in wrappers.items()}
+    assert launches == cs.BENCH_LAUNCHES["kernel_bench"]["quick"]
+    assert all(out["criteria"].values()) and out["config"] == {"tier": "quick",
+                                                               "backend": "cuda"}
+    committed = json.loads((cs.ROOT / "experiments" / "torch" /
+                            "kernel_bench.json").read_text())
+    assert out["modeled"] == committed["modeled"]
+
+
+def test_serve_coldstart_quick_on_card(cuda_device, capsys):
+    """The serve_coldstart twin's ``--quick`` on the card: pyaes's strategy
+    table, a warm restore of the reduced xlstm-125m with its hot pages
+    pre-installed, and two served tokens within its vocabulary."""
+    _smoke()
+    import serve_coldstart
+
+    assert serve_coldstart.main(["--quick", "--device", "cuda"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    warm = next(line for line in lines if line.startswith("warm restore:"))
+    assert int(warm.split("pre-installed ")[1].split()[0]) > 0
+    tokens = json.loads(next(line for line in lines
+                             if line.startswith("served tokens:")).split(":", 1)[1])
+    assert len(tokens) == 2 and all(0 <= t < 512 for t in tokens)
 
 
 # --------------------------------------------------------------------------

@@ -20,7 +20,9 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     for name in ("workloads", "dedup_bench", "fault_bench", "adaptive_bench",
                  "concurrency_bench", "breakdown", "serving_bench", "benches_phase",
                  "quickstart", "train_e2e", "train_phase", "moe_phase", "coldstart_phase",
-                 "families_phase", "time_flash_stages")]
+                 "families_phase", "time_flash_stages", "characterization", "runlength",
+                 "scalability", "kernel_bench", "run", "check_regressions", "serve_coldstart",
+                 "write_calibration")]
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -36,10 +38,12 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.sim, repro_torch.sim.cluster, repro_torch.topology, "
             "repro_torch.fleet, repro_torch.fleet.driver, repro_torch.fleet.model, "
             "repro_torch.data, repro_torch.sharding, repro_torch.train, repro_torch.tree, "
-            "repro_torch.launch.train, repro_torch.launch.serve; "
+            "repro_torch.launch.train, repro_torch.launch.serve, repro_torch.roofline, "
+            "repro_torch.roofline.analysis; "
             "sys.path.insert(0, %r); import sim_scenarios, fleet_bench, workloads, dedup_bench, "
             "fault_bench, adaptive_bench, concurrency_bench, breakdown, serving_bench, "
-            "quickstart, train_e2e; "
+            "quickstart, train_e2e, characterization, runlength, scalability, kernel_bench, "
+            "run, check_regressions, serve_coldstart; "
             "repro_torch.configs.base.load_all(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad") % str(ROOT / "scripts")
