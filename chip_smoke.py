@@ -317,6 +317,19 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              step under remat, the backward once, every one on sm90).  (c) The quickstart twin
              (``scripts/quickstart.py``) with asynchronous checkpoints: its
              loss falls, the restored parameters bit-identical, 12 tokens.
+19. sharding — (a) ``compressed_psum`` over every gradient leaf of
+             xLSTM-125M at full width (12 blocks, d_model 768, vocab 50,304)
+             on a one-rank NCCL group, each bit-equal to quantize +
+             dequantize; (b) the elastic-restore twin
+             (``scripts/elastic_restore.py``) on that model at seq 64, batch
+             8, 5 + 5 steps: publish (one fused publish), restore through the
+             fused restore, ``reshard`` onto a (1, 1) cuda mesh, train on;
+             the re-sharded parameters bit-equal to the checkpointed ones on
+             cuda:0, every page verified, every loss finite, launches exact
+             (no attention: xLSTM has none); (c) the dry run's Phi-4-mini
+             ``decode_32k`` cell in a subprocess on 256 fake ranks, status
+             ok, its roofline terms printed.  Alone:
+             ``scripts/sharding_phase.py``.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` line, the card line,
 and as the last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -327,6 +340,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3824,6 +3838,202 @@ def train_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# sharding: compressed_psum, the elastic-restore twin, one dry-run cell
+# ----------------------------------------------------------------------------
+
+SHARDING_ARCH = "xlstm-125m"          # unreduced: 12 blocks, d_model 768, vocab 50,304
+SHARDING_SEQ, SHARDING_BATCH, SHARDING_STEPS = 64, 8, 5      # the example's non-quick data
+DRYRUN_CELL = ("phi4-mini-3.8b", "decode_32k")
+
+
+def sharding_phase(torch, np, seed: int, device, out_dir: Path) -> dict:
+    """(a) ``compressed_psum`` over every gradient leaf of xLSTM-125M at full
+    width on a one-rank NCCL group, each result bit-equal to
+    ``dequantize_int8(*quantize_int8(g))``; (b) the elastic-restore twin
+    (``scripts/elastic_restore.py``) on the same model at the example's
+    non-quick data shape: train, publish through the fused publish, restore
+    through the fused restore, ``reshard`` onto a (1, 1) ``cuda`` mesh, train
+    on; the re-sharded parameters bit-equal to the checkpointed ones on the
+    card, every page verified, every loss finite, launches exact; (c) one
+    dry-run cell in a subprocess (its 256-rank fake group stays out of this
+    process), its status ``ok``."""
+    import gc
+
+    import elastic_restore
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import HierarchicalPool, PoolMaster, RestoreEngine
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.snapshot_fuse import ops
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.launch.pools import pool_capacities
+    from repro_torch.models.model_zoo import build
+    from repro_torch.sharding.collectives import (compressed_psum, dequantize_int8,
+                                                  quantize_int8)
+    from repro_torch.train.trainstep import make_loss_fn
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SHARDING_ARCH)
+    rep = {"arch": cfg.name, "params": cfg.param_count()}
+    # (c) starts first: the dry run traces on the host while (a) and (b) use the card
+    arch, shape = DRYRUN_CELL
+    dry_path = ROOT / "experiments" / "torch" / "dryrun" / f"{arch}__{shape}__pod.json"
+    dry_path.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t_dry = time.perf_counter()
+    dry = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                            "--shape", shape], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True, env=env, cwd=ROOT)
+
+    try:
+        # (a) the compressed all-reduce over one step's gradients
+        model = build(cfg, device=device)
+        params = model.init(seed)
+        data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=SHARDING_SEQ,
+                                          global_batch=SHARDING_BATCH))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(0).items()}
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, _ = make_loss_fn(model)(leaves, batch)
+        loss.backward()
+        grads = [p.grad for p in tree_leaves(leaves)]
+        del leaves, loss
+        with host_mesh(1, 1, device="cuda") as mesh:
+            import torch.distributed as dist
+
+            backend = dist.get_backend()
+            compressed_psum(grads[0][:1])         # the communicator's lazy start, untimed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = [compressed_psum(g) for g in grads]
+            torch.cuda.synchronize()
+            psum_s = time.perf_counter() - t0
+            for i, (g, out) in enumerate(zip(grads, outs)):
+                want = dequantize_int8(*quantize_int8(g))
+                if out.device != g.device or not torch.equal(out, want):
+                    raise AssertionError(f"sharding: compressed_psum of gradient leaf {i} "
+                                         f"{tuple(g.shape)} differs from quantize + dequantize")
+        if dist.is_initialized():
+            raise AssertionError("sharding: host_mesh left its process group behind")
+        n_elems = sum(g.numel() for g in grads)
+        rep["compressed_psum"] = {"leaves": len(grads), "elements": n_elems, "backend": backend,
+                                  "mesh": list(mesh.shape), "wall_s": psum_s}
+        log(f"  compressed_psum: {len(grads)} gradient leaves of {cfg.name} ({n_elems:,} "
+            f"elements) on a one-rank {backend} group, each bit-equal to quantize + dequantize; "
+            f"{psum_s * 1e3:.1f} ms wall")
+        del model, params, grads, outs, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the elastic-restore twin at full width
+        counted = data_plane_wrappers()
+        for k in counted.values():
+            k.launches = 0
+        fops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        master = PoolMaster(HierarchicalPool(*pool_capacities(cfg, moments=True), device=device),
+                            publish_fn=ops.make_fused_publish_fn())
+        scatter = ops.FusedScatter()
+        t0 = time.perf_counter()
+        # the cold tail ridden by the orchestrator's prefetcher: the example's
+        # defaults demand-page it one page a fault (151,614 faults, 449 s to
+        # full on an NVIDIA H100 80GB HBM3 at 700.00 W)
+        er = elastic_restore.run(cfg, SHARDING_SEQ, SHARDING_BATCH, SHARDING_STEPS, device=device,
+                                 master=master, scatter_fn=scatter, prefetch_cold=True)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {n: k.launches for n, k in counted.items()}
+        sv, st = er["save_stats"], er["restore_stats"]
+        losses = er["losses1"] + er["losses2"]
+        if not np.isfinite(losses).all() or len(losses) != 2 * SHARDING_STEPS:
+            raise AssertionError(f"sharding: elastic losses {losses}")
+        if not er["reshard_bit_equal"]:
+            raise AssertionError("sharding: the re-sharded parameters differ from the checkpointed")
+        locals_ = [p.to_local() for p in tree_leaves(er["placed"])]
+        if any(t.device != torch.device("cuda", 0) for t in locals_):
+            raise AssertionError("sharding: a re-sharded parameter is not on cuda:0")
+        verified = scatter.stats["pages_verified"]
+        if verified != sv["hot"] + sv["cold"]:
+            raise AssertionError(f"sharding: {verified} pages verified, want "
+                                 f"{sv['hot'] + sv['cold']}")
+        n_chunks = -(-sv["hot"] // RestoreEngine.HOT_CHUNK_PAGES)
+        want = {"fused_publish": 1,
+                "fused_restore": restore_launches(scatter.stats, n_chunks, 1, st["flushes"]),
+                "zero_detect": 0, "page_checksum": 0, "page_gather": 0, "page_scatter": 0}
+        flash = {"flash_attention": flash_attention.launches,
+                 "flash_attention_bwd": flash_attention_bwd.launches}
+        if launches != want or flash != {"flash_attention": 0, "flash_attention_bwd": 0}:
+            raise AssertionError(f"sharding: launches {launches} {flash}, want {want} and no "
+                                 "attention (xLSTM has none)")
+        rep["elastic"] = {
+            "seq": SHARDING_SEQ, "batch": SHARDING_BATCH, "steps": SHARDING_STEPS,
+            "losses1": er["losses1"], "losses2": er["losses2"],
+            "phase1_s": er["walls"]["phase1_s"], "phase2_s": er["walls"]["phase2_s"],
+            "publish_s": er["walls"]["publish_s"],
+            "time_to_hot_s": st["time_to_hot_s"], "time_to_full_s": st["time_to_full_s"],
+            "pages": {k: sv[k] for k in ("total_pages", "zero", "hot", "cold")},
+            "pages_verified": verified, "walk_routes": st["walk_routes"],
+            "flushes": st["flushes"], "peak_mem_bytes": peak, "wall_s": twin_s,
+            "launches": launches}
+        e = rep["elastic"]
+        log(f"  elastic twin: {cfg.name} full width, seq {SHARDING_SEQ}, batch {SHARDING_BATCH}, "
+            f"{SHARDING_STEPS} + {SHARDING_STEPS} steps; phase 1 {e['phase1_s']:.3f} s (losses "
+            f"{', '.join(f'{x:.4f}' for x in e['losses1'])}), publish {e['publish_s']:.3f} s "
+            f"({sv['total_pages']} pages: hot {sv['hot']}, cold {sv['cold']}, zero {sv['zero']}), "
+            f"time to hot {e['time_to_hot_s']:.3f} s, to full {e['time_to_full_s']:.3f} s, "
+            f"{verified} pages verified, re-sharded onto a (1, 1) cuda mesh bit-equal to the "
+            f"checkpointed parameters; phase 2 {e['phase2_s']:.3f} s (losses "
+            f"{', '.join(f'{x:.4f}' for x in e['losses2'])}); peak {peak / 2**30:.3f} GiB; "
+            f"launches {launches}")
+        del er, master, scatter, locals_
+        gc.collect()
+        torch.cuda.empty_cache()
+    except BaseException:
+        dry.kill()
+        dry.communicate()
+        raise
+
+    # (c) the dry-run cell, started with the phase in a process of its own
+    try:
+        stdout, stderr = dry.communicate(timeout=600)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    dry_s = time.perf_counter() - t_dry
+    if not dry_path.exists():
+        raise AssertionError(f"sharding: the dry run exited {dry.returncode}, no record: "
+                             f"{stdout[-1500:]} {stderr[-1500:]}")
+    cell = json.loads(dry_path.read_text())
+    (out_dir / dry_path.name).write_text(json.dumps(cell, indent=1))
+    if dry.returncode != 0 or cell["status"] != "ok" or cell["chips"] != 256:
+        raise AssertionError(f"sharding: dry-run cell {cell.get('status')} (exit "
+                             f"{dry.returncode}): {cell.get('error')}\n"
+                             f"{cell.get('traceback', '')[-1500:]}")
+    terms = cell["roofline"]
+    rep["dryrun"] = {"cell": f"{arch} x {shape} x 16x16", "wall_s": dry_s,
+                     "lower_s": cell["lower_s"], "memory": cell["memory"],
+                     "flops_per_device": terms["flops_per_device"],
+                     "bytes_per_device": terms["bytes_per_device"],
+                     "collective_bytes_per_device": terms["collective_bytes_per_device"],
+                     "compute_s": terms["compute_s"], "memory_s": terms["memory_s"],
+                     "collective_s": terms["collective_s"], "dominant": terms["dominant"],
+                     "torch": torch.__version__}
+    d = rep["dryrun"]
+    log(f"  dry run {d['cell']} (a subprocess beside (a) and (b), 256 fake ranks, torch "
+        f"{torch.__version__}): status ok, traced in {d['lower_s']} s ({dry_s:.1f} s wall); "
+        f"per device "
+        f"{d['flops_per_device']:.4g} flop, {d['bytes_per_device']:.4g} B, "
+        f"{d['collective_bytes_per_device']:.4g} collective B; terms compute "
+        f"{d['compute_s']:.4g} s, memory {d['memory_s']:.4g} s, collective "
+        f"{d['collective_s']:.4g} s, dominant {d['dominant']}")
+    rep["phase_wall_s"] = time.perf_counter() - t_phase
+    return rep
+
+
+# ----------------------------------------------------------------------------
 # moe: OLMoE-1B-7B and DeepSeek-V3 (MLA, MoE, MTP) at full width
 # ----------------------------------------------------------------------------
 
@@ -4868,6 +5078,13 @@ def main() -> int:
     report["train"] = train_phase(torch, np, args.seed, device, out.parent)
     phase_done("train")
 
+    # 19. sharding: compressed_psum over xLSTM-125M's gradients on a one-rank
+    # NCCL group, the elastic-restore twin at full width (counts reset inside
+    # just before its path), one dry-run cell in a subprocess
+    log("sharding:")
+    report["sharding"] = sharding_phase(torch, np, args.seed, device, out.parent)
+    phase_done("sharding")
+
     dedup_launches = report["dedup"]["launches"]
     pod_launches = report["pod"]["launches"]
     topo_launches = report["topology"]["launches"]
@@ -4893,7 +5110,9 @@ def main() -> int:
                               "fleet": fleet_launches["fused_publish"],
                               "benches": bench_launches["fused_publish"],
                               "coldstart": coldstart_launches["fused_publish"],
-                              "families": fam_launches["fused_publish"]},
+                              "families": fam_launches["fused_publish"],
+                              "sharding": report["sharding"]["elastic"]["launches"][
+                                  "fused_publish"]},
          "bit_equal": True,
          "max_abs_err": max(pub_err, coldstart_err["fused_publish"]), "ms": pub["ms"],
          "plain_ms": pub["plain_ms"],
@@ -4911,7 +5130,9 @@ def main() -> int:
                               "fleet": fleet_launches["fused_restore"],
                               "benches": bench_launches["fused_restore"],
                               "coldstart": coldstart_launches["fused_restore"],
-                              "families": fam_launches["fused_restore"]},
+                              "families": fam_launches["fused_restore"],
+                              "sharding": report["sharding"]["elastic"]["launches"][
+                                  "fused_restore"]},
          "bit_equal": True, "max_abs_err": res_err,
          "ms": cold["install"]["ms"], "plain_ms": cold["plain_ms"],
          "bound_ms": cold["install"]["bound_ms"], "bound_by": cold["install"]["bound_by"],

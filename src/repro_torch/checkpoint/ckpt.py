@@ -169,6 +169,16 @@ def restore_checkpoint(
 
 
 def reshard(state, mesh, spec_tree):
-    """Elastic restore onto a device mesh (reference ``ckpt.reshard``)."""
-    raise NotImplementedError("reshard places state on a device mesh: sharding is not "
-                              "ported yet (ROADMAP A12)")
+    """Elastic restore: place a restored state onto a (new) mesh.  Each leaf
+    is distributed with the placements ``named`` gives its spec, onto the
+    mesh's device type; the leaves come back as DTensors (on a size-1 mesh
+    ``.to_local()`` is the whole tensor, bit for bit)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..sharding.partition import map_specs, placements
+
+    def put(spec, x):
+        x = x.to(mesh.device_type) if x.device.type != mesh.device_type else x
+        return distribute_tensor(x, mesh, list(placements(mesh, spec)))
+
+    return map_specs(put, spec_tree, state)

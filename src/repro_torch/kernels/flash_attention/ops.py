@@ -4,8 +4,10 @@
 k (B, Hkv, Skv, Dk), v (B, Hkv, Skv, Dv) -> (B, Hq, Sq, Dv) in q's dtype.
 CPU tensors take the plain versions, as the JAX package's non-TPU path does:
 ``attention_ref`` up to ``CHUNKED_THRESHOLD`` keys, ``chunked_attention_ref``
-above.  CUDA tensors launch one of the two hand-written kernels, the one
-``route`` names, or raise.  ``flash_attention.launches_sm90`` and
+above; so do ``meta`` tensors (the dry run traces shapes through them, as
+the reference's dry run lowers the plain versions on CPU devices).  CUDA
+tensors launch one of the two hand-written kernels, the one ``route``
+names, or raise.  ``flash_attention.launches_sm90`` and
 ``.launches_simt`` count the launches of each, ``.launches`` their sum.
 
 When grad mode is on and q, k or v requires grad, the call goes through
@@ -36,6 +38,8 @@ MAX_HEAD_DIM = 256
 # (qk_nope + qk_rope = 192, v 128)
 SM90_DK_DV = ((64, 64), (80, 80), (128, 128), (192, 128))
 ROUTES = ("sm90", "simt")
+# device types that take the plain versions; every other one launches or raises
+_PLAIN_DEVICES = ("cpu", "meta")
 
 
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
@@ -118,10 +122,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 
 
 def _forward(q, k, v, causal: bool, scale: float, with_lse: bool):
-    """``(out, lse or None)``: the plain versions on CPU tensors, the kernel
+    """``(out, lse or None)``: the plain versions on CPU and meta tensors, the kernel
     ``route`` names on CUDA ones (writing the float32 log-sum-exp (B, Hq,
     Sq) only when ``with_lse``)."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         fn = chunked_attention_ref if k.shape[2] > CHUNKED_THRESHOLD else attention_ref
         if with_lse:
             return fn(q, k, v, causal=causal, scale=scale, return_lse=True)
@@ -181,14 +185,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                         scale: Optional[float] = None):
     """``(dq, dk, dv)`` of ``flash_attention`` from its inputs, its output
     ``out``, the forward's float32 log-sum-exp ``lse`` (B, Hq, Sq) and the
-    output's gradient ``dout``.  CPU tensors take ``flash_attention_bwd_ref``;
+    output's gradient ``dout``.  CPU tensors take ``flash_attention_bwd_ref`` (as do meta ones);
     CUDA tensors launch the kernel ``bwd_route`` names (Dk, Dv <= 256;
     float32 or bf16) or raise.  The gradients come
     back contiguous, in the inputs' dtypes; two launches on the same inputs
     give the same bits."""
     if scale is None:
         scale = q.shape[3] ** -0.5
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, scale=scale)
     _check_bwd_cuda(q, k, v, out, lse, dout, causal)
     which = bwd_route(q, k, v, dout)   # on the tensors as given: no copy picks the route

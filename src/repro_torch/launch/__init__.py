@@ -1,3 +1,4 @@
-"""Launchers: ``python -m repro_torch.launch.train`` and
-``python -m repro_torch.launch.serve`` (the mesh and dry-run launchers are
-ROADMAP A12's)."""
+"""Launchers: ``python -m repro_torch.launch.train``,
+``python -m repro_torch.launch.serve`` and the dry run
+``python -m repro_torch.launch.dryrun``; the meshes they build
+(``launch.mesh``)."""

@@ -12,19 +12,30 @@ Caches per layer:
   MLA : the latent cache (B, max_len, kv_lora + qk_rope_head_dim): the
         compressed latent and the rope key, nothing re-expanded.
 Decode writes the new entry into the cache in place (the JAX package returns
-an updated copy).  The JAX package's sharding constraints (``constrain``,
-``cache_constrain``) are the identity without a mesh and are dropped on one
-card.
+an updated copy).  The sharding constraints (``constrain``,
+``cache_constrain``) sit where the JAX package has them; they are the
+identity without an active mesh (``sharding.partition``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
+from ..sharding.partition import (cache_constrain, constrain, constrain_flatten,
+                                  constrain_split, local_shards, pin_grad)
 from .common import apply_mrope, apply_rope, dense_init
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+           scale: Optional[float] = None) -> torch.Tensor:
+    """``flash_attention``; under a mesh on each rank's (batch, head) shards
+    (``local_shards``), as XLA partitions the reference's attention."""
+    return local_shards(functools.partial(flash_attention, causal=causal, scale=scale),
+                        (q, k, v), heads=True)
 
 
 # ==========================================================================
@@ -57,9 +68,9 @@ def _proj_qkv(params, x: torch.Tensor, cfg: ModelConfig):
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
         v = v + params["bv"].to(v.dtype)
-    q = q.view(b, s, h, dh).transpose(1, 2)
-    k = k.view(b, s, hk, dh).transpose(1, 2)
-    v = v.view(b, s, hk, dh).transpose(1, 2)
+    q = constrain_split(q, h).view(b, s, h, dh).transpose(1, 2)
+    k = constrain_split(k, hk).view(b, s, hk, dh).transpose(1, 2)
+    v = constrain_split(v, hk).view(b, s, hk, dh).transpose(1, 2)
     return q, k, v
 
 
@@ -77,8 +88,14 @@ def gqa_attention(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=causal)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    if cfg.attn_batch_shard:
+        # when n_heads % TP != 0, shard the attention region over batch
+        # instead (heads replicated, one gather at the boundary)
+        q = constrain(q, ("pod", "data"), None, None, None)
+        k = constrain(k, ("pod", "data"), None, None, None)
+        v = constrain(v, ("pod", "data"), None, None, None)
+    o = attend(q, k, v, causal=causal)
+    o = pin_grad(o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim))
     return o @ params["wo"]
 
 
@@ -108,7 +125,8 @@ def gqa_decode(params: Dict, x: torch.Tensor, cache: Dict, pos: int, cfg: ModelC
     ck, cv = cache["k"], cache["v"]
     ck[:, :, pos] = k[:, :, 0].to(ck.dtype)
     cv[:, :, pos] = v[:, :, 0].to(cv.dtype)
-    qg = q.reshape(b, hk, group, dh)
+    ck, cv = cache_constrain(ck), cache_constrain(cv)
+    qg = constrain_split(q, hk, dim=1).reshape(b, hk, group, dh)
     # float32 products and sums, as the JAX package's preferred_element_type
     s = torch.einsum("bkgd,bksd->bkgs", qg.float(), ck.float()) * (dh ** -0.5)
     valid = torch.arange(ck.shape[2], device=x.device) <= pos
@@ -116,7 +134,7 @@ def gqa_decode(params: Dict, x: torch.Tensor, cache: Dict, pos: int, cfg: ModelC
     p = torch.softmax(s, dim=-1)
     # the probabilities are rounded to the cache dtype before the PV product
     o = torch.einsum("bkgs,bksd->bkgd", p.to(cv.dtype).float(), cv.float())
-    o = o.reshape(b, 1, h * dh).to(x.dtype)
+    o = constrain_flatten(o, 1).reshape(b, 1, h * dh).to(x.dtype)
     return o @ params["wo"], cache
 
 
@@ -170,8 +188,8 @@ def mla_attention(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         positions = torch.arange(s, device=x.device)
     q, k, v, _, _ = _mla_qkv(params, x, positions, cfg)
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
-    o = flash_attention(q, k, v, causal=causal, scale=scale)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.v_head_dim)
+    o = attend(q, k, v, causal=causal, scale=scale)
+    o = pin_grad(o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.v_head_dim))
     return o @ params["wo"]
 
 
@@ -192,6 +210,7 @@ def _mla_step(params, x: torch.Tensor, cache: Dict, pos: int, cfg: ModelConfig):
     k_rope_new = apply_rope(kv[:, None, :, kr:], p1, cfg.rope_theta)   # (B, 1, 1, dqr)
     lat = cache["latent"]
     lat[:, pos] = torch.cat([kv[:, 0, :kr], k_rope_new[:, 0, 0]], dim=-1).to(lat.dtype)
+    lat = cache_constrain(lat, seq_shard=cfg.flash_decoding)
     valid = torch.arange(lat.shape[1], device=x.device) <= pos
     return q_nope, q_rope, lat[..., :kr], lat[..., kr:], valid
 
@@ -238,7 +257,7 @@ def mla_decode(params: Dict, x: torch.Tensor, cache: Dict, pos: int,
     s = ((s_nope + s_rope) * (dqn + dqr) ** -0.5).masked_fill(~valid, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqs,bhsd->bhqd", p.to(v.dtype).float(), v.float())
-    o = o.transpose(1, 2).reshape(b, 1, h * dv).to(x.dtype)
+    o = constrain_flatten(o.transpose(1, 2), 2).reshape(b, 1, h * dv).to(x.dtype)
     return o @ params["wo"], cache
 
 

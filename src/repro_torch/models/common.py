@@ -8,7 +8,9 @@ Initializers take an explicit ``torch.Generator`` (on the target device) in
 place of a ``jax.random`` key.  ``jax.random.truncated_normal(-2, 2) * std``
 becomes ``trunc_normal_(t, 0, std, -2 std, 2 std)``: the same distribution,
 other numbers, so parity tests carry the JAX parameters across with
-``repro_torch.interop.params_from_numpy``.
+``repro_torch.interop.params_from_numpy``.  On the ``meta`` device the
+initializers draw nothing (:class:`MetaGenerator`): the tree of shapes and
+dtypes comes out as ``jax.eval_shape(model.init)`` gives it, with no memory.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.partition import gather_dp
+
 NEG_LOGIT = -1e30   # padded-vocab logits
 
 
@@ -25,10 +29,26 @@ NEG_LOGIT = -1e30   # padded-vocab logits
 # init
 # --------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` when the parameters are made on
+    the ``meta`` device, where there is no generator and nothing to draw."""
+
+    device = torch.device("meta")
+
+
 def _trunc_normal(gen: torch.Generator, shape: Sequence[int], std: float, dtype) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
     return t.to(dtype)
+
+
+def normal(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    """Standard normal float32 draws (nothing drawn on ``meta``)."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.float32, device="meta")
+    return torch.randn(tuple(shape), generator=gen, device=gen.device)
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
@@ -171,11 +191,13 @@ def unembed(params: Dict, x: torch.Tensor, logits_fp32: bool = True,
 
 def cast_tree(tree, dtype):
     """Floating leaves cast to ``dtype``; a leaf already in it is returned as
-    it is (no copy), so casting a cast tree again costs nothing."""
+    it is (no copy), so casting a cast tree again costs nothing.  Under an
+    active mesh the cast parameters are also gathered over the DP axes
+    (``sharding.partition.gather_dp``, FSDP's gather before use)."""
     if isinstance(tree, dict):
         return {k: cast_tree(v, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(cast_tree(v, dtype) for v in tree)
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
-        return tree.to(dtype)
+        return gather_dp(tree.to(dtype))
     return tree

@@ -22,7 +22,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.pagestore import resolve_device
-from ..kernels.flash_attention.ops import flash_attention
+from ..sharding.partition import constrain
 from . import attention as attn_mod
 from .common import cast_tree, dense_init, embed, init_embedding, init_mlp, mlp, rmsnorm, unembed
 from .transformer import Key, _generator, _layer, _n_stacked, _norm, _run
@@ -54,7 +54,7 @@ def cross_attn(params: Dict, x: torch.Tensor, k, v, cfg: ModelConfig) -> torch.T
     b, s, _ = x.shape
     h, dh = cfg.n_heads, cfg.head_dim
     q = (x @ params["wq"]).view(b, s, h, dh).transpose(1, 2)
-    o = flash_attention(q, k, v, causal=False)
+    o = attn_mod.attend(q, k, v, causal=False)
     return o.transpose(1, 2).reshape(b, s, h * dh) @ params["wo"]
 
 
@@ -71,8 +71,10 @@ def init_enc_block(gen: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def enc_block(params, x, cfg: ModelConfig):
+    x = constrain(x, ("pod", "data"), None, None)
     x = x + attn_mod.gqa_attention(params["attn"], rmsnorm(params["ln1"], x), cfg, causal=False)
-    return x + mlp(params["mlp"], rmsnorm(params["ln2"], x))
+    x = x + mlp(params["mlp"], rmsnorm(params["ln2"], x))
+    return constrain(x, ("pod", "data"), None, None)
 
 
 def init_dec_block(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -88,10 +90,12 @@ def init_dec_block(gen: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def dec_block(params, x, enc_out, cfg: ModelConfig):
+    x = constrain(x, ("pod", "data"), None, None)
     x = x + attn_mod.gqa_attention(params["self"], rmsnorm(params["ln1"], x), cfg, causal=True)
     k, v = cross_kv(params["cross"], enc_out, cfg)
     x = x + cross_attn(params["cross"], rmsnorm(params["ln2"], x), k, v, cfg)
-    return x + mlp(params["mlp"], rmsnorm(params["ln3"], x))
+    x = x + mlp(params["mlp"], rmsnorm(params["ln3"], x))
+    return constrain(x, ("pod", "data"), None, None)
 
 
 # -- model ------------------------------------------------------------------

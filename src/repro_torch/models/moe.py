@@ -26,8 +26,8 @@ Numerics reproduced on purpose:
 Top-k order: the k largest probabilities in descending order, equal ones
 lower expert index first, as ``jax.lax.top_k`` gives them (``torch.topk``
 orders ties otherwise, so ``_top_k`` takes the head of a stable descending
-sort).  The JAX package's sharding constraints are the identity on one
-device and are dropped.
+sort).  The dispatched tokens are pinned expert-parallel (``constrain``,
+the identity without an active mesh), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..sharding.partition import constrain, local_shards, pin_grad
 from .common import dense_init, init_mlp, mlp
 
 
@@ -72,11 +73,21 @@ def _route(params: Dict, x: torch.Tensor, k: int):
     return probs, topw / (topw.sum(-1, keepdim=True) + 1e-9), topi
 
 
+def _swiglu_experts(xin, wi, wg, wo):
+    h = torch.einsum("gecd,edf->gecf", xin, wi)
+    gate = torch.einsum("gecd,edf->gecf", xin, wg)
+    return torch.einsum("gecf,efd->gecd", F.silu(gate) * h, wo)
+
+
 def _expert_ffn(params: Dict, xin: torch.Tensor) -> torch.Tensor:
-    """SwiGLU of each expert over its slots: xin (G, E, C, D) -> (G, E, C, D)."""
-    h = torch.einsum("gecd,edf->gecf", xin, params["wi"])
-    gate = torch.einsum("gecd,edf->gecf", xin, params["wg"])
-    return torch.einsum("gecf,efd->gecd", F.silu(gate) * h, params["wo"])
+    """SwiGLU of each expert over its slots: xin (G, E, C, D) -> (G, E, C, D).
+    The dispatched tokens live on their expert's shard (all-to-all at this
+    boundary under a mesh), the groups on the DP axes; under a mesh each
+    rank runs its experts on its local shards (``local_shards``)."""
+    xin = constrain(xin, ("pod", "data"), "model", None, None)
+    xout = local_shards(_swiglu_experts, (xin,), heads=True,
+                        by_head=(params["wi"], params["wg"], params["wo"]))
+    return constrain(xout, ("pod", "data"), "model", None, None)
 
 
 def moe_ffn_sorted(params: Dict, x: torch.Tensor, cfg: ModelConfig
@@ -132,7 +143,7 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     t = b * s
     g = max(1, t // group_size)
     gs = t // g
-    xt = x.reshape(g, gs, d)
+    xt = pin_grad(x.reshape(g, gs, d))
     probs, topw, topi = _route(params, xt, k)                  # (g, s, e), (g, s, k)
 
     cap = max(1, int(gs * k / e * cfg.capacity_factor))

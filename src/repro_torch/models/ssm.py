@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..sharding.partition import constrain, constrain_split, local_shards, pin_grad
 from .common import dense_init, init_rmsnorm, rmsnorm
 
 NEG_INIT = -1e30     # the stabiliser state's start
@@ -120,7 +121,7 @@ def mamba2_ssd(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
     y = (y_diag + y_off).reshape(bsz, L, h, p)
     y = y + xh.reshape(bsz, L, h, p) * params["D"][:, None]
-    y = y.reshape(bsz, L, h * p).to(x.dtype)
+    y = pin_grad(y.reshape(bsz, L, h * p)).to(x.dtype)
     y = rmsnorm(params["norm"], y * F.silu(z))
     return y @ params["out_proj"]
 
@@ -152,6 +153,8 @@ def mamba2_decode(params: Dict, x: torch.Tensor, state: Dict,
     xhead = xs.reshape(bsz, h, p).float()
     ssm = state["ssm"] * dA[..., None, None] + (
         (dt1[..., None] * xhead)[..., None] * B.float()[:, None, None, :])
+    # the new state in its cache's layout (batch over DP, ``cache_specs``)
+    ssm = constrain(ssm, ("pod", "data"), None, None, None)
     y = torch.einsum("bn,bhpn->bhp", C.float(), ssm)
     y = y + xhead * params["D"][:, None]
     y = y.reshape(bsz, 1, d_in).to(x.dtype)
@@ -185,9 +188,9 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig, dtype,
 def _mlstm_qkvif(params, x: torch.Tensor, cfg: ModelConfig):
     b, L, _ = x.shape
     h, dh = cfg.ssm_heads, cfg.ssm_head_dim
-    q = (x @ params["wq"]).reshape(b, L, h, dh)
-    k = (x @ params["wk"]).reshape(b, L, h, dh)
-    v = (x @ params["wv"]).reshape(b, L, h, dh)
+    q = constrain_split(x @ params["wq"], h).reshape(b, L, h, dh)
+    k = constrain_split(x @ params["wk"], h).reshape(b, L, h, dh)
+    v = constrain_split(x @ params["wv"], h).reshape(b, L, h, dh)
     gif = x.float() @ params["wif"].float()
     i_pre, f_pre = gif.chunk(2, dim=-1)                    # (b, L, h)
     return q, k, v, i_pre, f_pre + params["fb"]
@@ -216,7 +219,7 @@ def mlstm_parallel(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     norm = torch.maximum(sw.sum(dim=2).abs(), torch.exp(-m[:, :, 0]))    # (b, L, h)
     yt = torch.einsum("blth,bthd->blhd", sw, vf) / (norm[..., None] + 1e-6)
     og = torch.sigmoid(x @ params["wog"])
-    y = yt.reshape(b, L, h * dh).to(x.dtype) * og.to(x.dtype)
+    y = pin_grad(yt.reshape(b, L, h * dh)).to(x.dtype) * og.to(x.dtype)
     return rmsnorm(params["norm"], y) @ params["wo"]
 
 
@@ -277,6 +280,21 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig, dtype,
     }
 
 
+def _slstm_loop(xg: torch.Tensor, wr: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+    """The recurrence over xg (b, L, h, 4*dh), a step a token in a Python
+    loop (the reference's ``lax.scan``) -> (b, L, h, dh)."""
+    b, L, h, _ = xg.shape
+    dh = fb.shape[-1]
+    params = {"wr": wr, "fb": fb}
+    zeros = torch.zeros((b, h, dh), dtype=torch.float32, device=xg.device)
+    carry = (zeros, zeros, torch.full((b, h, dh), NEG_INIT, device=xg.device), zeros)
+    ys = []
+    for t in range(L):
+        carry, y = _slstm_step(params, carry, xg[:, t])
+        ys.append(y)
+    return torch.stack(ys, dim=1)
+
+
 def _slstm_step(params, carry, xg: torch.Tensor):
     """xg: (b, h, 4*dh) float32 pre-activations from the input path; carry
     (c, n, m, h) -> (new carry, h)."""
@@ -294,17 +312,13 @@ def _slstm_step(params, carry, xg: torch.Tensor):
 
 
 def slstm_scan(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """A step a token, in a Python loop (the reference's ``lax.scan``)."""
+    """A step a token, in a Python loop (the reference's ``lax.scan``); under
+    a mesh on each rank's batch shard (``local_shards``)."""
     b, L, _ = x.shape
     h, dh = cfg.ssm_heads, cfg.ssm_head_dim
-    xg = (x @ params["wx"]).float().reshape(b, L, h, 4 * dh)
-    zeros = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
-    carry = (zeros, zeros, torch.full((b, h, dh), NEG_INIT, device=x.device), zeros)
-    ys = []
-    for t in range(L):
-        carry, y = _slstm_step(params, carry, xg[:, t])
-        ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(b, L, h * dh).to(x.dtype)
+    xg = constrain_split((x @ params["wx"]).float(), h).reshape(b, L, h, 4 * dh)
+    y = local_shards(_slstm_loop, (xg,), (params["wr"], params["fb"]))
+    y = pin_grad(y.reshape(b, L, h * dh)).to(x.dtype)
     return rmsnorm(params["norm"], y) @ params["wo"]
 
 
@@ -323,7 +337,7 @@ def slstm_decode(params: Dict, x: torch.Tensor, state: Dict,
     """One token; ``state`` updated in place."""
     b = x.shape[0]
     h, dh = cfg.ssm_heads, cfg.ssm_head_dim
-    xg = (x @ params["wx"]).float().reshape(b, h, 4 * dh)
+    xg = constrain_split((x @ params["wx"]).float(), h).reshape(b, h, 4 * dh)
     carry = (state["c"], state["n"], state["m"], state["h"])
     new, y = _slstm_step(params, carry, xg)
     for name, t in zip(("c", "n", "m", "h"), new):

@@ -34,11 +34,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.pagestore import resolve_device
+from ..sharding.partition import constrain
 from ..tree import tree_leaves
 from . import attention as attn_mod
 from . import ssm as ssm_mod
-from .common import (cast_tree, embed, init_embedding, init_mlp, init_rmsnorm, mlp,
-                     mrope_positions, rmsnorm, unembed)
+from .common import (MetaGenerator, cast_tree, embed, init_embedding, init_mlp, init_rmsnorm,
+                     mlp, mrope_positions, normal, rmsnorm, unembed)
 from .moe import init_moe, moe_ffn
 
 Key = Union[int, torch.Generator]
@@ -46,10 +47,14 @@ Key = Union[int, torch.Generator]
 
 def _generator(key: Key, device="cuda") -> torch.Generator:
     """The port's stand-in for a ``jax.random`` key: a ``torch.Generator`` on
-    ``device`` seeded with ``key``, or ``key`` itself when it is one."""
+    ``device`` seeded with ``key``, or ``key`` itself when it is one; on
+    ``meta`` a ``MetaGenerator``, which draws nothing."""
     if isinstance(key, torch.Generator):
         return key
-    gen = torch.Generator(device=resolve_device(device))
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return MetaGenerator()
+    gen = torch.Generator(device=dev)
     gen.manual_seed(int(key))
     return gen
 
@@ -87,10 +92,24 @@ def init_dense_block(gen: torch.Generator, cfg: ModelConfig, dtype,
     }
 
 
+def _res_constrain(x, cfg: ModelConfig):
+    """Residual-stream sharding: baseline = batch over DP; seq_parallel adds
+    Megatron-SP (sequence dim sharded over the TP axis between blocks).
+    The identity without an active mesh (``sharding.partition``).  The
+    blocks also pin the stream between their attention and feed-forward
+    halves: XLA's partitioner reduces a row-parallel product there, where
+    DTensor would carry the partial sum on and multiply it by gathered
+    weights (each TP rank the whole feed-forward)."""
+    if cfg.seq_parallel:
+        return constrain(x, ("pod", "data"), "model", None)
+    return constrain(x, ("pod", "data"), None, None)
+
+
 def dense_block(params, x, cfg: ModelConfig, positions=None, mrope_pos=None):
-    x = x + attn_mod.attention(params["attn"], rmsnorm(params["ln1"], x), cfg,
-                               positions, mrope_pos)
-    return x + mlp(params["mlp"], rmsnorm(params["ln2"], x))
+    x = _res_constrain(x, cfg)
+    x = _res_constrain(x + attn_mod.attention(params["attn"], rmsnorm(params["ln1"], x), cfg,
+                                              positions, mrope_pos), cfg)
+    return _res_constrain(x + mlp(params["mlp"], rmsnorm(params["ln2"], x)), cfg)
 
 
 def dense_block_decode(params, x, cache, pos: int, cfg: ModelConfig, mrope_pos3=None):
@@ -112,9 +131,11 @@ def init_moe_block(gen: torch.Generator, cfg: ModelConfig, dtype,
 
 def moe_block(params, x, cfg: ModelConfig, positions=None):
     """-> (x, the block's aux loss)."""
-    x = x + attn_mod.attention(params["attn"], rmsnorm(params["ln1"], x), cfg, positions)
+    x = _res_constrain(x, cfg)
+    x = _res_constrain(x + attn_mod.attention(params["attn"], rmsnorm(params["ln1"], x), cfg,
+                                              positions), cfg)
     y, aux = moe_ffn(params["moe"], rmsnorm(params["ln2"], x), cfg)
-    return x + y, aux
+    return _res_constrain(x + y, cfg), aux
 
 
 def moe_block_decode(params, x, cache, pos: int, cfg: ModelConfig):
@@ -137,8 +158,10 @@ def init_xlstm_pair(gen: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def xlstm_pair(params, x, cfg: ModelConfig):
+    x = _res_constrain(x, cfg)
     x = x + ssm_mod.mlstm_parallel(params["mlstm"], rmsnorm(params["ln_m"], x), cfg)
-    return x + ssm_mod.slstm_scan(params["slstm"], rmsnorm(params["ln_s"], x), cfg)
+    x = x + ssm_mod.slstm_scan(params["slstm"], rmsnorm(params["ln_s"], x), cfg)
+    return _res_constrain(x, cfg)
 
 
 def xlstm_pair_decode(params, x, state, cfg: ModelConfig):
@@ -155,7 +178,9 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def mamba_block(params, x, cfg: ModelConfig):
-    return x + ssm_mod.mamba2_ssd(params["mamba"], rmsnorm(params["ln"], x), cfg)
+    x = _res_constrain(x, cfg)
+    return _res_constrain(
+        x + ssm_mod.mamba2_ssd(params["mamba"], rmsnorm(params["ln"], x), cfg), cfg)
 
 
 def mamba_block_decode(params, x, state, cfg: ModelConfig):
@@ -196,7 +221,7 @@ def init_lm(key: Key, cfg: ModelConfig, device="cuda") -> Dict:
         params["layers"] = init_moe_block(gen, cfg, dtype,
                                           layers=(cfg.n_layers - cfg.n_dense_layers,))
         if cfg.mtp:
-            proj = torch.randn((2 * cfg.d_model, cfg.d_model), generator=gen, device=gen.device)
+            proj = normal(gen, (2 * cfg.d_model, cfg.d_model))
             params["mtp"] = {
                 "norm_h": init_rmsnorm(cfg.d_model, dtype, gen.device),
                 "norm_e": init_rmsnorm(cfg.d_model, dtype, gen.device),
@@ -227,7 +252,7 @@ def _lm_trunk(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     cdt = cfg.cdtype()
     s = tokens.shape[1]
     cparams = cast_tree(params, cdt)
-    x = embed(cparams["embed"], tokens, cdt)
+    x = constrain(embed(cparams["embed"], tokens, cdt), ("pod", "data"), None, None)
     mrope_pos = None
     if cfg.family == "vlm":
         if vision_embeds is not None:

@@ -1,22 +1,24 @@
 """Roofline terms on one NVIDIA H100 (SXM, 80 GB HBM3).
 
-    compute term = operations / peak rate of their type
-    memory term  = bytes moved / HBM rate
+    compute term    = operations / peak rate of their type
+    memory term     = bytes moved / HBM rate
+    collective term = collective operand bytes / NVLink rate
 
 The port's counterpart of ``repro/roofline/analysis.py``.  This module is
 the one place that holds the card's roof: ``chip_smoke.py`` takes its
 bounds from these constants, ``scripts/kernel_bench.py`` its modeled times
 and the calibration that ``serve/strategies.py`` reads.
 
-``movement_roofline``, ``RooflineTerms`` and ``model_flops_for`` are
-ported.  ``parse_collective_bytes`` and ``analyze`` read the optimized XLA
-HLO of a compiled dry run; they come with a torch FLOP and byte counter
-(ROADMAP A12) and raise until then.
+The reference's ``analyze`` and ``parse_collective_bytes`` read the
+optimized HLO of a compiled dry run.  The port's dry run compiles nothing:
+it traces the program on meta DTensors under ``roofline.op_counter``, and
+these two read that counter's record of one traced program (per device), the
+port's counterpart of the compiled artifact.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Mapping
 
 # NVIDIA H100 SXM data sheet, dense rates without sparsity, at the 700 W limit
 HBM_BW = 3.35e12          # bytes/s of HBM3
@@ -25,15 +27,16 @@ PEAK_32BIT_OPS = 67e12    # float32 and int32 outside the tensor cores
 # the snapshot sweeps do 32-bit integer work (poly32, zero tests): their
 # compute term is taken at the 32-bit rate, as chip_smoke.bound_ms takes it
 MOVEMENT_OPS_RATE = PEAK_32BIT_OPS
+# NVLink 4 on the SXM part: 900 GB/s both directions together, 450 GB/s each
+LINK_BW = 450e9
 
-_A12 = ("reads the optimized XLA HLO of a compiled dry run: the torch FLOP and "
-        "byte counter is not ported yet (ROADMAP A12)")
 
+def parse_collective_bytes(trace: Mapping[str, float]) -> Dict[str, int]:
+    """-> {collective_kind: summed operand bytes} of one traced program,
+    from ``OpCounter.record()`` (the reference reads them from HLO text)."""
+    from .op_counter import COLLECTIVE_KINDS
 
-def parse_collective_bytes(hlo_text: str) -> Dict[str, int]:
-    """Collective operand bytes of an HLO module (reference
-    ``analysis.parse_collective_bytes``)."""
-    raise NotImplementedError(f"parse_collective_bytes {_A12}")
+    return {k: int(trace[f"coll_{k}"]) for k in COLLECTIVE_KINDS}
 
 
 @dataclasses.dataclass
@@ -49,8 +52,8 @@ class RooflineTerms:
     memory_s: float
     collective_s: float
     model_flops: float = 0.0       # 6·N·D (dense) or 6·N_active·D (MoE)
-    xla_cost_analysis_flops: float = 0.0   # the reference's raw cost_analysis keys
-    xla_cost_analysis_bytes: float = 0.0
+    xla_cost_analysis_flops: float = 0.0   # the reference's raw cost_analysis keys:
+    xla_cost_analysis_bytes: float = 0.0   # 0 here, no XLA cost analysis runs
 
     @property
     def dominant(self) -> str:
@@ -106,10 +109,25 @@ def movement_roofline(name: str, bytes_read: float, bytes_written: float,
     }
 
 
-def analyze(compiled, chips: int, model_flops: float = 0.0,
-            hlo_text: Optional[str] = None) -> RooflineTerms:
-    """Roofline terms of a compiled dry run (reference ``analysis.analyze``)."""
-    raise NotImplementedError(f"analyze {_A12}")
+def analyze(trace: Mapping[str, float], chips: int, model_flops: float = 0.0) -> RooflineTerms:
+    """Roofline terms of one traced program from ``OpCounter.record()``'s
+    per-device totals (reference ``analysis.analyze``, which reads them from
+    the compiled HLO).  ``xla_cost_analysis_flops`` and ``_bytes`` stay 0:
+    nothing is compiled, so there is no XLA cost analysis to record."""
+    flops = float(trace["flops"])
+    byts = float(trace["bytes"])
+    cbytes = float(trace["collective_bytes"])
+    return RooflineTerms(
+        flops_per_device=flops,
+        bytes_per_device=byts,
+        collective_bytes_per_device=cbytes,
+        collectives=parse_collective_bytes(trace),
+        chips=chips,
+        compute_s=flops / PEAK_FLOPS,
+        memory_s=byts / HBM_BW,
+        collective_s=cbytes / LINK_BW,
+        model_flops=model_flops,
+    )
 
 
 def model_flops_for(cfg, shape) -> float:

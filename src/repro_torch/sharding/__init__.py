@@ -1,4 +1,4 @@
-"""Distributed-optimization helpers: int8 gradient compression with error
-feedback (the partition rules and the compressed all-reduce are ROADMAP
-A12's)."""
-from .collectives import ErrorFeedback, compress_tree, dequantize_int8, quantize_int8
+"""Sharding rules and placements (``partition``), gradient compression with
+error feedback and the compressed all-reduce (``collectives``)."""
+from .collectives import (ErrorFeedback, compress_tree, compressed_psum, dequantize_int8,
+                          quantize_int8)

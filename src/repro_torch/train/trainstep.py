@@ -3,8 +3,8 @@ MTP), gradients, AdamW — the twin of the JAX package's ``train/trainstep.py``.
 
 The step is a function of ``(state, batch) -> (state, metrics)``, as in the
 reference; ``torch.autograd`` takes the place of ``jax.value_and_grad``.  The
-reference's sharding constraint (``constrain``) is the identity on one
-device and is dropped.
+logits are pinned vocab-parallel (``constrain``, the identity without an
+active mesh), as in the reference.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from ..models import transformer as tf_mod
 from ..models.model_zoo import Model
+from ..sharding.partition import active_mesh, constrain, constrain_like
 from ..tree import tree_map
 from .optimizer import AdamWConfig, AdamWState, adamw_update, init_adamw
 
@@ -39,14 +40,31 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 0.0) -> torch.Tensor:
     """Mean next-token CE in float32 with optional z-loss; logits (B, S, V).
 
-    The reference takes the label logit by a one-hot contraction, so that it
-    stays sharded when V is split over devices.  On one card a ``gather``
-    gives the same value and saves a second (B, S, V) float32 tensor (3.3 GB
-    at Phi-4-mini's vocabulary and 4,096 tokens).
+    Under an active mesh the log-sum-exp and the label logit are taken as
+    the reference takes them (a max-shifted sum, a one-hot contraction):
+    with vocab-parallel logits (V sharded over 'model') every operand stays
+    sharded and partial sums are reduced, instead of all-gathering the
+    (B, S, V) logits.  On one card ``torch.logsumexp`` and a ``gather`` give
+    the same values and save a second (B, S, V) float32 tensor (3.3 GB at
+    Phi-4-mini's vocabulary and 4,096 tokens).
     """
-    logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    logits = constrain(logits, ("pod", "data"), None, "model").to(torch.float32)
+    if active_mesh() is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    else:
+        # the reference's forms, which keep vocab-parallel logits sharded:
+        # jax.nn.logsumexp's shift by the (gradient-free) max, and the
+        # one-hot contraction, its (B, V) vocab ids laid out as the logits
+        # (a zeros_like of their first position) so it is built shard by shard
+        mx = logits.amax(dim=-1).detach()
+        lse = torch.log(torch.exp(logits - mx.unsqueeze(-1)).sum(dim=-1)) + mx
+        vocab = (torch.arange(logits.shape[-1], device=logits.device)
+                 + torch.zeros_like(logits[:, 0], dtype=torch.long))
+        onehot = (labels.long().unsqueeze(-1) == vocab.unsqueeze(1)).to(torch.float32)
+        ll = torch.einsum("bsv,bsv->bs", logits, onehot)
+        lse = constrain(lse, ("pod", "data"), None)
+        ll = constrain(ll, ("pod", "data"), None)
     loss = (lse - ll).mean()
     if z_loss:
         loss = loss + z_loss * (lse ** 2).mean()
@@ -88,7 +106,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig = AdamWConfig(),
         with torch.enable_grad():
             loss, extra = loss_fn(leaves, batch)
             loss.backward()
-        grads = tree_map(lambda t: t.grad if t.grad is not None else torch.zeros_like(t), leaves)
+        grads = tree_map(lambda t: constrain_like(t.grad, t) if t.grad is not None
+                         else torch.zeros_like(t), leaves)
         del leaves
         new_params, new_opt, om = adamw_update(opt_cfg, grads, state.opt, state.params,
                                                grad_transform)

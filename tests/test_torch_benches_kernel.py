@@ -3,8 +3,9 @@
 (``benchmarks/kernel_bench.py``, ``repro.roofline.analysis``), on the CPU.
 
 * The roofline holds the H100's rates, ``chip_smoke.py`` takes its roof
-  from it with the bounds unchanged, ``movement_roofline`` gives the
-  reference's keys, and the two XLA-HLO readers raise naming ROADMAP A12.
+  from it with the bounds unchanged, and ``movement_roofline`` gives the
+  reference's keys (``analyze`` and ``parse_collective_bytes`` are held in
+  test_torch_dryrun.py).
 * The modeled section: the piecemeal bytes are the reference's, the fused
   bytes are what the port's kernels move (``chip_smoke.publish_bound`` and
   ``restore_rows_bytes``), which differ from the TPU kernels' by the flags,
@@ -74,13 +75,6 @@ def test_movement_roofline_has_the_references_keys(flops):
     assert got["compute_s"] == flops / 67e12
     same_bw = analysis.movement_roofline("x", 4096.0, 4.0, bw=ref_analysis.HBM_BW)
     assert same_bw == ref_analysis.movement_roofline("x", 4096.0, 4.0)
-
-
-def test_hlo_readers_raise_naming_a12():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        analysis.parse_collective_bytes("")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        analysis.analyze(None, 1)
 
 
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "olmoe-1b-7b", "deepseek-v3-671b"])

@@ -200,8 +200,3 @@ def test_restore_checkpoint_of_a_missing_name_raises():
     orch = port.Orchestrator("h0", pool, master.catalog)
     with pytest.raises(FileNotFoundError, match="nope"):
         ckpt.restore_checkpoint(orch, "nope", {})
-
-
-def test_reshard_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A12"):
-        ckpt.reshard({}, None, {})

@@ -378,9 +378,11 @@ def test_route_rule(case):
 def test_launch_counters_by_route(monkeypatch):
     """The wrapper launches the kernel ``route`` names, counts it under that
     route and in the sum, and never tries the other one.  Meta tensors stand
-    in for CUDA tensors (the dispatch reads metadata only); the bindings are
-    replaced by recorders."""
+    in for CUDA tensors (the dispatch reads metadata only; the plain-version
+    devices are narrowed to the CPU, since the dry run sends meta tensors to
+    the plain versions); the bindings are replaced by recorders."""
     calls = []
+    monkeypatch.setattr(ops, "_PLAIN_DEVICES", ("cpu",))
     monkeypatch.setattr(ops.kernel, "flash_attention_sm90", lambda *a: calls.append("sm90"))
     monkeypatch.setattr(ops.kernel, "flash_attention", lambda *a: calls.append("simt"))
     monkeypatch.setattr(ops.torch.cuda, "device", lambda d: contextlib.nullcontext())
@@ -534,12 +536,14 @@ def test_forward_under_autograd_equals_the_plain_forward():
 
 def test_backward_wrapper_counts_launches_and_refuses(monkeypatch):
     """On CUDA tensors the backward launches its kernel once (meta tensors
-    stand in; the bindings are recorders), takes Dk != Dv on the SIMT kernel
-    (dO and the output at Dv) and refuses a dO at Dk; without keys it
-    returns zeros and launches nothing."""
+    stand in, the plain-version devices narrowed to the CPU; the bindings
+    are recorders), takes Dk != Dv on the SIMT kernel (dO and the output at
+    Dv) and refuses a dO at Dk; without keys it returns zeros and launches
+    nothing."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
     calls = []
+    monkeypatch.setattr(ops, "_PLAIN_DEVICES", ("cpu",))
     monkeypatch.setattr(ops.kernel, "flash_attention_bwd", lambda *a: calls.append(a))
     monkeypatch.setattr(ops.kernel, "flash_attention_bwd_sm90", lambda *a: calls.append(a))
     monkeypatch.setattr(ops.torch.cuda, "device", lambda d: contextlib.nullcontext())
@@ -770,6 +774,7 @@ def test_bwd_launch_counters_by_route(monkeypatch):
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
     calls = []
+    monkeypatch.setattr(ops, "_PLAIN_DEVICES", ("cpu",))    # meta stands in for a card
     monkeypatch.setattr(ops.kernel, "flash_attention_bwd_sm90",
                         lambda *a: calls.append(("sm90", tuple(a[6].shape))))
     monkeypatch.setattr(ops.kernel, "flash_attention_bwd", lambda *a: calls.append(("simt",)))

@@ -1739,3 +1739,82 @@ def test_reduced_family_model_on_card_matches_cpu(cuda_device, arch):
     assert ops.launches_by_route() == {"sm90": before["sm90"],
                                        "simt": before["simt"] + step * 40}
     np.testing.assert_array_equal(out_gpu, out_cpu)
+
+
+# ---------------------------------------------------------------------------
+# sharding: the compressed all-reduce on NCCL, reshard onto a cuda mesh, the
+# elastic-restore twin
+# ---------------------------------------------------------------------------
+
+def test_compressed_psum_on_a_one_rank_nccl_group(cuda_device):
+    """On one rank the compressed all-reduce is quantize + dequantize, bit for
+    bit, float32 and bf16; the group ``host_mesh`` started is gone after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.sharding.collectives import (compressed_psum, dequantize_int8,
+                                                  quantize_int8)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    with host_mesh(1, 1, device="cuda"):
+        assert dist.get_backend() == "nccl"
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((1031, 77), generator=gen, device=cuda_device) * 3).to(dtype)
+            out = compressed_psum(x)
+            assert out.dtype == torch.float32 and out.device == x.device
+            assert torch.equal(out, dequantize_int8(*quantize_int8(x)))
+        zero = torch.zeros(64, device=cuda_device)
+        assert torch.equal(compressed_psum(zero), zero)
+    assert not dist.is_initialized()
+
+
+def test_reshard_onto_a_cuda_mesh(cuda_device):
+    """``reshard`` of a CPU state onto a (1, 1) ``cuda`` mesh: DTensors on the
+    card whose local tensors ``==`` the input, laid out as ``named`` says."""
+    from repro_torch.checkpoint.ckpt import reshard
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.models.model_zoo import build
+    from repro_torch.sharding import partition
+    from repro_torch.tree import tree_leaves
+
+    params = build(get_config("qwen2.5-14b").reduced(vocab=512), device="cpu").init(0)
+    specs = partition.param_specs(params)
+    with host_mesh(1, 1, device="cuda") as mesh:
+        placed = reshard(params, mesh, specs)
+        want = partition.named(mesh, specs)
+        for x, y, (name, lay) in zip(tree_leaves(params), tree_leaves(placed),
+                                     sorted(_named_leaves(want))):
+            local = y.to_local()
+            assert local.device.type == "cuda" and tuple(y.placements) == lay, name
+            assert torch.equal(local.cpu(), x), name
+
+
+def _named_leaves(tree, path=""):
+    """``(path, placements)`` of a tree of placements, in sorted-key order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _named_leaves(tree[k], f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in _named_leaves(v, f"{path}/{i:06d}")]
+    return [(path, tree)]
+
+
+def test_elastic_restore_quick_on_the_card(cuda_device):
+    """``scripts/elastic_restore.py --quick --device cuda``: both phases'
+    losses finite, the re-sharded parameters bit-equal to the checkpointed
+    ones on the card."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    import elastic_restore
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.tree import tree_leaves
+
+    out = elastic_restore.run(get_config("xlstm-125m").reduced(vocab=512), 32, 4, 2,
+                              device="cuda")
+    assert out["reshard_bit_equal"]
+    assert np.isfinite(out["losses1"] + out["losses2"]).all()
+    assert all(p.to_local().device.type == "cuda" for p in tree_leaves(out["placed"]))
+    assert elastic_restore.main(["--quick", "--device", "cuda"]) == 0

@@ -22,7 +22,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
                  "quickstart", "train_e2e", "train_phase", "moe_phase", "coldstart_phase",
                  "families_phase", "time_flash_stages", "characterization", "runlength",
                  "scalability", "kernel_bench", "run", "check_regressions", "serve_coldstart",
-                 "write_calibration")]
+                 "write_calibration", "elastic_restore", "sharding_phase")]
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -39,11 +39,13 @@ def test_import_loads_no_jax_and_no_reference():
             "repro_torch.fleet, repro_torch.fleet.driver, repro_torch.fleet.model, "
             "repro_torch.data, repro_torch.sharding, repro_torch.train, repro_torch.tree, "
             "repro_torch.launch.train, repro_torch.launch.serve, repro_torch.roofline, "
-            "repro_torch.roofline.analysis; "
+            "repro_torch.roofline.analysis, repro_torch.roofline.op_counter, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.sharding.partition, repro_torch.sharding.collectives; "
             "sys.path.insert(0, %r); import sim_scenarios, fleet_bench, workloads, dedup_bench, "
             "fault_bench, adaptive_bench, concurrency_bench, breakdown, serving_bench, "
             "quickstart, train_e2e, characterization, runlength, scalability, kernel_bench, "
-            "run, check_regressions, serve_coldstart; "
+            "run, check_regressions, serve_coldstart, elastic_restore, sharding_phase; "
             "repro_torch.configs.base.load_all(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad") % str(ROOT / "scripts")
