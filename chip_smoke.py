@@ -1495,7 +1495,7 @@ def pod_phase(torch, np, image, working_set, cold_idx, seed: int, out_dir: Path)
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import (STATE_TOMBSTONE, HierarchicalPool, NodePageServer,
-                                  Orchestrator, PoolMaster, RestoreEngine, StateImage)
+                                  Orchestrator, PoolMaster, RestoreEngine, StateImage, trace)
     from repro_torch.kernels.snapshot_fuse import ops
 
     device = image.buf.device
@@ -1563,11 +1563,23 @@ def pod_phase(torch, np, image, working_set, cold_idx, seed: int, out_dir: Path)
                                                 table=out_dir / "profile_pod_window.txt")
 
     # 1. the measured run: 8 sessions on host a, one on host b, the update
-    # started once all nine borrows are out
+    # started once all nine borrows are out; the port's tracer records the
+    # completion workers' installs
+    trace.reset()
+    trace.enable()
     t0 = time.perf_counter()
-    ris, recs = _pod_restores(np, ops, orch_a, orch_b, name, seed, on_borrowed=on_borrowed)
-    torch.cuda.synchronize()
+    try:
+        ris, recs = _pod_restores(np, ops, orch_a, orch_b, name, seed, on_borrowed=on_borrowed)
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
     rep["restores_wall_s"] = time.perf_counter() - t0
+    installs = {"a": [], "b": []}
+    host_of = {ri.engine.req: ri.engine.reader.view.host for ri in ris}
+    for s in trace.snapshot()["spans"]:
+        if s[0] == "nodeserver.install" and s[1] in host_of:
+            installs[host_of[s[1]]].append((s[5] - s[4]) / 1e9)
+    trace.reset()
     chunks_a, server_stats_a = dict(server_a.chunks.stats), dict(server_a.stats)
     srv_b = orch_b._owned_server
     for ri in ris:
@@ -1670,10 +1682,8 @@ def pod_phase(torch, np, image, working_set, cold_idx, seed: int, out_dir: Path)
                        "max": max(faults) * 1e3 if faults else None}
     rep["chunks_a"], rep["server_a"] = chunks_a, server_stats_a
     rep["server_b"] = dict(srv_b.stats)
-    rep["longest_install_ms"] = {"a": server_a.longest_install_s * 1e3,
-                                 "b": srv_b.longest_install_s * 1e3}
-    rep["install_share"] = {"a": server_a.install_s / rep["restores_wall_s"],
-                            "b": srv_b.install_s / rep["restores_wall_s"]}
+    rep["longest_install_ms"] = {h: max(xs, default=0.0) * 1e3 for h, xs in installs.items()}
+    rep["install_share"] = {h: sum(xs) / rep["restores_wall_s"] for h, xs in installs.items()}
     rep["engines"] = {"a": dict(server_a.engine.stats), "b": dict(srv_b.engine.stats)}
     rep["drain_checks"], rep["drain_polls"] = drained_checks, upd["polls"]
     rep["modeled_ledger_s"] = {"a0": ledger_a, "b": ledger_b}

@@ -17,6 +17,8 @@
   cross-instance DRR prefetch + doorbell batching, hot-chunk fan-out (§3.5)
 - :mod:`orchestrator` — node agent: borrow → flush → pre-install → resume
 - :mod:`failover`   — pool-master heartbeat lease and election (§3.6)
+- :mod:`trace`      — the port's spans and counters, off by default, on the
+  torch profiler's clock
 
 The private layout's cold tier may be zstd-compressed per page
 (``compress_cold``; decompressed on the host, uncompressed without the

@@ -38,13 +38,13 @@ install is rewritten only after that install on the device.
 from __future__ import annotations
 
 import threading
-import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import trace
 from .faults import call_with_retries
 from .pagestore import PAGE_SIZE
 from .pool import HierarchicalPool, TimeLedger
@@ -106,7 +106,8 @@ class HotChunkCache:
             with self._lock:
                 self.stats["reads"] += 1
             return entry.data, entry.modeled_s, True
-        entry.ready.wait(timeout=30.0)
+        with trace.span("nodeserver.chunk_wait"):
+            entry.ready.wait(timeout=30.0)
         if entry.data is None:      # leader failed: fall back to a private read
             data, t = read_fn()
             return data, t, True
@@ -195,12 +196,6 @@ class NodePageServer:
                       "demand_fanout_installs": 0, "prefetch_reseeds": 0}
         # post order of (group_key, extent_start): fairness is observable
         self.post_order: Deque[Tuple[object, int]] = deque(maxlen=4096)
-        # host seconds the completion worker spent installing into sessions,
-        # in all and the longest single install (its wait for the session's
-        # lock included: a batched restore walk holds that lock until its
-        # flush)
-        self.install_s = 0.0
-        self.longest_install_s = 0.0
 
     # -- session lifecycle ---------------------------------------------------
     def attach(self, name: str, version: int, reader: SnapshotReader,
@@ -297,41 +292,43 @@ class NodePageServer:
 
     # -- hot-chunk fan-out ----------------------------------------------------
     def hot_chunk(self, session: RestoreEngine, off: int, nbytes: int) -> torch.Tensor:
-        group = session._group
-        if session.reader.regions.dedup:
-            # content-keyed: equal store offsets == equal bytes under dedup,
-            # so co-located restores of DIFFERENT variants (distinct fan-out
-            # groups) share one physical read of their common base chunks
-            key = ("content", off, nbytes)
-        else:
-            with self._lock:
-                solo = len(group.sessions) <= 1
-            if solo:
-                # nothing to fan out to — don't duplicate the hot region in
-                # the cache for the common one-restore-per-snapshot case
-                return call_with_retries(
-                    lambda: session.reader.view.read(off, nbytes),
+        trace.count("nodeserver.hot_chunk_requests")
+        with trace.span("nodeserver.hot_chunk"):
+            group = session._group
+            if session.reader.regions.dedup:
+                # content-keyed: equal store offsets == equal bytes under dedup,
+                # so co-located restores of DIFFERENT variants (distinct fan-out
+                # groups) share one physical read of their common base chunks
+                key = ("content", off, nbytes)
+            else:
+                with self._lock:
+                    solo = len(group.sessions) <= 1
+                if solo:
+                    # nothing to fan out to — don't duplicate the hot region in
+                    # the cache for the common one-restore-per-snapshot case
+                    return call_with_retries(
+                        lambda: session.reader.view.read(off, nbytes),
+                        policy=session.retry, rng=session._retry_rng,
+                        ledger=session.ledger, clock=session.clock,
+                        trace=session.retry_trace)
+                key = (group.key, off, nbytes)
+            # fan-out-aware retry (§15): only the LEADER's physical read can
+            # fault, and its bounded retries happen here — once — so a failed
+            # shared chunk read is re-issued once for the whole group, not k
+            # times by k borrowers
+            data, modeled_s, leader = self.chunks.get_or_read(
+                key,
+                lambda: call_with_retries(
+                    lambda: session.reader.view.read_charged(off, nbytes),
                     policy=session.retry, rng=session._retry_rng,
                     ledger=session.ledger, clock=session.clock,
-                    trace=session.retry_trace)
-            key = (group.key, off, nbytes)
-        # fan-out-aware retry (§15): only the LEADER's physical read can
-        # fault, and its bounded retries happen here — once — so a failed
-        # shared chunk read is re-issued once for the whole group, not k
-        # times by k borrowers
-        data, modeled_s, leader = self.chunks.get_or_read(
-            key,
-            lambda: call_with_retries(
-                lambda: session.reader.view.read_charged(off, nbytes),
-                policy=session.retry, rng=session._retry_rng,
-                ledger=session.ledger, clock=session.clock,
-                trace=session.retry_trace),
-            owner=group.key)
-        if not leader:
-            # borrower: the bytes crossed the link once (leader's read);
-            # we waited for the same transfer, so we model the same time
-            session.ledger.add("cxl_read", modeled_s)
-        return data
+                    trace=session.retry_trace),
+                owner=group.key)
+            if not leader:
+                # borrower: the bytes crossed the link once (leader's read);
+                # we waited for the same transfer, so we model the same time
+                session.ledger.add("cxl_read", modeled_s)
+            return data
 
     # -- demand faults ---------------------------------------------------------
     def submit_demand(self, session: RestoreEngine, pool_off: int, nbytes: int,
@@ -531,15 +528,13 @@ class NodePageServer:
 
     # -- completion routing -----------------------------------------------------
     def _install(self, s: RestoreEngine, pages: np.ndarray, mat: torch.Tensor) -> int:
-        t0 = time.perf_counter()
-        try:
+        """One install into a session, its wait for the session's lock
+        included (a batched restore walk holds that lock until its flush)."""
+        with trace.span("nodeserver.install", s.req):
             return s._install_verified(pages, mat)
-        finally:
-            dt = time.perf_counter() - t0
-            self.install_s += dt
-            self.longest_install_s = max(self.longest_install_s, dt)
 
-    def _route(self, buf: torch.Tensor, token: tuple) -> None:
+    def _route(self, buf: torch.Tensor, token: tuple, t_done: int = 0, req=None) -> None:
+        trace.add("rdma.cq_wait", t_done, trace.now(), req)
         if token[0] == "gext":
             _tag, gkey, es, en, rank0 = token
             with self._lock:

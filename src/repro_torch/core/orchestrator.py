@@ -23,9 +23,11 @@ so its modeled time is contention-aware too.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 from typing import Optional
 
+from . import trace
 from .coherence import Borrow, Catalog
 from .nodeserver import NodePageServer
 from .pagestore import StateImage
@@ -33,6 +35,9 @@ from .pool import HierarchicalPool, TimeLedger
 from .prefetch_model import PrefetchPolicy, resolve_policy
 from .serving import AsyncRDMAEngine, BufferPool, Instance, RestoreEngine
 from .snapshot import SnapshotReader
+
+# request ids, one a restore, shared by every span of its cold start
+_REQUESTS = itertools.count(1)
 
 
 @dataclasses.dataclass
@@ -47,10 +52,11 @@ class RestoredInstance:
     cold_start: bool = False
 
     def shutdown(self) -> None:
-        self.engine.stop()
-        if self.engine.rdma_engine is not None:
-            self.engine.rdma_engine.close()
-        self.borrow.release()
+        with trace.span("serving.release"):
+            self.engine.stop()
+            if self.engine.rdma_engine is not None:
+                self.engine.rdma_engine.close()
+            self.borrow.release()
 
 
 class Orchestrator:
@@ -118,8 +124,19 @@ class Orchestrator:
         uffd.copy ioctl per contiguous run); with ``prefetch_cold`` the cold
         extents are additionally streamed in the background in
         ``prefetch_policy`` order (default: the orchestrator's policy, i.e.
-        snapshot layout) while demand faults retain priority (§3.4)."""
-        borrow = self.catalog.borrow(name)
+        snapshot layout) while demand faults retain priority (§3.4).
+
+        Each call is a new request: its id (:data:`trace.REQ`, and the
+        engine's ``req``) marks every span of this cold start."""
+        req = next(_REQUESTS)
+        trace.REQ.set(req)
+        with trace.span("restore", req):
+            return self._restore(name, req, pre_install, prefetch_cold, prefetch_policy)
+
+    def _restore(self, name: str, req: int, pre_install: bool, prefetch_cold: Optional[bool],
+                 prefetch_policy: Optional[PrefetchPolicy]) -> Optional[RestoredInstance]:
+        with trace.span("restore.borrow"):
+            borrow = self.catalog.borrow(name)
         if borrow is None or borrow.regions is None:
             with self._lock:
                 self.stats["cold_starts"] += 1
@@ -129,15 +146,19 @@ class Orchestrator:
         view = self.pool.host_view(self.host, ledger)
         reader = SnapshotReader(borrow.regions, view, self.pool.rdma)
         # §3.3: after a successful borrow, invalidate potentially-stale lines
-        reader.invalidate_cxl()
-        manifest, _meta = reader.machine_state()
+        with trace.span("restore.invalidate"):
+            reader.invalidate_cxl()
+        with trace.span("restore.machine_state"):
+            manifest, _meta = reader.machine_state()
 
-        instance = Instance(StateImage.empty_like(manifest, device=self.pool.device),
-                            ledger, clock=self.pool.clock)
+        with trace.span("restore.instance"):
+            instance = Instance(StateImage.empty_like(manifest, device=self.pool.device),
+                                ledger, clock=self.pool.clock)
         if self.use_node_server:
-            engine = self._get_server().attach(
-                name, borrow.regions.version, reader, instance,
-                scatter_fn=self.scatter_fn)
+            with trace.span("nodeserver.attach"):
+                engine = self._get_server().attach(
+                    name, borrow.regions.version, reader, instance,
+                    scatter_fn=self.scatter_fn)
         else:
             rdma_engine = (
                 AsyncRDMAEngine(self.pool.rdma, ledger, host=self.host)
@@ -161,6 +182,7 @@ class Orchestrator:
                 arbiter = tier.arbiter_for(self.host)
                 arbiter.register(key)
                 engine.link_keys.append((arbiter, key))
+        engine.req = req
         try:
             if pre_install:
                 engine.pre_install_hot()

@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import trace
 from .clock import Clock, REAL_CLOCK
 from .pagestore import PAGE_SIZE, resolve_device
 
@@ -325,6 +326,7 @@ class MemoryTier:
         if fi is not None:
             fi.check_read(self.name, offset, nbytes)
         data = self.buf[offset : offset + nbytes].clone()
+        trace.count("pool.copy_bytes", nbytes)
         if fi is not None:
             fi.filter_read(self.name, offset, nbytes, data)
         return data
@@ -379,10 +381,12 @@ class HostView:
             for a, b in _runs(missed):
                 lo, hi = a * CACHELINE, min(b * CACHELINE, self.tier.capacity)
                 self._shadow[lo:hi].copy_(self.tier.buf[lo:hi])
+                trace.count("pool.copy_bytes", hi - lo)
             valid[:] = True
         self.stats["pool_reads"] += int(missed.size)
         self.stats["cached_reads"] += int(valid.size - missed.size)
         out = self._shadow[offset : offset + nbytes].clone()
+        trace.count("pool.copy_bytes", nbytes)
         self.stats["bytes_read"] += nbytes
         if fi is not None:
             # poison the returned copy only — the line cache and the pool

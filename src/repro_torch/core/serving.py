@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..kernels.page_scatter import page_scatter
+from . import trace
 from .clock import Clock, REAL_CLOCK
 from .faults import (
     DEFAULT_RETRY_POLICY,
@@ -213,11 +214,12 @@ class Instance:
             return
         segments, self._queue, self._queue_bytes = self._queue, [], 0
         try:
-            self.flushes += 1
-            self._launch_queue(self.image.pages_matrix(), segments)
-            for _mat, _src, sel in segments:
-                self.present[sel] = True
-            self._cv.notify_all()
+            with trace.span("serving.flush"):
+                self.flushes += 1
+                self._launch_queue(self.image.pages_matrix(), segments)
+                for _mat, _src, sel in segments:
+                    self.present[sel] = True
+                self._cv.notify_all()
         finally:
             self._lock.release()
 
@@ -365,7 +367,8 @@ class AsyncRDMAEngine:
         with self._pending_lock:
             self._pending_ops += 1
         self._sq.put((prio, next(self._seq),
-                      (pool_off, nbytes, buf, token, charge, ledger)))
+                      (pool_off, nbytes, buf, token, charge, ledger, trace.now(),
+                       trace.REQ.get())))
 
     def quiesce(self, timeout_s: float = 5.0) -> bool:
         """Wait until every submitted read has executed and its completion
@@ -379,7 +382,10 @@ class AsyncRDMAEngine:
         return False
 
     def poll_completion(self, block: bool, timeout_s: float = 0.05):
-        """-> (buf, token) or None. Emulates CQ poll / completion channel."""
+        """-> ``(buf, token, t_done_ns, req)`` or None: the read's buffer and
+        token, and for tracing when its completion was queued (0 while
+        tracing is off) and the request that submitted it.  Emulates CQ
+        poll / completion channel."""
         try:
             return self._cq.get_nowait()
         except queue.Empty:
@@ -427,18 +433,22 @@ class AsyncRDMAEngine:
     def _run(self) -> None:
         while not self._stop.is_set():
             try:
-                prio, _seq, (pool_off, nbytes, buf, token, charge, ledger) = (
+                prio, _seq, (pool_off, nbytes, buf, token, charge, ledger, t_sub, req) = (
                     self._sq.get(timeout=0.05))
             except queue.Empty:
                 continue
+            t_deq = trace.now()
             self._execute_read(prio, pool_off, nbytes, buf, ledger)
+            t_done = trace.now()
+            trace.add("rdma.queue_wait", t_sub, t_deq, req)
+            trace.add("rdma.read", t_deq, t_done, req)
             self.stats["reads"] += 1
             self.stats["bytes_read"] += nbytes
             if prio == 0:
                 self.stats["urgent_reads"] += 1
             if charge:
                 (ledger or self.ledger).add("rdma_read", self.arbiter.charge(nbytes))
-            self._cq.put((buf, token))
+            self._cq.put((buf, token, t_done, req))
             with self._pending_lock:
                 self._pending_ops -= 1
 
@@ -525,6 +535,9 @@ class RestoreEngine:
         # and why
         self.walk_routes = {"batched": 0, "per_extent": {
             "injector": 0, "cached_lines": 0, "preverify": 0, "scatter_fn": 0}}
+        # the request this session serves (``Orchestrator.restore`` sets it):
+        # spans on other threads (the node server's) carry it
+        self.req = None
 
     def _record_heat(self, pages, kind: str) -> None:
         """Typed telemetry: pages in touch order, this restore as the
@@ -566,46 +579,49 @@ class RestoreEngine:
             return 0
         chunk = chunk_pages or self.HOT_CHUNK_PAGES
         n_hot = 0
-        with self._walk("cxl"):
+        with trace.span("serving.hot_walk", cpu=True), self._walk("cxl"):
             for pages, pool_off, nbytes in self.reader.iter_hot_extents(chunk):
                 if self.instance.present[pages].all():
                     n_hot += int(pages.size)
                     continue    # already installed (e.g. repeated pre-install)
-                try:
-                    if self.server is not None:
-                        # hot-chunk fan-out: one CXL read, k scatters (dedup
-                        # chunks are content-keyed, so variants share too)
-                        raw = self.server.hot_chunk(self, pool_off, nbytes)
-                    else:
-                        raw = call_with_retries(
-                            lambda o=pool_off, n=nbytes: self.reader.view.read(o, n),
-                            policy=self.retry, rng=self._retry_rng,
-                            ledger=self.ledger, clock=self.clock,
-                            trace=self.retry_trace)
-                except TierFaultError as e:
-                    if ht is None:
+                with trace.span("serving.extent"):
+                    try:
+                        if self.server is not None:
+                            # hot-chunk fan-out: one CXL read, k scatters (dedup
+                            # chunks are content-keyed, so variants share too)
+                            raw = self.server.hot_chunk(self, pool_off, nbytes)
+                        else:
+                            with trace.span("pool.read"):
+                                raw = call_with_retries(
+                                    lambda o=pool_off, n=nbytes: self.reader.view.read(o, n),
+                                    policy=self.retry, rng=self._retry_rng,
+                                    ledger=self.ledger, clock=self.clock,
+                                    trace=self.retry_trace)
+                    except TierFaultError as e:
+                        if ht is None:
+                            raise
+                        ht.record_failure(hard=(e.kind == "brownout"))
+                        if not ht.allow():
+                            # breaker tripped mid-walk: remaining hot pages take
+                            # the degraded demand path instead of failing
+                            self.degraded_cxl = True
+                            self.repair_stats["degraded_preinstalls"] += 1
+                            return n_hot
                         raise
-                    ht.record_failure(hard=(e.kind == "brownout"))
-                    if not ht.allow():
-                        # breaker tripped mid-walk: remaining hot pages take
-                        # the degraded demand path instead of failing
-                        self.degraded_cxl = True
-                        self.repair_stats["degraded_preinstalls"] += 1
-                        return n_hot
-                    raise
-                if ht is not None:
-                    ht.record_success()
-                n_hot += int(pages.size)
-                mat = raw.view(-1, PAGE_SIZE)
-                rows = None
-                if pages.size > 1 and np.any(np.diff(pages) < 0):
-                    # dedup extents visit pages in store-offset order: the batch
-                    # wants them guest-sorted (one uffd range per guest run), and
-                    # the scatter reads the chunk through the permutation
-                    rows = np.argsort(pages, kind="stable")
-                    pages = pages[rows]
-                installed = self._install_verified(pages, mat, rows)
-                self.instance.stats["pre_installed"] += installed
+                    if ht is not None:
+                        ht.record_success()
+                    n_hot += int(pages.size)
+                    mat = raw.view(-1, PAGE_SIZE)
+                    rows = None
+                    if pages.size > 1 and np.any(np.diff(pages) < 0):
+                        # dedup extents visit pages in store-offset order: the batch
+                        # wants them guest-sorted (one uffd range per guest run), and
+                        # the scatter reads the chunk through the permutation
+                        rows = np.argsort(pages, kind="stable")
+                        pages = pages[rows]
+                    with trace.span("serving.queue"):
+                        installed = self._install_verified(pages, mat, rows)
+                    self.instance.stats["pre_installed"] += installed
         return n_hot
 
     def drain_degraded_hot(self) -> int:
@@ -735,8 +751,9 @@ class RestoreEngine:
     def install_zero_runs(self) -> int:
         """uffd.zeropage the zero runs (one ioctl per run)."""
         k = 0
-        for start, n in self.reader.zero_runs():
-            k += self.instance.uffd_zeropage_range(int(start), int(n))
+        with trace.span("serving.zero_runs"):
+            for start, n in self.reader.zero_runs():
+                k += self.instance.uffd_zeropage_range(int(start), int(n))
         return k
 
     # -- phase 2: demand faults -------------------------------------------------
@@ -878,9 +895,10 @@ class RestoreEngine:
         if self.instance.present[page]:
             self._record_heat([page], "touch")
             return
-        self.handle_fault(page)
-        if not self.instance.wait_present(page, timeout_s):
-            raise TimeoutError(f"page {page} not installed within {timeout_s}s")
+        with trace.span("serving.fault"):
+            self.handle_fault(page)
+            if not self.instance.wait_present(page, timeout_s):
+                raise TimeoutError(f"page {page} not installed within {timeout_s}s")
 
     def touch_pages(self, pages, timeout_s: float = 30.0) -> Dict[str, int]:
         """Replay one invocation's guest touches (batch form of :meth:`access`).
@@ -901,7 +919,9 @@ class RestoreEngine:
                 raise TimeoutError(f"page {int(p)} not installed within {timeout_s}s")
         return {"present": int(present_mask.sum()), "faulted": int(missing.size)}
 
-    def _install_completion(self, buf: torch.Tensor, token) -> None:
+    def _install_completion(self, buf: torch.Tensor, token, t_done: int = 0,
+                            req=None) -> None:
+        trace.add("rdma.cq_wait", t_done, trace.now(), req)
         if token[0] == "extent":
             _tag, start, n, rank0 = token
             try:
@@ -944,8 +964,7 @@ class RestoreEngine:
             if item is None:
                 continue
             while item is not None:
-                buf, token = item
-                self._install_completion(buf, token)
+                self._install_completion(*item)
                 # hybrid poll: batch further completions without sleeping
                 polled = None
                 for _ in range(eng.poll_budget):
@@ -1035,25 +1054,29 @@ class RestoreEngine:
                         self.ledger.add("rdma_read", self._rdma_arbiter.charge(nbytes))
                         self.instance.uffd_copy(page, self.reader.read_page(page))
             return
-        for start, n in self.reader.zero_runs():
-            self.instance.uffd_zeropage_range(int(start), int(n))
+        with trace.span("serving.zero_runs"):
+            for start, n in self.reader.zero_runs():
+                self.instance.uffd_zeropage_range(int(start), int(n))
         self.pre_install_hot()
         self.drain_degraded_hot()
         # one read per extent contiguous in guest and tier: the private
         # layout's cold runs in guest order; a dedup snapshot's runs, split
         # where store offsets stop being adjacent, largest run first (the
         # order the reference walks them in, which the ledger's sums follow)
-        with self._walk("rdma"):
+        with trace.span("serving.cold_walk", cpu=True), self._walk("rdma"):
             for es, en, rank0, pool_off, nbytes in self.reader.iter_cold_extents(
                     max_extent_pages=1 << 30, largest_first=self.reader.regions.dedup):
-                payload = call_with_retries(
-                    lambda o=pool_off, b=nbytes: self.reader.rdma.read(o, b),
-                    policy=self.retry, rng=self._retry_rng,
-                    ledger=self.ledger, clock=self.clock,
-                    trace=self.retry_trace)
-                self.ledger.add("rdma_read", self._rdma_arbiter.charge(nbytes))
-                self._install_verified(np.arange(es, es + en),
-                                       self.reader.split_cold_extent(rank0, en, payload))
+                with trace.span("serving.extent"):
+                    with trace.span("pool.read"):
+                        payload = call_with_retries(
+                            lambda o=pool_off, b=nbytes: self.reader.rdma.read(o, b),
+                            policy=self.retry, rng=self._retry_rng,
+                            ledger=self.ledger, clock=self.clock,
+                            trace=self.retry_trace)
+                    self.ledger.add("rdma_read", self._rdma_arbiter.charge(nbytes))
+                    mat = self.reader.split_cold_extent(rank0, en, payload)
+                    with trace.span("serving.queue"):
+                        self._install_verified(np.arange(es, es + en), mat)
 
     # -- route of a bulk walk ---------------------------------------------------
     def _walk(self, tier: str):
@@ -1065,11 +1088,12 @@ class RestoreEngine:
         the deferral; the choice is made before the walk touches any state,
         and a walk that is not batched runs per extent exactly as before.
         Walks with no page left to install are not counted."""
-        pages, offs = self.reader.walk_rows(tier)
-        todo = ~self.instance.present[pages]
-        if not todo.any():
-            return contextlib.nullcontext()
-        reason = self._per_extent_reason(tier, pages[todo], offs[todo])
+        with trace.span("serving.walk_route"):
+            pages, offs = self.reader.walk_rows(tier)
+            todo = ~self.instance.present[pages]
+            if not todo.any():
+                return contextlib.nullcontext()
+            reason = self._per_extent_reason(tier, pages[todo], offs[todo])
         if reason is not None:
             self.walk_routes["per_extent"][reason] += 1
             return contextlib.nullcontext()

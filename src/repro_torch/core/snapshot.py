@@ -47,6 +47,7 @@ except Exception:  # optional: without it compress_cold publishes uncompressed
 
 from ..kernels.page_gather import page_gather
 from ..kernels.page_scatter import page_scatter
+from . import trace
 from .faults import TierFaultError
 from .pagestore import PAGE_SIZE, Manifest, StateImage, num_pages
 from .pool import TIER_CXL, TIER_RDMA, HierarchicalPool, HostView, MemoryTier
@@ -799,6 +800,7 @@ class SnapshotReader:
     def machine_state(self) -> Tuple[Manifest, dict]:
         if self._manifest is None:
             raw = self.cxl_read(self.regions.ms_off, self.regions.ms_size).cpu().numpy()
+            trace.count("device.syncs")
             self._manifest, self._metadata = _deserialize_machine_state(raw)
         return self._manifest, self._metadata
 
@@ -807,6 +809,7 @@ class SnapshotReader:
         if self._oa is None:
             raw = self.cxl_read(self.regions.oa_off, self.regions.total_pages * 8)
             self._oa = raw.cpu().numpy().view(np.uint64)
+            trace.count("device.syncs")
         return self._oa
 
     def cold_index(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -816,6 +819,7 @@ class SnapshotReader:
         if self._ci is None:
             raw = self.cxl_read(self.regions.ci_off, self.regions.n_cold * 4)
             self._ci = raw.cpu().numpy().view(np.uint32)
+            trace.count("device.syncs")
             self._ci_starts = _cold_starts(self._ci)
         return self._ci_starts, self._ci
 
@@ -849,6 +853,7 @@ class SnapshotReader:
         if is_raw:
             return payload[:PAGE_SIZE]
         out = _decompress(self._dctx, payload.cpu().numpy(), False)
+        trace.count("device.syncs")
         return torch.from_numpy(out.copy()).to(payload.device)
 
     def read_page(self, page: int) -> torch.Tensor:
@@ -1006,6 +1011,7 @@ class SnapshotReader:
             return payload[: n * PAGE_SIZE].view(n, PAGE_SIZE)
         starts, lens = self.cold_index()
         host = payload.cpu().numpy()
+        trace.count("device.syncs")
         base = int(starts[rank])
         out = np.empty((n, PAGE_SIZE), dtype=np.uint8)
         for i in range(n):

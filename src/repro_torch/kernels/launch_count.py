@@ -1,19 +1,11 @@
 """Launch counters of the kernel wrappers.
 
 Each wrapper adds one to its ``<wrapper>.launches`` where it launches its
-kernel, and nowhere else.  Restores on a host-wide node server launch from
-several host threads at once (the completion worker and each session's own
-thread), and ``+=`` on an attribute is a read-modify-write that two threads
-can interleave, so every count goes through :func:`count` under one lock.
+kernel, and nowhere else, through :func:`count`: the port's counter
+primitive (``core.trace.bump``), which takes a lock because restores on a
+host-wide node server launch from several host threads at once.  The
+launch counters count whether tracing is on or not.
 """
 from __future__ import annotations
 
-import threading
-
-_lock = threading.Lock()
-
-
-def count(wrapper, attr: str = "launches") -> None:
-    """Add one to ``wrapper.<attr>``."""
-    with _lock:
-        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+from ..core.trace import bump as count  # noqa: F401

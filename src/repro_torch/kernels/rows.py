@@ -22,6 +22,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core import trace
+
 # (source tensor, host row indices or None, host destination rows)
 Segment = Tuple[torch.Tensor, Optional[np.ndarray], np.ndarray]
 
@@ -54,6 +56,7 @@ def as_index_tensor(name: str, idx, bound: int, device: torch.device) -> torch.T
         return idx.reshape(-1).to(torch.int64)
     if isinstance(idx, torch.Tensor):
         idx = idx.cpu().numpy()
+        trace.count("device.syncs")
     return torch.from_numpy(host_indices(name, idx, bound)).to(device)
 
 

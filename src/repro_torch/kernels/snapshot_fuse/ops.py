@@ -31,6 +31,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ...core import trace
 from .. import launch_count, rows
 from ..page_checksum.ops import weights_on
 from . import kernel
@@ -180,6 +181,7 @@ def fused_restore_rows(dest: Optional[torch.Tensor], segments,
         csum = fused_restore_rows_ref(dest, segs)
         if m and expected_table is not None:
             bad = (csum != expected_table[torch.from_numpy(dst)]).numpy()
+            trace.count("device.syncs")          # the card's n_bad read-back
             if bad.any():
                 raise ChecksumMismatchError(dst[bad])
         return csum
@@ -197,8 +199,11 @@ def fused_restore_rows(dest: Optional[torch.Tensor], segments,
         kernel.restore_rows(dest, 0, 1, idx[0], idx[1], _weights(device), expected_table, csum,
                             bad, n_bad)
     launch_count.count(fused_restore)
-    if n_bad is not None and int(n_bad.item()) > 0:   # bad indices cross only on a mismatch
-        raise ChecksumMismatchError(dst[bad.cpu().numpy().astype(bool)])
+    if n_bad is not None:
+        trace.count("device.syncs")
+        if int(n_bad.item()) > 0:           # bad indices cross only on a mismatch
+            trace.count("device.syncs")
+            raise ChecksumMismatchError(dst[bad.cpu().numpy().astype(bool)])
     return csum
 
 
