@@ -163,6 +163,12 @@ class LinkArbiter:
     def charge(self, nbytes: int, ops: int = 1) -> float:
         return self.shared(self.cost.xfer_time(nbytes, ops), nbytes)
 
+    def charges(self, nbytes: np.ndarray) -> np.ndarray:
+        """:meth:`charge` of one op for each entry of the int64 ``nbytes``,
+        the same floats, with the streams read once for all of them."""
+        bw = self.cost.bandwidth_Bps
+        return np.maximum(self.cost.op_latency_s + nbytes / bw, nbytes * self.active() / bw)
+
     def charge_pipelined(self, nbytes: int, ops: int) -> float:
         return self.shared(self.cost.xfer_time_pipelined(nbytes, ops), nbytes)
 
@@ -175,6 +181,16 @@ class TimeLedger:
 
     def add(self, key: str, t: float) -> None:
         self.seconds[key] = self.seconds.get(key, 0.0) + t
+
+    def add_each(self, key: str, ts) -> None:
+        """:meth:`add` of each of ``ts`` in turn: the same sum, term by term."""
+        ts = np.asarray(ts, dtype=np.float64).tolist()
+        if not ts:
+            return
+        s = self.seconds.get(key, 0.0)
+        for t in ts:            # not sum(): it compensates, add does not
+            s += t
+        self.seconds[key] = s
 
     def total(self) -> float:
         return sum(self.seconds.values())

@@ -21,12 +21,16 @@ gather→verify→scatter.  The two bulk walks (the hot pre-install and the
 cold walk of ``install_all_sync``) are *batched* when nothing in them can
 observe it (no fault injector, a scatter with a batched form, and for a
 verified walk no cached HostView line over its rows and a clean verify-only
-launch over its source rows): every extent is read and accounted as before,
-but its scatter is queued, and the walk ends with ONE kernel launch over all
-its rows.  ``RestoreEngine.walk_routes`` counts the walks by route.  A row
+launch over its source rows): every extent is accounted as before, its rows
+are queued instead of scattered, and the walk ends with ONE kernel launch
+over all its rows.  The hot walk reads each extent and queues the read; the
+cold walk over a raw RDMA tier reads nothing: it queues the tier arena's own
+rows (``MemoryTier.page_rows``) and accounts its extents with array
+arithmetic.  ``RestoreEngine.walk_routes`` counts the walks by route.  A row
 that mismatches at a batched walk's flush is repaired as the reference
-repairs a mismatch in the middle of a walk: the good rows install, and each
-bad page is re-read from its home tier under ``repair_budget``.
+repairs a mismatch in the middle of a walk: the good rows of its extent
+install, and each bad page is re-read from its home tier under
+``repair_budget``.
 
 Async RDMA fault handling mirrors the paper: the fault handler grabs a free
 buffer page, posts a one-sided read, and returns immediately; a completion
@@ -86,21 +90,41 @@ from .snapshot import SnapshotReader
 ScatterFn = Callable[..., object]
 
 
+class QueuedRows(tuple):
+    """One queued row-list segment ``(source, rows, dst)`` (a scatter's
+    batched form takes it as it is) and ``bounds``: the logical batches it
+    holds, batch ``k`` being ``dst[bounds[k]:bounds[k + 1]]`` (None: one)."""
+
+    def __new__(cls, source: torch.Tensor, rows: Optional[np.ndarray],
+                dst: np.ndarray, bounds: Optional[np.ndarray] = None):
+        seg = super().__new__(cls, (source, rows, dst))
+        seg.bounds = bounds
+        return seg
+
+    def batches(self):
+        """``(lo, hi)`` slices of ``dst`` a logical batch."""
+        if self.bounds is None:
+            return [(0, self[2].size)]
+        return list(zip(self.bounds[:-1].tolist(), self.bounds[1:].tolist()))
+
+
 class Instance:
     """A restoring/running instance's guest address space + present bitmap.
 
     Inside :meth:`queued_installs` (a batched restore walk) the scatter of
     each ``uffd_copy_batch`` the walk's thread makes is queued as a row-list
-    segment instead of launched; the batch's stats, ledger charge and the
-    scatter's batch stats happen as they would.  The flush installs every
-    queued row with ONE call of the scatter's batched form and only then
-    marks the rows' pages present, so no reader, with the lock or without,
-    sees a page present whose bytes are not yet enqueued.  The instance's
-    lock is held from the first queued segment to the flush: another thread
-    installs directly before that, and waits for the flush after it.
+    segment instead of launched (and :meth:`queue_extents` queues a walk's
+    extents straight from a tier arena's rows); the batch's stats, ledger
+    charge and the scatter's batch stats happen as they would.  The flush
+    installs every queued row with ONE call of the scatter's batched form
+    and only then marks the rows' pages present, so no reader, with the lock
+    or without, sees a page present whose bytes are not yet enqueued.  The
+    instance's lock is held from the first queued segment to the flush:
+    another thread installs directly before that, and waits for the flush
+    after it.
     """
 
-    # queued source bytes that force a flush mid-walk: bounds the memory the
+    # queued row bytes that force a flush mid-walk: bounds the memory the
     # queued extent buffers hold
     QUEUE_FLUSH_BYTES = 2 << 30
 
@@ -181,21 +205,76 @@ class Instance:
     def _enqueue(self, scatter, mat: torch.Tensor, src: Optional[np.ndarray],
                  sel: np.ndarray) -> None:
         """Queue one batch's scatter (caller holds the lock)."""
-        if not self._queue:
-            self._lock.acquire()        # held until flush_queued
-        self._queue.append((mat, src, sel))
-        self._queue_bytes += mat.numel() * mat.element_size()
         count = getattr(scatter, "count_batch", None)
         if count is not None:
             count(sel.size)
+        self._push(QueuedRows(mat, src, sel), mat.numel() * mat.element_size())
+
+    def _push(self, seg: QueuedRows, nbytes: int) -> None:
+        """Append a segment holding ``nbytes`` to the queue (caller holds the
+        lock), and flush once the queue reaches its limit."""
+        if not self._queue:
+            self._lock.acquire()        # held until flush_queued
+        self._queue.append(seg)
+        self._queue_bytes += nbytes
         if self._queue_bytes >= self.QUEUE_FLUSH_BYTES:
             self.flush_queued()
 
+    def queue_extents(self, mat: torch.Tensor, rows: np.ndarray, pages: np.ndarray,
+                      bounds: np.ndarray) -> int:
+        """Queue a batched walk's extents straight from rows of one source
+        tensor (a tier arena's ``page_rows``): extent ``k`` installs
+        ``pages[bounds[k]:bounds[k + 1]]`` (guest-ascending) from those
+        ``rows`` of ``mat``.  Each extent is accounted as
+        :meth:`uffd_copy_batch` accounts a batch (its pages not yet present,
+        one uffd.copy range a guest run of them, the stats, the ledger's
+        charge, the scatter's ``count_batch``), in extent order, by array
+        arithmetic; the rows go into the queue as one segment a flush.  Only
+        the walk's thread, inside :meth:`queued_installs`.  Returns the
+        number of pages queued."""
+        assert self._queue is not None and threading.get_ident() == self._queue_thread
+        scatter = self.scatter_fn or page_scatter
+        count = getattr(scatter, "count_batch", None)
+        queued, k, n_ext = 0, 0, bounds.size - 1
+        while k < n_ext:
+            with self._cv:
+                lo = int(bounds[k])
+                todo = ~self.present[pages[lo:]]
+                n = np.add.reduceat(todo, bounds[k:-1] - lo, dtype=np.int64)
+                # the extents up to the first that takes the queue to its limit
+                over = np.flatnonzero(
+                    self._queue_bytes + np.cumsum(n) * PAGE_SIZE >= self.QUEUE_FLUSH_BYTES)
+                j = int(over[0]) + 1 if over.size else n.size
+                n, hi = n[:j], int(bounds[k + j])
+                k += j
+                has = n > 0
+                if not has.any():
+                    continue
+                keep = todo[: hi - lo]
+                sel, src = pages[lo:hi][keep], rows[lo:hi][keep]
+                n = n[has]
+                ext = np.repeat(np.arange(n.size), n)
+                cut = (np.diff(sel) != 1) & (ext[1:] == ext[:-1])
+                n_ranges = 1 + np.bincount(ext[1:][cut], minlength=n.size)
+                self.stats["uffd_copies"] += int(sel.size)
+                self.stats["uffd_batches"] += int(n.size)
+                self.stats["bytes_installed"] += int(sel.size) * PAGE_SIZE
+                self.ledger.add_each("uffd_copy", uffd_copy_batch_cost(n, n_ranges))
+                if count is not None:
+                    for m in n.tolist():
+                        count(m)
+                queued += int(sel.size)
+                self._cv.notify_all()
+                self._push(QueuedRows(mat, src, sel, np.concatenate(([0], np.cumsum(n)))),
+                           int(sel.size) * PAGE_SIZE)
+        return queued
+
     @contextlib.contextmanager
     def queued_installs(self, launch: Callable):
-        """Queue every ``uffd_copy_batch`` scatter inside the block and install
-        them at its end (also on an error) with ONE ``launch(dest, segments)``
-        — a scatter function's batched form (``scatter_rows``)."""
+        """Queue every ``uffd_copy_batch`` scatter and :meth:`queue_extents`
+        row list of the walk's thread inside the block and install them at
+        its end (also on an error) with ONE ``launch(dest, segments)`` — a
+        scatter function's batched form (``scatter_rows``)."""
         self._queue, self._queue_bytes, self._launch_queue = [], 0, launch
         self._queue_thread = threading.get_ident()
         try:
@@ -822,6 +901,7 @@ class RestoreEngine:
     def handle_fault(self, page: int) -> None:
         """userfaultfd fault for `page`; never blocks on RDMA (§3.4)."""
         if self.instance.present[page]:
+            trace.count("serving.fault_joined")
             return
         kind, off = self.reader.lookup(page)
         if kind == "zero":
@@ -880,6 +960,7 @@ class RestoreEngine:
         self._record_heat([page],
                           "prefetch_hit" if covered else "demand_fault")
         if covered:
+            trace.count("serving.fault_joined")
             return     # already in flight (demand or prefetch extent)
         buf = self.buffers.acquire()
         if self.server is not None:
@@ -1059,31 +1140,58 @@ class RestoreEngine:
                 self.instance.uffd_zeropage_range(int(start), int(n))
         self.pre_install_hot()
         self.drain_degraded_hot()
-        # one read per extent contiguous in guest and tier: the private
-        # layout's cold runs in guest order; a dedup snapshot's runs, split
-        # where store offsets stop being adjacent, largest run first (the
-        # order the reference walks them in, which the ledger's sums follow)
-        with trace.span("serving.cold_walk", cpu=True), self._walk("rdma"):
-            for es, en, rank0, pool_off, nbytes in self.reader.iter_cold_extents(
-                    max_extent_pages=1 << 30, largest_first=self.reader.regions.dedup):
-                with trace.span("serving.extent"):
-                    with trace.span("pool.read"):
-                        payload = call_with_retries(
-                            lambda o=pool_off, b=nbytes: self.reader.rdma.read(o, b),
-                            policy=self.retry, rng=self._retry_rng,
-                            ledger=self.ledger, clock=self.clock,
-                            trace=self.retry_trace)
-                    self.ledger.add("rdma_read", self._rdma_arbiter.charge(nbytes))
-                    mat = self.reader.split_cold_extent(rank0, en, payload)
-                    with trace.span("serving.queue"):
-                        self._install_verified(np.arange(es, es + en), mat)
+        # extents contiguous in guest and tier: the private layout's cold
+        # runs in guest order; a dedup snapshot's runs, split where store
+        # offsets stop being adjacent, largest run first (the order the
+        # reference walks them in, which the ledger's sums follow).  A
+        # batched walk over a raw tier queues the arena's rows unread; any
+        # other reads each extent
+        with trace.span("serving.cold_walk", cpu=True), self._walk("rdma") as rows:
+            if rows is not None and not self.reader.regions.cold_compressed:
+                self._queue_cold_rows(*rows)
+            else:
+                self._cold_walk_per_extent()
+
+    def _cold_walk_per_extent(self) -> None:
+        """The cold walk extent by extent, as the reference walks it: each
+        extent read (and decompressed, for a compressed tier), charged and
+        installed or queued."""
+        for es, en, rank0, pool_off, nbytes in self.reader.iter_cold_extents(
+                max_extent_pages=1 << 30, largest_first=self.reader.regions.dedup):
+            with trace.span("serving.extent"):
+                with trace.span("pool.read"):
+                    payload = call_with_retries(
+                        lambda o=pool_off, b=nbytes: self.reader.rdma.read(o, b),
+                        policy=self.retry, rng=self._retry_rng,
+                        ledger=self.ledger, clock=self.clock,
+                        trace=self.retry_trace)
+                self.ledger.add("rdma_read", self._rdma_arbiter.charge(nbytes))
+                mat = self.reader.split_cold_extent(rank0, en, payload)
+                with trace.span("serving.queue"):
+                    self._install_verified(np.arange(es, es + en), mat)
+
+    def _queue_cold_rows(self, pages: np.ndarray, offs: np.ndarray) -> None:
+        """The batched cold walk over a raw RDMA tier: every extent's rows
+        queued straight from the tier's arena, unread, and each extent
+        charged and accounted as the per-extent walk charges it (its
+        ``rdma_read``, then its batch), in the same order."""
+        with trace.span("serving.cold_rows"):
+            pages, offs, bounds = self.reader.cold_walk_extents(pages, offs)
+            self.ledger.add_each("rdma_read",
+                                 self._rdma_arbiter.charges(np.diff(bounds) * PAGE_SIZE))
+            n = self.instance.queue_extents(self.reader.rdma.page_rows(),
+                                            offs // PAGE_SIZE, pages, bounds)
+            trace.count("serving.arena_rows", n)
 
     # -- route of a bulk walk ---------------------------------------------------
+    @contextlib.contextmanager
     def _walk(self, tier: str):
         """The context one bulk walk over ``tier``'s rows ("cxl": the hot
-        pre-install, "rdma": the cold walk) runs in.
+        pre-install, "rdma": the cold walk) runs in; it gives the walk's
+        ``(pages, pool_offs)`` (:meth:`SnapshotReader.walk_rows`) when the
+        walk is batched, else None.
 
-        A walk is batched — each extent's scatter queued, all of them
+        A walk is batched — each extent's rows queued, all of them
         installed by one launch at its end — when nothing in it can observe
         the deferral; the choice is made before the walk touches any state,
         and a walk that is not batched runs per extent exactly as before.
@@ -1091,12 +1199,13 @@ class RestoreEngine:
         with trace.span("serving.walk_route"):
             pages, offs = self.reader.walk_rows(tier)
             todo = ~self.instance.present[pages]
-            if not todo.any():
-                return contextlib.nullcontext()
-            reason = self._per_extent_reason(tier, pages[todo], offs[todo])
+            idle = not todo.any()
+            reason = None if idle else self._per_extent_reason(tier, pages[todo], offs[todo])
         if reason is not None:
             self.walk_routes["per_extent"][reason] += 1
-            return contextlib.nullcontext()
+        if idle or reason is not None:
+            yield None
+            return
         self.walk_routes["batched"] += 1
         batched = (self.instance.scatter_fn or page_scatter).scatter_rows
 
@@ -1109,28 +1218,35 @@ class RestoreEngine:
                     raise
                 self._repair_flush(segments, bad)
 
-        return self.instance.queued_installs(launch)
+        with self.instance.queued_installs(launch):
+            yield pages, offs
 
     def _repair_flush(self, segments, bad_pages) -> None:
         """A batched walk's launch found rows that disagree with their
         checksums (the pre-verify passed, so the bytes changed after it):
-        each segment holding a bad page takes the reference's repair path —
-        its queued accounting is taken back, its good rows install and each
-        bad page is re-read from its home tier under ``repair_budget``.  The
-        other segments were installed by the launch; the flush marks them
-        present.  The repair's charges land after the walk's, not between
-        its extents: the same charges, summed in another order."""
+        each queued batch (an extent) holding a bad page takes the
+        reference's repair path — its queued accounting is taken back, its
+        good rows install and each bad page is re-read from its home tier
+        under ``repair_budget``.  The other batches were installed by the
+        launch; the flush marks them present.  The repair's charges land
+        after the walk's, not between its extents: the same charges, summed
+        in another order."""
         bad = np.asarray(bad_pages, dtype=np.int64)
         inst = self.instance
         scatter = inst.scatter_fn or page_scatter
         with inst.direct_installs():
-            for mat, src, sel in segments:
+            for seg in segments:
+                mat, src, sel = seg
                 hit = np.isin(sel, bad)
                 if not hit.any():
                     continue
-                inst.unaccount_batch(scatter, sel)
                 rows = src if src is not None else np.arange(sel.size, dtype=np.int64)
-                self._repair_batch(sel, mat, sel[hit], rows)
+                for lo, hi in seg.batches():
+                    if not hit[lo:hi].any():
+                        continue
+                    part = sel[lo:hi]
+                    inst.unaccount_batch(scatter, part)
+                    self._repair_batch(part, mat, part[hit[lo:hi]], rows[lo:hi])
 
     def _per_extent_reason(self, tier: str, pages: np.ndarray,
                            offs: np.ndarray) -> Optional[str]:

@@ -982,6 +982,33 @@ class SnapshotReader:
             offs += self.regions.hot_off if tier == "cxl" else self.regions.rdma_off
         return pages, offs
 
+    def cold_walk_extents(self, pages: np.ndarray, offs: np.ndarray
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The cold walk's extents as arrays, from :meth:`walk_rows` of a raw
+        cold tier: ``(pages, offs, bounds)`` reordered so that extent ``k``
+        is ``pages[bounds[k]:bounds[k + 1]]`` (guest-ascending, at pool
+        ``offs`` of the same slice), in the order
+        ``iter_cold_extents(max_extent_pages=1 << 30,
+        largest_first=regions.dedup)`` yields them: guest order for the
+        private layout; for the dedup layout the guest runs largest first,
+        each split where store offsets stop being adjacent."""
+        n = int(pages.size)
+        run_brk = np.diff(pages) != 1
+        starts = np.concatenate(
+            ([0], np.flatnonzero(run_brk | (np.diff(offs) != PAGE_SIZE)) + 1)).astype(np.int64)
+        if n == 0 or not self.regions.dedup:
+            return pages, offs, np.append(starts[:n], n)
+        run_starts = np.concatenate(([0], np.flatnonzero(run_brk) + 1))
+        run_rank = np.empty(run_starts.size, dtype=np.int64)
+        run_rank[np.argsort(-np.diff(np.append(run_starts, n)), kind="stable")] = \
+            np.arange(run_starts.size)
+        order = np.argsort(run_rank[np.searchsorted(run_starts, starts, side="right") - 1],
+                           kind="stable")
+        lens = np.diff(np.append(starts, n))[order]
+        bounds = np.concatenate(([0], np.cumsum(lens)))
+        take = np.repeat(starts[order] - bounds[:-1], lens) + np.arange(n)
+        return pages[take], offs[take], bounds
+
     def cold_rank(self, page: int) -> int:
         """Rank (position in the sorted cold set) of a cold page.  For a
         dedup snapshot the "rank" is the absolute tier page number."""

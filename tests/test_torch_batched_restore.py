@@ -11,7 +11,9 @@ cached HostView line over the hot rows, a corrupted arena byte caught by the
 pre-verify, a scatter function with no batched form) is shown taking the
 reference's own path, a mismatch at a batched walk's flush is repaired as
 the reference repairs it, and the plain row-list versions are held to the
-reference's restore kernel segment by segment."""
+reference's restore kernel segment by segment.  The batched cold walk over
+a raw RDMA tier queues the arena's own rows, reading no extent; over a
+compressed tier it still reads each."""
 import threading
 
 import numpy as np
@@ -31,7 +33,9 @@ from repro_torch.kernels import (
     page_scatter_rows,
 )
 from repro_torch.kernels.page_scatter.ref import page_scatter_rows_ref
+from repro_torch.core import trace
 from repro_torch.kernels.snapshot_fuse.ref import fused_restore_rows_ref
+import test_torch_compress as compress
 import test_torch_dedup_layout as dedup_layout
 import test_torch_serving as serving
 
@@ -389,6 +393,231 @@ def test_host_view_line_query_reads_nothing():
     assert not view.has_valid_lines([3 * PAGE], 128)
     assert not view.has_valid_lines(np.zeros(0, np.int64), PAGE)
     assert view.stats == stats and int(view._valid.sum()) == 1
+
+
+# ----------------------------------------------------------------------------
+# the batched cold walk over a raw RDMA tier: the arena's rows, unread
+# ----------------------------------------------------------------------------
+
+@pytest.fixture
+def tracing():
+    trace.reset()
+    trace.enable()
+    try:
+        yield trace
+    finally:
+        trace.disable()
+        trace.reset()
+
+
+def _fault_some_cold_pages(r, g):
+    """Demand-fault, on both sides, a middle page of one cold extent, the
+    first and last of another and every page of a third, so the walk finds
+    extents partly present, split in two ranges, and wholly present."""
+    reader = g[3]
+    ext = list(reader.iter_cold_extents(max_extent_pages=1 << 30,
+                                        largest_first=reader.regions.dedup))
+    by_size = sorted(ext, key=lambda e: -e[1])
+    assert len(ext) >= 3 and by_size[1][1] >= 3
+    e1, e2, e3 = by_size[0], by_size[1], by_size[-1]
+    pages = [e1[0] + e1[1] // 2, e2[0], e2[0] + e2[1] - 1] + list(range(e3[0], e3[0] + e3[1]))
+    for side in (r, g):
+        for p in pages:
+            side[5].access(int(p))
+    return len(pages)
+
+
+def _count_reads(tier):
+    """Count ``tier.read`` calls from here on."""
+    seen, read = [], tier.read
+
+    def counted(off, nbytes):
+        seen.append(nbytes)
+        return read(off, nbytes)
+
+    tier.read = counted
+    return seen
+
+
+@pytest.mark.parametrize("verified", [True, False])
+@pytest.mark.parametrize("dedup", [False, True])
+def test_cold_walk_installs_the_arena_rows_exact(dedup, verified, launches, tracing,
+                                                 ref_zero_scan_pallas):
+    """The batched cold walk reads no extent: it queues the RDMA arena's own
+    rows and accounts every extent by array arithmetic, exactly as the
+    reference reads and accounts it extent by extent (images, ``present``,
+    ledgers ``==``, instance, view, scatter and repair stats), with some of
+    its pages already faulted in."""
+    if dedup:
+        r, g = dedup_layout._restore_pair("fused", scatter=verified)
+        same = dedup_layout._assert_same
+    else:
+        r, g = serving._restore_pair(fused_scatter=verified, seed=21)
+        same = serving._assert_same
+    for side in (r, g):
+        side[5].pre_install_hot()
+    faulted = _fault_some_cold_pages(r, g)
+    same(r, g, verified)
+    reads = _count_reads(g[1].rdma)
+    trace.reset()
+    launches.update(rows=0, per_extent=0)
+    for side in (r, g):
+        side[5].install_all_sync()
+    same(r, g, verified)
+    assert g[5].walk_routes == _routes(batched=2)
+    assert launches == {"rows": 1, "per_extent": 0}
+    assert reads == []
+    assert trace.snapshot()["counters"]["serving.arena_rows"] == g[2].n_cold - faulted
+    assert g[4].all_present()
+    np.testing.assert_array_equal(g[4].image.buf.numpy(), g[0].buf.numpy())
+    if verified:
+        assert g[7].stats["pages_verified"] == g[2].n_hot + g[2].n_cold
+
+
+@pytest.mark.skipif(compress.port_snapshot._zstd is None
+                    or compress.ref_snapshot._zstd is None,
+                    reason="zstandard not installed (optional extra)")
+@pytest.mark.parametrize("scatter", ["verified", None])
+def test_compressed_cold_tier_keeps_the_per_extent_read(scatter, tracing):
+    """A compressed cold tier has no arena row a page: its batched cold walk
+    still reads and decompresses each extent, exact against the reference."""
+    r, g = compress.publish_both(*compress.fragmented_image(), fused=scatter is not None)
+    a, b = compress._engines(r, g, scatter)
+    reads = _count_reads(g[1].rdma)
+    for side in (a, b):
+        side[2].install_all_sync()
+    compress._assert_restores_equal(a, b)
+    np.testing.assert_array_equal(b[1].image.buf.numpy(), b[0].buf.numpy())
+    assert b[2].walk_routes == _routes(batched=2)
+    snap = trace.snapshot()
+    assert "serving.arena_rows" not in snap["counters"]
+    assert [s for s in snap["spans"] if s[0] == "serving.cold_rows"] == []
+    n_ext = len(list(b[4].iter_cold_extents(max_extent_pages=1 << 30, largest_first=False)))
+    assert len(reads) == n_ext > 1
+
+
+@pytest.mark.parametrize("limit", [None, 5 * PAGE])
+def test_cold_arena_changed_after_preverify_is_repaired_like_reference(monkeypatch, launches,
+                                                                       limit):
+    """A cold arena row that changes after the cold walk's pre-verify fails
+    at the flush and is repaired as the reference repairs the same mismatch
+    in the middle of its walk: its extent's accounting is taken back, the
+    extent's good rows install, and the bad page is re-read from the RDMA
+    tier (the byte is put back after the flush's launch, as the reference's
+    is put back after its extent's read).  With a small queue limit the walk
+    flushes many times.  Bytes, ``present``, repair, instance, view and
+    scatter stats are equal; the ledgers hold the same keys, their values
+    equal within 1e-12 relative (the repair's charges summed after the
+    walk's)."""
+    if limit is not None:
+        monkeypatch.setattr(port.Instance, "QUEUE_FLUSH_BYTES", limit)
+    r, g = serving._restore_pair(seed=22)
+    page = int(g[3].walk_rows("rdma")[0][5])
+    at = g[3].lookup(page)[1] + 7
+    flipped = {"ref": True, "port": False}
+
+    ref_read = r[1].rdma.read
+
+    def heal_after_read(off, nbytes):
+        out = ref_read(off, nbytes)
+        if flipped["ref"] and off <= at < off + nbytes:
+            r[1].rdma.buf[at] ^= 0xFF
+            flipped["ref"] = False
+        return out
+
+    r[1].rdma.read = heal_after_read
+    verify, launch = FusedScatter.verify_rows, FusedScatter.scatter_rows
+
+    def verify_then_corrupt(self, segments):
+        ok = verify(self, segments)
+        if segments[0][0].data_ptr() == g[1].rdma.buf.data_ptr():
+            g[1].rdma.buf[at] ^= 0xFF
+            flipped["port"] = True
+        return ok
+
+    def launch_then_heal(self, dest, segments):
+        try:
+            return launch(self, dest, segments)
+        finally:
+            if flipped["port"]:
+                g[1].rdma.buf[at] ^= 0xFF
+                flipped["port"] = False
+
+    direct, call = [], FusedScatter.__call__
+
+    def sized_call(self, dest, compact, indices, src_indices=None):
+        direct.append(len(indices))
+        return call(self, dest, compact, indices, src_indices=src_indices)
+
+    monkeypatch.setattr(FusedScatter, "verify_rows", verify_then_corrupt)
+    monkeypatch.setattr(FusedScatter, "scatter_rows", launch_then_heal)
+    monkeypatch.setattr(FusedScatter, "__call__", sized_call)
+    r[1].rdma.buf[at] ^= 0xFF
+    for side in (r, g):
+        side[5].install_all_sync()
+    assert not flipped["ref"] and not flipped["port"]
+    # the repair installs the good rows of the bad page's extent, then the page
+    (extent,) = [en for es, en, *_ in g[3].iter_cold_extents(max_extent_pages=1 << 30)
+                 if es <= page < es + en]
+    assert extent > 1 and direct == [extent - 1, 1]
+    assert g[5].walk_routes == _routes(batched=2)
+    assert (launches["rows"] == 2) == (limit is None) and launches["rows"] >= 2
+    assert g[5].repair_stats["checksum_mismatches"] == 1
+    assert g[5].repair_stats["checksum_repairs"] == 1
+    assert g[4]._queue is None and _lock_free(g[4])
+    np.testing.assert_array_equal(r[4].image.buf, g[4].image.buf.numpy())
+    np.testing.assert_array_equal(g[4].image.buf.numpy(), g[0].buf.numpy())
+    np.testing.assert_array_equal(r[4].present, g[4].present)
+    assert r[5].repair_stats == g[5].repair_stats
+    assert r[4].stats == g[4].stats
+    assert r[3].view.stats == g[3].view.stats
+    assert r[7].stats == g[7].stats
+    assert r[6].seconds.keys() == g[6].seconds.keys()
+    for key, want in r[6].seconds.items():
+        assert g[6].seconds[key] == pytest.approx(want, rel=1e-12, abs=0.0), key
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+def test_cold_walk_extents_are_iter_cold_extents(dedup, ref_zero_scan_pallas):
+    """The walk's extent table from :meth:`SnapshotReader.walk_rows`, in the
+    order the per-extent walk reads them (dedup: largest run first, split
+    where store offsets stop being adjacent)."""
+    if dedup:
+        _r, g = dedup_layout._restore_pair("fused")
+    else:
+        _r, g = serving._restore_pair(seed=23)
+    reader = g[3]
+    pages, offs, bounds = reader.cold_walk_extents(*reader.walk_rows("rdma"))
+    want = list(reader.iter_cold_extents(max_extent_pages=1 << 30,
+                                         largest_first=reader.regions.dedup))
+    got = [(int(pages[a]), b - a, int(offs[a]), (b - a) * PAGE)
+           for a, b in zip(bounds[:-1].tolist(), bounds[1:].tolist())]
+    assert got == [(es, en, off, n) for es, en, _rank, off, n in want]
+    for a, b in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        np.testing.assert_array_equal(pages[a:b], pages[a] + np.arange(b - a))
+        np.testing.assert_array_equal(offs[a:b], offs[a] + PAGE * np.arange(b - a))
+    if dedup:
+        assert [e[1] for e in want] != sorted(e[1] for e in want)   # not guest order
+    empty = np.zeros(0, np.int64)
+    assert [x.tolist() for x in reader.cold_walk_extents(empty, empty)] == [[], [], [0]]
+
+
+def test_arbiter_charges_and_ordered_sums_are_the_scalar_ones():
+    """One ``active()`` read for a walk's charges gives the floats the
+    per-extent ``charge`` gives, and ``add_each`` the sum of ``add``."""
+    arb = port.LinkArbiter(port.RDMA_COST)
+    sizes = np.array([4096, 7 * 4096, 1, 123 * 4096, 4096, 1 << 30], dtype=np.int64)
+    for streams in range(3):
+        if streams:
+            arb.register(("s", streams))
+        got = arb.charges(sizes)
+        assert got.tolist() == [arb.charge(int(n)) for n in sizes.tolist()]
+        one, each = port.TimeLedger({"k": 0.1}), port.TimeLedger({"k": 0.1})
+        for t in got.tolist():
+            one.add("k", t)
+        each.add_each("k", got)
+        each.add_each("absent", [])
+        assert each.seconds == one.seconds
 
 
 # ----------------------------------------------------------------------------

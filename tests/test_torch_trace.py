@@ -1,9 +1,10 @@
 """The port's span-and-counter facility (``repro_torch.core.trace``) and what
 reads it: off it records nothing; on, spans nest on their thread, carry the
 cold start's request id onto the node server's threads, share the torch
-profiler's clock, and count one ``serving.extent`` a cold extent and one
-fault's hops in order; under the benchmark's traffic at a tiny size, every
-cold start and every fault carries its spans."""
+profiler's clock, and count one ``serving.extent`` a hot extent, one
+``serving.cold_rows`` a batched cold walk and one fault's hops in order;
+under the benchmark's traffic at a tiny size, every cold start and every
+fault carries its spans."""
 import os
 import subprocess
 import sys
@@ -243,6 +244,10 @@ def test_request_id_reaches_the_completion_worker(tracing):
 
 
 def test_one_extent_span_per_cold_extent(tracing):
+    """A hot extent is one ``serving.extent`` span; the batched cold walk
+    over the raw RDMA tier reads no extent: its many extents are one
+    ``serving.cold_rows`` span, and its rows are counted in
+    ``serving.arena_rows``."""
     pool, master, image = make_pool(n_pages=2048)
     server = core.NodePageServer("h", pool)
     ri = restore(pool, master, server)
@@ -250,8 +255,8 @@ def test_one_extent_span_per_cold_extent(tracing):
         ri.engine.pre_install_hot()
         ri.engine.install_all_sync()
         reader = ri.engine.reader
-        want = len(list(reader.iter_cold_extents(max_extent_pages=1 << 30,
-                                                 largest_first=reader.regions.dedup)))
+        n_cold = len(list(reader.iter_cold_extents(max_extent_pages=1 << 30,
+                                                   largest_first=reader.regions.dedup)))
         assert ri.instance.all_present()
         assert torch.equal(ri.instance.image.buf, image.buf)
     finally:
@@ -259,18 +264,24 @@ def test_one_extent_span_per_cold_extent(tracing):
         server.close()
     snap = trace.snapshot()
     spans = snap["spans"]
+
+    def kids(parent):
+        return [spans[i][0] for i, s in enumerate(spans) if s[2] is not None
+                and spans[s[2]] == parent]
+
     (cold,) = by_name(snap, "serving.cold_walk")
-    extents = [s for s in by_name(snap, "serving.extent") if spans[s[2]] == cold]
-    assert want > 1 and len(extents) == want
+    assert n_cold > 1 and ri.engine.walk_routes["batched"] == 2
+    assert kids(cold) == ["serving.walk_route", "serving.cold_rows", "serving.flush"]
+    assert [s for s in by_name(snap, "serving.extent") if spans[s[2]] == cold] == []
+    (rows,) = by_name(snap, "serving.cold_rows")
+    assert kids(rows) == []
     hot_walks = by_name(snap, "serving.hot_walk")
     hot_extents = [s for s in by_name(snap, "serving.extent") if spans[s[2]] in hot_walks]
     assert len(hot_extents) == len(list(reader.iter_hot_extents(
         core.RestoreEngine.HOT_CHUNK_PAGES)))
-    # each extent's children: its read and the queueing of its rows
-    for e in extents:
-        kids = [spans[i][0] for i, s in enumerate(spans) if s[2] is not None
-                and spans[s[2]] == e]
-        assert kids == ["pool.read", "serving.queue"]
+    # each hot extent's children: its chunk and the queueing of its rows
+    for e in hot_extents:
+        assert kids(e) == ["nodeserver.hot_chunk", "serving.queue"]
     # the walks' flush and route are inside them; cpu time inside the wall
     for w in [cold] + hot_walks:
         assert w[6] is not None and 0 <= w[6] <= w[5] - w[4]
@@ -283,8 +294,11 @@ def test_one_extent_span_per_cold_extent(tracing):
     # the offset array, the machine state, and a verify-only launch and a
     # flush a verified walk, each read back once
     assert c["device.syncs"] == 2 + 2 * 2
-    assert c["pool.copy_bytes"] >= (ri.engine.reader.regions.n_cold
-                                    + ri.engine.reader.regions.n_hot) * PAGE_SIZE
+    regions = ri.engine.reader.regions
+    assert c["serving.arena_rows"] == regions.n_cold
+    assert c["pool.copy_bytes"] >= regions.n_hot * PAGE_SIZE
+    assert c["pool.copy_bytes"] + PAGE_SIZE * c["serving.arena_rows"] >= (
+        regions.n_cold + regions.n_hot) * PAGE_SIZE
 
 
 def test_one_faults_hops_lie_in_order_inside_it(tracing):
@@ -317,7 +331,7 @@ def test_one_faults_hops_lie_in_order_inside_it(tracing):
 EAGER_SPANS = ["restore", "restore.borrow", "restore.invalidate", "restore.machine_state",
                "restore.instance", "nodeserver.attach", "nodeserver.hot_chunk",
                "serving.hot_walk", "serving.zero_runs", "serving.walk_route",
-               "serving.cold_walk", "serving.extent", "pool.read", "serving.queue",
+               "serving.cold_walk", "serving.extent", "serving.cold_rows", "serving.queue",
                "serving.flush", "serving.release"]
 FAULT_HOPS = ["rdma.queue_wait", "rdma.read", "rdma.cq_wait", "nodeserver.install"]
 
@@ -364,6 +378,12 @@ def test_every_eager_start_has_the_span(tiny_runs, name):
     assert snap["dropped"] == 0 and rec["failed"] == 0
     reqs = starts(snap)
     assert len(reqs) >= rec["attempted"] > 0 and None not in reqs
+    if name == "serving.cold_rows":
+        # the planted fault's start: its pre-verify finds the flipped byte,
+        # and its cold walk reads extent by extent (``pool.read``) instead
+        tampered = {s[1] for s in by_name(snap, "pool.read")}
+        assert len(tampered) == 1
+        reqs = reqs - tampered
     assert {s[1] for s in by_name(snap, name)} == reqs
 
 
@@ -373,14 +393,19 @@ def test_eager_counters_a_start(tiny_runs):
     assert c["nodeserver.hot_chunk_requests"] == len(by_name(snap, "nodeserver.hot_chunk")) == n
     assert c["nodeserver.hot_chunk_requests"] >= rec["counters"]["hot_chunk_requests"]
     assert c["device.syncs"] >= 6 * n
-    # every restored page of the window was read from a tier at least once
-    assert c["pool.copy_bytes"] >= rec["work"]["restore_pages"] * PAGE_SIZE
+    # every restored page of the window was read from a tier at least once,
+    # or queued straight from the RDMA tier's arena
+    assert c["pool.copy_bytes"] + PAGE_SIZE * c["serving.arena_rows"] >= (
+        rec["work"]["restore_pages"] * PAGE_SIZE)
 
 
 @pytest.mark.parametrize("name", FAULT_HOPS)
 def test_every_lazy_fault_has_its_hop(tiny_runs, name):
     """The lazy mix faults its cold pages in: each fault's RDMA hops lie
-    inside a fault of the same start, one each, and no start walks cold."""
+    inside a fault of the same start, one each, and no start walks cold.  A
+    fault that joins a read already in flight (a sibling of its fan-out
+    group faulted the page first) or finds its page installed posts none:
+    ``serving.fault_joined`` counts those."""
     rec, snap = tiny_runs["lazy"]
     assert snap["dropped"] == 0 and rec["failed"] == 0
     assert by_name(snap, "serving.cold_walk") == []
@@ -390,6 +415,6 @@ def test_every_lazy_fault_has_its_hop(tiny_runs, name):
     if name == "nodeserver.install":           # the hot chunks' installs too
         assert len(hops) >= len(faults)
         return
-    assert len(hops) == len(faults)
+    assert len(hops) == len(faults) - snap["counters"].get("serving.fault_joined", 0)
     for h in hops:
         assert any(f[1] == h[1] and f[4] <= h[4] <= h[5] <= f[5] for f in faults)
