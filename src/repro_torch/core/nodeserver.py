@@ -105,6 +105,7 @@ class HotChunkCache:
                 entry.ready.set()
             with self._lock:
                 self.stats["reads"] += 1
+            trace.count("nodeserver.chunk_reads")
             return entry.data, entry.modeled_s, True
         with trace.span("nodeserver.chunk_wait"):
             entry.ready.wait(timeout=30.0)
@@ -115,6 +116,8 @@ class HotChunkCache:
             self.stats["fanout_hits"] += 1
             if cross:
                 self.stats["cross_group_hits"] += 1
+        if cross:
+            trace.count("nodeserver.cross_group_hits")
         return entry.data, entry.modeled_s, False
 
     def drop_group(self, group_key) -> int:

@@ -943,7 +943,9 @@ class SnapshotReader:
         Dedup layout: hot pages are visited in STORE-OFFSET order and split
         wherever offsets stop being adjacent and at absolute tier-grid
         boundaries of ``chunk_pages`` pages (so snapshots sharing store runs
-        emit identical chunks); ``pages`` is then generally unsorted."""
+        emit identical chunks); ``pages`` is then generally unsorted.  The
+        sort and split are done before the first extent is yielded, inside
+        the span ``serving.hot_order``."""
         hot = self.hot_page_indices()
         if hot.size == 0:
             return
@@ -954,18 +956,18 @@ class SnapshotReader:
                 yield (hot[r0:r1], hot_off + r0 * PAGE_SIZE,
                        (r1 - r0) * PAGE_SIZE)
             return
-        offs = (self.offset_array()[hot] & OFFSET_MASK).astype(np.int64)
-        order = np.argsort(offs, kind="stable")
-        hot_o, offs_o = hot[order], offs[order]
-        chunk_bytes = chunk_pages * PAGE_SIZE
-        for a, k in _offset_subruns(offs_o):
-            s = a
-            while s < a + k:
-                off_s = int(offs_o[s])
-                to_boundary = (chunk_bytes - off_s % chunk_bytes) // PAGE_SIZE
-                n = min(a + k - s, max(1, to_boundary))
-                yield hot_o[s : s + n], off_s, n * PAGE_SIZE
-                s += n
+        with trace.span("serving.hot_order"):
+            offs = (self.offset_array()[hot] & OFFSET_MASK).astype(np.int64)
+            order = np.argsort(offs, kind="stable")
+            hot_o, offs_o = hot[order], offs[order]
+            # an extent starts where store offsets stop being adjacent, and at
+            # every page that starts a chunk of the absolute tier grid
+            cut = np.diff(offs_o) != PAGE_SIZE
+            cut |= offs_o[1:] % (chunk_pages * PAGE_SIZE) == 0
+            starts = np.concatenate(([0], np.flatnonzero(cut) + 1)).tolist()
+            ends = starts[1:] + [int(hot.size)]
+        for s, e in zip(starts, ends):
+            yield hot_o[s:e], int(offs_o[s]), (e - s) * PAGE_SIZE
 
     def walk_rows(self, tier: str) -> Tuple[np.ndarray, np.ndarray]:
         """``(pages, pool_offs)``: every guest page of one tier's restore walk
@@ -991,23 +993,25 @@ class SnapshotReader:
         ``iter_cold_extents(max_extent_pages=1 << 30,
         largest_first=regions.dedup)`` yields them: guest order for the
         private layout; for the dedup layout the guest runs largest first,
-        each split where store offsets stop being adjacent."""
+        each split where store offsets stop being adjacent (the reorder in
+        the span ``serving.cold_order``)."""
         n = int(pages.size)
         run_brk = np.diff(pages) != 1
         starts = np.concatenate(
             ([0], np.flatnonzero(run_brk | (np.diff(offs) != PAGE_SIZE)) + 1)).astype(np.int64)
         if n == 0 or not self.regions.dedup:
             return pages, offs, np.append(starts[:n], n)
-        run_starts = np.concatenate(([0], np.flatnonzero(run_brk) + 1))
-        run_rank = np.empty(run_starts.size, dtype=np.int64)
-        run_rank[np.argsort(-np.diff(np.append(run_starts, n)), kind="stable")] = \
-            np.arange(run_starts.size)
-        order = np.argsort(run_rank[np.searchsorted(run_starts, starts, side="right") - 1],
-                           kind="stable")
-        lens = np.diff(np.append(starts, n))[order]
-        bounds = np.concatenate(([0], np.cumsum(lens)))
-        take = np.repeat(starts[order] - bounds[:-1], lens) + np.arange(n)
-        return pages[take], offs[take], bounds
+        with trace.span("serving.cold_order"):
+            run_starts = np.concatenate(([0], np.flatnonzero(run_brk) + 1))
+            run_rank = np.empty(run_starts.size, dtype=np.int64)
+            run_rank[np.argsort(-np.diff(np.append(run_starts, n)), kind="stable")] = \
+                np.arange(run_starts.size)
+            order = np.argsort(run_rank[np.searchsorted(run_starts, starts, side="right") - 1],
+                               kind="stable")
+            lens = np.diff(np.append(starts, n))[order]
+            bounds = np.concatenate(([0], np.cumsum(lens)))
+            take = np.repeat(starts[order] - bounds[:-1], lens) + np.arange(n)
+            return pages[take], offs[take], bounds
 
     def cold_rank(self, page: int) -> int:
         """Rank (position in the sorted cold set) of a cold page.  For a
