@@ -340,19 +340,50 @@ class Instance:
     def uffd_zeropage_range(self, start: int, n: int) -> int:
         """Range form of uffd.zeropage: one lock acquisition, one ioctl per
         contiguous range actually zeroed (present pages split ranges)."""
+        return self.uffd_zeropage_runs([[start, n]])
+
+    def uffd_zeropage_runs(self, runs) -> int:
+        """:meth:`uffd_zeropage_range` of each run of a table (int64
+        ``(R, 2)`` ``[start, n]``, disjoint, as ``SnapshotReader.zero_runs``
+        gives it; overlapping runs raise ValueError) in table order, under
+        ONE lock acquisition, by array arithmetic over the pages the runs
+        span: each run's pages not yet present are marked, one ioctl charged
+        a contiguous range of them, and a run with none takes no batch and
+        no charge.  Returns the number of pages marked."""
+        runs = np.asarray(runs, dtype=np.int64).reshape(-1, 2)
+        ends = np.minimum(runs[:, 0] + runs[:, 1], self.present.size)
+        nonempty = ends > runs[:, 0]
+        starts, ends = runs[nonempty, 0], ends[nonempty]
+        if starts.size == 0:
+            return 0
+        lo, hi = int(starts.min()), int(ends.max())
+        edges = np.empty(2 * starts.size, dtype=np.int64)    # each run's [start, end) from lo
+        edges[0::2], edges[1::2] = starts - lo, ends - lo
+        heads = edges[0::2]
+        cuts = np.concatenate(
+            ([0], edges.reshape(-1, 2)[np.argsort(starts)].reshape(-1), [hi - lo]))
+        in_runs = np.repeat(np.arange(cuts.size - 1) % 2 == 1, np.diff(cuts))
         with self._cv:
-            sl = self.present[start : start + n]
-            todo = np.nonzero(~sl)[0]
-            k = int(todo.size)
-            if k == 0:
+            present = self.present[lo:hi]
+            todo = np.zeros(hi - lo + 1, dtype=bool)         # not present; a pad for reduceat
+            np.logical_not(present, out=todo[:-1])
+            begins = todo.copy()                             # where a range of them begins
+            begins[1:] &= ~todo[:-1]
+            k = np.add.reduceat(todo, edges, dtype=np.int64)[0::2]
+            # a run's first page begins its first range whatever precedes it
+            n_ranges = (np.add.reduceat(begins, edges, dtype=np.int64)[0::2]
+                        - begins[heads] + todo[heads])
+            has = k > 0
+            if not has.any():
                 return 0
-            sl[:] = True
-            n_ranges = int(1 + np.count_nonzero(np.diff(todo) != 1))
-            self.stats["uffd_zeropages"] += k
-            self.stats["uffd_batches"] += 1
-            self.ledger.add("uffd_zeropage", uffd_zeropage_range_cost(k, n_ranges))
+            k, n_ranges = k[has], n_ranges[has]
+            present |= in_runs
+            marked = int(k.sum())
+            self.stats["uffd_zeropages"] += marked
+            self.stats["uffd_batches"] += int(k.size)
+            self.ledger.add_each("uffd_zeropage", uffd_zeropage_range_cost(k, n_ranges))
             self._cv.notify_all()
-            return k
+            return marked
 
     def wait_present(self, page: int, timeout_s: float = 30.0) -> bool:
         with self._cv:
@@ -828,11 +859,11 @@ class RestoreEngine:
         self._install_verified(np.array([page], dtype=np.int64), data)
 
     def install_zero_runs(self) -> int:
-        """uffd.zeropage the zero runs (one ioctl per run)."""
-        k = 0
+        """uffd.zeropage the zero runs (one ioctl per run), all of them under
+        one lock acquisition."""
         with trace.span("serving.zero_runs"):
-            for start, n in self.reader.zero_runs():
-                k += self.instance.uffd_zeropage_range(int(start), int(n))
+            k = self.instance.uffd_zeropage_runs(self.reader.zero_runs())
+            trace.count("serving.zero_pages", k)
         return k
 
     # -- phase 2: demand faults -------------------------------------------------
@@ -1135,9 +1166,7 @@ class RestoreEngine:
                         self.ledger.add("rdma_read", self._rdma_arbiter.charge(nbytes))
                         self.instance.uffd_copy(page, self.reader.read_page(page))
             return
-        with trace.span("serving.zero_runs"):
-            for start, n in self.reader.zero_runs():
-                self.instance.uffd_zeropage_range(int(start), int(n))
+        self.install_zero_runs()
         self.pre_install_hot()
         self.drain_degraded_hot()
         # extents contiguous in guest and tier: the private layout's cold

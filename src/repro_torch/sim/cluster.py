@@ -643,8 +643,7 @@ class SimCluster:
         session = RestoreSession(reader, inst, None, scatter_fn=scatter_fn,
                                  clock=self.clock)
         yield "restore:setup"
-        for start, n in reader.zero_runs():
-            inst.uffd_zeropage_range(int(start), int(n))
+        inst.uffd_zeropage_runs(reader.zero_runs())
         yield "restore:zeros"
         session.pre_install_hot(use_batch=use_batch)
         yield "restore:hot"
@@ -719,8 +718,7 @@ class SimCluster:
         session = RestoreSession(reader, inst, None, clock=self.clock)
         session.heat = heat_registry.find(name, rec.version)
         yield "restore:setup"
-        for start, n in reader.zero_runs():
-            inst.uffd_zeropage_range(int(start), int(n))
+        inst.uffd_zeropage_runs(reader.zero_runs())
         session.pre_install_hot()
         yield "restore:hot"
         policy = PredictedOrderPolicy(max_extent_pages)

@@ -22,6 +22,7 @@ those ``chip_smoke.BENCH_LAUNCHES`` holds the card to."""
 import collections
 import json
 
+import numpy as np
 import pytest
 
 from test_torch_bench_harness import REPO, bench_launches, cpu_tally, jsonify
@@ -56,17 +57,26 @@ def test_twin_equals_reference_key_for_key(quick, tmp_path, monkeypatch):
 
 def _charges(monkeypatch, pkg, ledger_cls, images) -> list:
     """Each session's ledger charges at 8 shared same-snapshot restores, in
-    the order they were added."""
+    the order they were added (each term of an ``add_each`` a charge)."""
     log = collections.defaultdict(list)
     add = ledger_cls.add
+    add_each = getattr(ledger_cls, "add_each", None)
 
     def logged(self, key, t):
         log[id(self)].append((key, t))
         add(self, key, t)
 
+    def logged_each(self, key, ts):
+        log[id(self)].extend((key, t) for t in np.asarray(ts, dtype=np.float64).tolist())
+        add_each(self, key, ts)
+
     monkeypatch.setattr(ledger_cls, "add", logged)
+    if add_each is not None:
+        monkeypatch.setattr(ledger_cls, "add_each", logged_each)
     row = pkg.run_point(8, True, True, images)
     monkeypatch.setattr(ledger_cls, "add", add)
+    if add_each is not None:
+        monkeypatch.setattr(ledger_cls, "add_each", add_each)
     assert row["bit_identical"]
     return [seq for seq in log.values() if any(k == "uffd_copy" for k, _ in seq)]
 

@@ -2,7 +2,8 @@
 reads it: off it records nothing; on, spans nest on their thread, carry the
 cold start's request id onto the node server's threads, share the torch
 profiler's clock, and count one ``serving.extent`` a hot extent, one
-``serving.cold_rows`` a batched cold walk and one fault's hops in order;
+``serving.cold_rows`` a batched cold walk, the zero pages a start's one
+zero-run call marks, and one fault's hops in order;
 under the benchmark's traffic at a tiny size, every cold start and every
 fault carries its spans."""
 import os
@@ -326,6 +327,39 @@ def test_one_faults_hops_lie_in_order_inside_it(tracing):
     assert cq[3] == inst[3] != fault[3]        # the completion worker
 
 
+@pytest.mark.parametrize("on", [True, False])
+def test_zero_pages_count_the_pages_the_runs_mark(on):
+    """One ``serving.zero_runs`` span a restore; ``serving.zero_pages`` counts
+    the pages its one call marks, not a zero page a fault installed first.
+    Tracing off records nothing."""
+    trace.reset()
+    if on:
+        trace.enable()
+    pool, master, _image = make_pool()
+    server = core.NodePageServer("h", pool)
+    ri = restore(pool, master, server)
+    try:
+        zero = ri.engine.reader.zero_page_indices()
+        ri.engine.access(int(zero[5]), timeout_s=30)
+        before = ri.instance.stats["uffd_zeropages"]
+        ri.engine.install_all_sync()
+        marked = ri.instance.stats["uffd_zeropages"] - before
+        assert ri.instance.all_present()
+    finally:
+        ri.shutdown()
+        server.close()
+        trace.disable()
+    snap = trace.snapshot()
+    trace.reset()
+    assert before == 1 and marked == zero.size - 1
+    if not on:
+        assert snap == {"spans": [], "counters": {}, "dropped": 0}
+        return
+    (span,) = by_name(snap, "serving.zero_runs")
+    assert span[1] == ri.engine.req
+    assert snap["counters"]["serving.zero_pages"] == marked
+
+
 # ------------------------------------------------------------------ under the benchmark's traffic
 
 EAGER_SPANS = ["restore", "restore.borrow", "restore.invalidate", "restore.machine_state",
@@ -418,3 +452,38 @@ def test_every_lazy_fault_has_its_hop(tiny_runs, name):
     assert len(hops) == len(faults) - snap["counters"].get("serving.fault_joined", 0)
     for h in hops:
         assert any(f[1] == h[1] and f[4] <= h[4] <= h[5] <= f[5] for f in faults)
+
+
+@pytest.fixture(scope="module")
+def tiny_eager_zero():
+    """``fn1g5.eager`` at its tests' size, traced, with each start's zero
+    runs recorded: its request, the pages the call marked and the
+    instance's ``uffd_zeropages`` delta over it."""
+    calls = []
+    orig = core.RestoreEngine.install_zero_runs
+
+    def recorded(self):
+        before = self.instance.stats["uffd_zeropages"]
+        k = orig(self)
+        calls.append((self.req, k, self.instance.stats["uffd_zeropages"] - before,
+                      int(self.reader.zero_runs()[:, 1].sum())))
+        return k
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(core.RestoreEngine, "install_zero_runs", recorded)
+        rec, snap = traced_tiny()
+    return rec, snap, calls
+
+
+def test_each_eager_start_marks_its_zero_pages_once(tiny_eager_zero):
+    """Every eager start has exactly one ``serving.zero_runs`` span, its one
+    call marks every zero page of its image, and ``serving.zero_pages``
+    sums what the calls marked: the instances' ``uffd_zeropages`` deltas."""
+    rec, snap, calls = tiny_eager_zero
+    assert snap["dropped"] == 0 and rec["failed"] == 0
+    spans = [s[1] for s in by_name(snap, "serving.zero_runs")]
+    assert sorted(spans) == sorted(starts(snap)) and len(set(spans)) == len(spans)
+    assert sorted(c[0] for c in calls) == sorted(spans)
+    for _req, k, delta, n_zero in calls:
+        assert k == delta == n_zero > 0
+    assert snap["counters"]["serving.zero_pages"] == sum(c[1] for c in calls)
